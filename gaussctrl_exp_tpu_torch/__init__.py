@@ -1,0 +1,19 @@
+"""gaussctrl_exp_tpu_torch — the PyTorch + CUDA port of ``gaussctrl_exp_tpu``.
+
+The JAX package beside this one is the reference; this package reproduces
+its outputs with plain PyTorch tensor code and, where the JAX package runs a
+Pallas kernel, a CUDA C++ kernel written for Hopper (``csrc/``).
+
+Layout (each module names its JAX counterpart):
+  cameras.py   — camera model and view/projection matrices
+  ops/         — projection, SH, binning, blend (plain version + CUDA kernel),
+                 renderer
+  models/      — Gaussian parameters, the splat model's render
+  engine/      — splatfacto checkpoint import/export
+  cli/         — the ``camera-path`` render entry point
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
+no card they raise instead of falling back.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,1 @@
+"""engine of the PyTorch port; see the package docstring."""
