@@ -92,8 +92,25 @@ def init_random(
     rng = np.random.default_rng(seed)
     pts = (rng.uniform(size=(num, 3)).astype(np.float32) - 0.5) * 2 * extent
     rgb = (rng.uniform(size=(num, 3)) * 255).astype(np.uint8)
+    return init_from_points(pts, rgb, capacity=capacity, sh_degree=sh_degree, seed=seed, device=device)
 
-    n = num
+
+def init_from_points(
+    points_xyz: np.ndarray,
+    points_rgb: Optional[np.ndarray],
+    capacity: Optional[int] = None,
+    sh_degree: int = 3,
+    init_opacity: float = 0.1,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+) -> GaussianState:
+    """Splatfacto's init from a seed point cloud: means at the points,
+    log scales of the mean 3-NN distance, random unit quats, DC features
+    from the points' RGB (0..255, or uniform draws without colours),
+    opacity logit(init_opacity); slots past the points are dead. Draws the
+    same numpy numbers as the JAX package's ``init_from_points``."""
+    device = resolve_device(device)
+    n = points_xyz.shape[0]
     capacity = capacity or n
     if capacity < n:
         raise ValueError(f"capacity {capacity} < {n} seed points")
@@ -101,16 +118,19 @@ def init_random(
     rng = np.random.default_rng(seed)
 
     means = np.zeros((capacity, 3), np.float32)
-    means[:n] = pts
-    dist = _mean_knn_distance(pts)
+    means[:n] = points_xyz
+    dist = _mean_knn_distance(np.asarray(points_xyz, np.float32))
     scales = np.full((capacity, 3), -10.0, np.float32)
     scales[:n] = np.log(np.maximum(dist, 1e-7))[:, None]
     quats = rng.normal(size=(capacity, 4)).astype(np.float32)
     quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
     fdc = np.zeros((capacity, 3), np.float32)
-    fdc[:n] = rgb_to_sh_dc(rgb.astype(np.float32) / 255.0)
+    if points_rgb is not None:
+        fdc[:n] = rgb_to_sh_dc(points_rgb.astype(np.float32) / 255.0)
+    else:
+        fdc[:n] = rng.uniform(size=(n, 3)).astype(np.float32)
     frest = np.zeros((capacity, K - 1, 3), np.float32)
-    opac = np.full((capacity, 1), np.log(0.1 / 0.9), np.float32)
+    opac = np.full((capacity, 1), np.log(init_opacity / (1 - init_opacity)), np.float32)
 
     params = params_from_numpy(
         dict(means=means, scales=scales, quats=quats, features_dc=fdc,

@@ -63,7 +63,9 @@ def model_colors(params: GaussianParams, camera: Camera, step, cfg: SplatModelCo
         viewdirs = viewdirs / torch.clamp(torch.linalg.norm(viewdirs, dim=-1, keepdim=True), min=1e-12)
         n = min(int(step) // cfg.sh_degree_interval, cfg.sh_degree)
         rgbs = eval_sh(n, viewdirs, coeffs)
-        return torch.clamp(rgbs + 0.5, min=0.0)
+        # maximum, not clamp: at a tie (a black seed point gives exactly 0)
+        # it passes half the gradient, as jnp.maximum does
+        return torch.maximum(rgbs + 0.5, rgbs.new_zeros(()))
     return torch.sigmoid(params.features_dc)
 
 

@@ -12,8 +12,9 @@ Pixel coordinates are integers (no +0.5); ``xys`` already carries the −0.5.
 The loop is written as tensor algebra: ``T_after = cumprod(1−α)`` along the
 gaussian axis, the stop is the mask ``T_after > 1e-4`` (the product never
 increases), and the output is a (pixels × gaussians) @ (gaussians × channels)
-product. This is the version CPU tensors take and the one the CUDA kernel
-(``blend_cuda.py``) is held against.
+product. This is the version CPU tensors take and the one the CUDA kernels
+(``blend_cuda.py``) are held against; its autograd is the plain version of
+the blend backward.
 """
 
 from __future__ import annotations
@@ -57,13 +58,33 @@ def blend_weights(alpha_eff: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return w, final_T
 
 
+class _ClampAlpha(torch.autograd.Function):
+    """``min(x, 0.999)`` whose gradient passes the clamp untouched.
+
+    gsplat v0.1.2's backward and the JAX package's kernel backward
+    (``blend_pallas.py:260``) do not gate dσ and dopacity on the clamp, so
+    the port does not either; autograd of a plain ``clamp`` would."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.clamp(x, max=ALPHA_CLAMP)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def clamp_alpha(x: torch.Tensor) -> torch.Tensor:
+    return _ClampAlpha.apply(x)
+
+
 def _alphas(xy, con, opa, px, py, valid):
     """Effective alphas of gaussians (…, K) at pixels (…, P) → (…, P, K)."""
     dx = xy[..., None, :, 0] - px[..., :, None]
     dy = xy[..., None, :, 1] - py[..., :, None]
     ca, cb, cc = con[..., None, :, 0], con[..., None, :, 1], con[..., None, :, 2]
     sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
-    alpha = torch.clamp(opa[..., None, :] * torch.exp(-sigma), max=ALPHA_CLAMP)
+    alpha = clamp_alpha(opa[..., None, :] * torch.exp(-sigma))
     skip = (sigma < 0.0) | (alpha < MIN_ALPHA) | ~valid
     return torch.where(skip, 0.0, alpha)
 
@@ -99,6 +120,13 @@ def _tile_lists(bins: TileBins, t0: int, t1: int, K: int):
     return tids, bins.gid[slot].long(), valid
 
 
+def _gather(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t[idx]`` through ``index_select``, whose backward (``index_add_``)
+    sums in index order. The backward of advanced indexing adds with atomics
+    across CPU threads, so its last bits change from run to run."""
+    return torch.index_select(t, 0, idx.reshape(-1)).reshape(*idx.shape, *t.shape[1:])
+
+
 def rasterize_tiles_plain(
     xys: torch.Tensor,  # (N, 2) original order
     conics: torch.Tensor,  # (N, 3)
@@ -126,9 +154,9 @@ def rasterize_tiles_plain(
             continue  # empty tiles: img 0, T 1
         tids, g, valid = _tile_lists(bins, t0, t1, K)
         px, py = _pixel_grid(tiles_x, tids, xys.dtype)
-        aeff = _alphas(xys[g], conics[g], opacs[g], px, py, valid[:, None, :])
+        aeff = _alphas(_gather(xys, g), _gather(conics, g), _gather(opacs, g), px, py, valid[:, None, :])
         w, fT = blend_weights(aeff)  # (B, P, K), (B, P)
-        img[t0:t1] = torch.bmm(w, colors[g])
+        img[t0:t1] = torch.bmm(w, _gather(colors, g))
         final_T[t0:t1] = fT
 
     img = img.reshape(tiles_y, tiles_x, BLOCK, BLOCK, C).permute(0, 2, 1, 3, 4)
@@ -136,6 +164,28 @@ def rasterize_tiles_plain(
     final_T = final_T.reshape(tiles_y, tiles_x, BLOCK, BLOCK).permute(0, 2, 1, 3)
     final_T = final_T.reshape(tiles_y * BLOCK, tiles_x * BLOCK)
     return BlendOutputs(img=img[:img_height, :img_width], final_T=final_T[:img_height, :img_width])
+
+
+def blend_vjp_plain(
+    xys: torch.Tensor,
+    conics: torch.Tensor,
+    colors: torch.Tensor,
+    opacs: torch.Tensor,
+    bins: TileBins,
+    g_img: torch.Tensor,  # (H, W, C) cotangent of img
+    g_T: torch.Tensor,  # (H, W) cotangent of final_T
+    img_height: int,
+    img_width: int,
+) -> tuple[torch.Tensor, ...]:
+    """(d xys, d conics, d colors, d opacs): autograd through
+    ``rasterize_tiles_plain``, the plain version of the blend backward."""
+    ins = [t.detach().requires_grad_() for t in (xys, conics, colors, opacs.reshape(-1))]
+    with torch.enable_grad():
+        out = rasterize_tiles_plain(*ins, bins, img_height, img_width)
+        if not out.img.requires_grad:  # no tile has a gaussian
+            return tuple(torch.zeros_like(t) for t in ins)
+        grads = torch.autograd.grad((out.img, out.final_T), ins, (g_img, g_T), allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g for t, g in zip(ins, grads))
 
 
 def count_pairs(

@@ -73,7 +73,9 @@ def render(
     final_T = out.final_T
     alpha = (1.0 - final_T)[..., None]
     rgb = out.img[..., :3] + final_T[..., None] * background.reshape(1, 1, 3)
-    rgb = torch.clamp(rgb, max=1.0)
+    # minimum, not clamp: a pixel no gaussian reaches is exactly 1 on a white
+    # background, and at that tie jnp.minimum passes half the gradient
+    rgb = torch.minimum(rgb, rgb.new_ones(()))
 
     depth = None
     if cfg.render_depth:

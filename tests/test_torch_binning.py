@@ -17,6 +17,9 @@ from gaussctrl_exp_tpu.ops.binning import bin_gaussians
 from gaussctrl_exp_tpu.ops.projection import BLOCK, project_gaussians
 from gaussctrl_exp_tpu_torch.ops.binning import bin_gaussians as tbin
 from gaussctrl_exp_tpu_torch.ops.projection import ProjectedGaussians
+from torch_one_thread import one_torch_thread  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 JAX_CAPACITY = 1 << 12  # above every scene's n_isects here (asserted)
 jbin = jax.jit(bin_gaussians, static_argnums=(1, 2, 3))

@@ -22,6 +22,9 @@ from gaussctrl_exp_tpu_torch.ops import blend_cuda
 from gaussctrl_exp_tpu_torch.ops.binning import bin_gaussians as tbin
 from gaussctrl_exp_tpu_torch.ops.blend import rasterize_naive, rasterize_tiles_plain
 from gaussctrl_exp_tpu_torch.ops.projection import ProjectedGaussians
+from torch_one_thread import one_torch_thread  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # All three compute the transmittance in float32 in different ways (a
 # cumprod here and in the oracle, exp of a matmul of log1p in Pallas): they

@@ -18,6 +18,9 @@ from gaussctrl_exp_tpu_torch import cameras as tcam
 from gaussctrl_exp_tpu_torch.ops import projection as tproj
 from gaussctrl_exp_tpu_torch.ops import quat as tquat
 from gaussctrl_exp_tpu_torch.ops import sh as tsh
+from torch_one_thread import one_torch_thread  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # float32 on both sides; the two frameworks order a few sums differently, so
 # matrices and continuous outputs agree to a few ulp, never bit for bit

@@ -36,6 +36,9 @@ from gaussctrl_exp_tpu_torch.models.gaussians import (
 )
 from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig, render_model
 from gaussctrl_exp_tpu_torch.utils.png import read_png, write_png
+from torch_one_thread import one_torch_thread  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = Path(__file__).resolve().parent.parent
 # rgb and alpha: float32 on both sides, same math, sums in another order
