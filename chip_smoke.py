@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA card and hold its kernel to account.
+"""Drive the PyTorch port on one NVIDIA card and hold its kernels to account.
 
 Run from the repository root, with one CUDA card visible:
 
@@ -7,7 +7,8 @@ Run from the repository root, with one CUDA card visible:
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN.
-  2. build kernel B1 (csrc/blend_fwd.cu) with nvcc for sm_90a.
+  2. build kernels B1, B2 and B3 (csrc/*.cu) with nvcc for sm_90a, one
+     process per source, all started together.
   3. B1 against its plain PyTorch version on the same CUDA tensors: the
      bear-scale 512² frame (C = 4 and C = 3), a 300k-gaussian garden-scale
      frame, an all-zero-opacity scene and a 500×372 frame.
@@ -28,9 +29,22 @@ Phases (any failure exits non-zero):
      and B2 launches are read around the training run, and step 1's
      gradients are held against the plain path on the CPU at 128².
   8. timings: the train step by stage (CUDA events), its device busy share,
-     B2 against its bound and the plain VJP at bear and garden scale, and
-     ``scaled_dot_product_attention`` at the edit path's shape as the
-     yardstick of the still unported flash attention (B3).
+     B2 against its bound and the plain VJP at bear and garden scale.
+  9. kernel B3 (csrc/flash_attn_fwd.cu) against ``sdpa_plain`` in fp32 on the
+     same CUDA tensors, bf16 and fp32, at the edit path's self- and
+     cross-attention shapes, a ragged shape and a reference-view call as the
+     cross-view processor builds it.
+ 10. the edit path: ``GaussCtrlEditPipeline.render_reverse`` and
+     ``edit_images`` at the full SD1.x widths in bf16 (random weights from a
+     seed) on the bear-scale scene's 6 views at 512², then 20 fine-tune
+     steps of ``Trainer.train`` on the written-back images; B3's launches
+     are read around the edit; one full-width ``_eps`` in bf16 through B3 is
+     held against fp32 through ``sdpa_plain``, and the tiny-width fp32 edit
+     loop on the card against the same loop on the CPU.
+ 11. timings of the edit path by stage (CUDA events), the device busy share
+     of a generation step and B3's share of it (torch.profiler), and B3 at
+     every phase-9 shape against its bound and
+     ``scaled_dot_product_attention``.
 
 The last three lines of standard output are the card's name and power limit,
 one JSON object describing each kernel, and ``{"ok": true, "device": …}``.
@@ -38,11 +52,13 @@ one JSON object describing each kernel, and ``{"ok": true, "device": …}``.
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -75,9 +91,38 @@ FRAMES = 6
 TRAIN_CAPACITY = 1 << 17  # the trainer's capacity (configs.py:62 of the JAX package)
 TRAIN_STEPS = 60
 LPIPS_STEPS = 3
-# the edit path's attention (B3): SD1.x's first self-attention at a 64²
-# latent, over the CFG batch of 4 reference + 5 chunk views, doubled
-B3_SHAPE = (2 * (4 + 5), 8, 4096, 40)
+# B3 at the edit path's shapes (B, H, S, T, D): SD1.x's self- and
+# cross-attention at the 64², 32², 16² and 8² latents over the CFG batch of
+# 4 reference + 5 chunk views, doubled; then a ragged shape
+CFG_BATCH = 2 * (4 + 5)
+FLASH_MAIN = (CFG_BATCH, 8, 4096, 4096, 40)
+FLASH_SHAPES = [
+    ("self 64²", FLASH_MAIN),
+    ("self 32²", (CFG_BATCH, 8, 1024, 1024, 80)),
+    ("self 16²", (CFG_BATCH, 8, 256, 256, 160)),
+    ("self 8²", (CFG_BATCH, 8, 64, 64, 160)),
+    ("cross 64²", (CFG_BATCH, 8, 4096, 77, 40)),
+    ("cross 32²", (CFG_BATCH, 8, 1024, 77, 80)),
+    ("cross 16²", (CFG_BATCH, 8, 256, 77, 160)),
+    ("ragged", (2, 3, 100, 77, 24)),
+]
+# B3 vs sdpa_plain in fp32 on the upcast inputs. bf16: the kernel rounds its
+# output to bf16 (2^-8 relative) and its probabilities before P·V, as the
+# reference does, so max |d| ≤ 1e-2·max|plain| and relative L2 ≤ 5e-3; fp32:
+# the same sums in another order, relative L2 ≤ 1e-5
+FLASH_BF16_MAX_REL, FLASH_BF16_REL_L2, FLASH_F32_REL_L2 = 1e-2, 5e-3, 1e-5
+# one full-width ε (UNet + ControlNet) in bf16 through B3 against fp32 through
+# sdpa_plain on the same (bf16-valued) weights: bf16 rounds every
+# activation to 2^-8 through ~70 layers
+EPS_BF16_REL_L2 = 5e-2
+# the tiny fp32 edit loop on the card (B1, B3 in fp32) vs the CPU's plain
+# path: renders differ by ~1e-6 and the 2-step loops carry that forward
+TINY_LOOP_REL_L2 = 1e-3
+SD_SEED = 0
+FINETUNE_STEPS = 20
+EDIT_PROMPT, REVERSE_PROMPT = "a bronze statue of a bear", "a photo of a bear"
+# the tests' tiny SD stack (tests/test_diffusion.py TINY)
+TINY = dict(block_out=(32, 64), vae_block_out=(32, 32, 32, 32), heads=2, cross_dim=32, layers_per_block=1)
 FOV_DEG = 50.0
 T_EPS = 1e-4
 
@@ -269,20 +314,6 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_share(fn, frames=5) -> tuple[float, float]:
-    """Device time per call (ms) and kernels per call, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.device_time_total for e in evs) / 1e3 / frames, len(evs) / frames
-
-
 def roofline(n_bytes, n_ops, peak_ops_s=PEAK_F32_OPS_S) -> tuple[float, str]:
     """The least time (ms) for this work on the card, and what bounds it."""
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / peak_ops_s * 1e3
@@ -361,6 +392,344 @@ def step_gradients(state_src, cam, gt, cfg):
             {n: getattr(st.params, n).grad.detach().cpu() for n in PARAM_NAMES})
 
 
+def crc_tokenize(texts, max_len: int = 77) -> np.ndarray:
+    """``simple_tokenize`` with ``zlib.crc32`` for Python's salted ``hash``,
+    so that two runs give the same ids."""
+    ids = np.zeros((len(texts), max_len), np.int32)
+    for i, t in enumerate(texts):
+        toks = [49406] + [zlib.crc32(w.encode()) % 49000 for w in t.lower().split()][: max_len - 2] + [49407]
+        ids[i, : len(toks)] = toks
+    return ids
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    return float((got - want).norm() / want.norm())
+
+
+def check_flash(name, q, k, v) -> float:
+    """B3 against sdpa_plain in fp32 on the upcast inputs (in batch chunks of
+    at most ~2 GB of scores); returns max |d|."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    got = attention_cuda.flash_attn(q, k, v)
+    torch.cuda.synchronize()
+    B, H, S, D = q.shape
+    T = k.shape[2]
+    chunk = max(1, int(2e9 // (H * S * T * 4)))
+    want = torch.cat([attention_cuda.sdpa_plain(q[i:i + chunk].float(), k[i:i + chunk].float(),
+                                                v[i:i + chunk].float()) for i in range(0, B, chunk)])
+    d = (got.float() - want).abs()
+    err, top = float(d.max()), float(want.abs().max())
+    rel = float(d.norm() / want.norm())
+    print(f"  {name} {str(q.dtype).split('.')[-1]} (B, H, S, T, D) = {(B, H, S, T, D)}: max|d| {err:.3e} "
+          f"(max|plain| {top:.3e}) relative L2 {rel:.3e}")
+    if q.dtype == torch.bfloat16:
+        ok = err <= FLASH_BF16_MAX_REL * top and rel <= FLASH_BF16_REL_L2
+    else:
+        ok = rel <= FLASH_F32_REL_L2
+    if not ok or got.shape != q.shape or got.dtype != q.dtype:
+        raise SystemExit(f"FAIL: flash_attn_fwd disagrees with sdpa_plain on {name} {q.dtype}")
+    return err
+
+
+def flash_inputs(shape, dtype, seed, dev):
+    B, H, S, T, D = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn((B, H, L, D), generator=gen, device=dev, dtype=torch.float32).to(dtype)
+                 for L in (S, T, T))
+
+
+def flash_bound(shape, dtype) -> tuple[float, str]:
+    """Each of q, k, v read once and o written once; 4·S·T·D operations per
+    (batch, head) for the two products, at the tensor cores' bf16 peak or the
+    fp32 peak."""
+    B, H, S, T, D = shape
+    size = 2 if dtype == torch.bfloat16 else 4
+    n_bytes = size * B * H * D * (2 * S + 2 * T)
+    peak = PEAK_BF16_OPS_S if dtype == torch.bfloat16 else PEAK_F32_OPS_S
+    return roofline(n_bytes, 4 * B * H * S * T * D, peak)
+
+
+class EditViews(ViewSet):
+    """``ViewSet`` that the edit loop writes back into: the fine-tune then
+    trains on the edited images."""
+
+    def __init__(self, cameras, images, seed=0):
+        super().__init__(cameras, images, seed)
+        self.writes: list[int] = []
+
+    def write_back(self, i, img):
+        self.writes.append(i)
+        self.images[i] = torch.as_tensor(np.asarray(img, np.float32), device=self.images[i].device)
+
+
+class ArcViews:
+    """The tests' tiny edit scene: 6 cameras on an arc at 64², f = 70."""
+
+    def __init__(self, device, n=6, size=64):
+        self.device, self.n, self.size = device, n, size
+        self.images = np.zeros((n, size, size, 3), np.float32)
+
+    def __len__(self):
+        return self.n
+
+    def camera(self, i):
+        from gaussctrl_exp_tpu_torch.cameras import look_at, make_camera
+
+        ang = 0.3 * i
+        eye = np.array([4 * np.sin(ang), -4 * np.cos(ang), 1.0])
+        s = self.size
+        return make_camera(look_at(eye, np.zeros(3)), 70.0, 70.0, s / 2, s / 2, s, s, device=self.device)
+
+    def write_back(self, i, img):
+        self.images[i] = img
+
+
+def tiny_edit_loop(models, device):
+    """The tests' tiny fp32 edit loop (2 steps, chunks of 2, view 3 masked);
+    returns z0 and the written-back images."""
+    from gaussctrl_exp_tpu_torch.diffusion.pipeline import EditConfig, GaussCtrlEditPipeline
+    from gaussctrl_exp_tpu_torch.models.gaussians import init_random
+    from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig
+
+    cfg = EditConfig(edit_prompt=EDIT_PROMPT, reverse_prompt=REVERSE_PROMPT, num_inference_steps=2,
+                     chunk_size=2)
+    pipe = GaussCtrlEditPipeline(cfg, models=models, tokenizer=crc_tokenize)
+    dm = ArcViews(device)
+    pipe.render_reverse(init_random(64, capacity=64, sh_degree=1, seed=0, device=device), dm,
+                        SplatModelConfig(sh_degree=1, background_color="white"))
+    pipe.masks[3] = (np.random.default_rng(5).uniform(size=(64, 64)) > 0.5).astype(np.float32)
+    pipe.edit_images(dm)
+    return np.stack([pipe.z0[i] for i in range(dm.n)]), dm.images
+
+
+def count_transformers(module) -> int:
+    from gaussctrl_exp_tpu_torch.diffusion.attention import Transformer2D
+
+    return sum(isinstance(m, Transformer2D) for m in module.modules())
+
+
+def device_share(fn, frames=5, match="flash_fwd") -> tuple[float, float, float]:
+    """Device time per call (ms), the part of it in kernels whose name holds
+    ``match`` (ms), and device ops per call, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.device_time_total for e in evs) / 1e3 / frames
+    part = sum(e.device_time_total for e in evs if match in e.name) / 1e3 / frames
+    return total, part, len(evs) / frames
+
+
+def phase9_flash(dev) -> tuple[float, list]:
+    """B3 against sdpa_plain at every shape, bf16 and fp32; returns the
+    largest bf16 max |d| and the bf16 inputs of each shape for phase 11."""
+    print("[9] flash attention kernel vs sdpa_plain (fp32 on the upcast inputs)")
+    errs, cases = [], []
+    for i, (name, shape) in enumerate(FLASH_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = flash_inputs(shape, dtype, 100 + i, dev)
+            err = check_flash(name, q, k, v)
+            if dtype == torch.bfloat16:
+                errs.append(err)
+                cases.append((name, shape, (q, k, v)))
+    B, H, L, _, D = FLASH_MAIN
+    for dtype in (torch.bfloat16, torch.float32):  # as the cross-view processor builds a reference call
+        q, k, v = flash_inputs(FLASH_MAIN, dtype, 99, dev)
+        kg, vg = k.reshape(2, B // 2, H, L, D), v.reshape(2, B // 2, H, L, D)
+        k_r = kg[:, 1:2].expand(kg.shape).reshape(B, H, L, D)
+        v_r = vg[:, 1:2].expand(vg.shape).reshape(B, H, L, D)
+        err = check_flash("reference view 1 of each CFG group", q, k_r, v_r)
+        errs += [err] if dtype == torch.bfloat16 else []
+    return max(errs), cases
+
+
+def phase10_edit(dev, state, cams, targets) -> dict:
+    """The edit path at full SD1.x width in bf16 with random weights, the
+    fine-tune, the full-width ε check and the tiny loop card vs CPU."""
+    from gaussctrl_exp_tpu_torch.diffusion.pipeline import EditConfig, GaussCtrlEditPipeline, select_reference_views
+    from gaussctrl_exp_tpu_torch.diffusion.sd_pipeline import SDControlNetPipeline, SDModels, init_random_models
+    from gaussctrl_exp_tpu_torch.engine.trainer import TrainConfig, Trainer
+    from gaussctrl_exp_tpu_torch.models.gaussians import GaussianState
+    from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda, blend_cuda
+
+    t0 = time.perf_counter()
+    models = init_random_models(SD_SEED, dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = {n: sum(p.numel() for p in getattr(models, n).parameters())
+                for n in ("unet", "controlnet", "vae", "text_encoder")}
+    print(f"[10] SD1.x stack, random weights (seed {SD_SEED}), bf16 (text encoder fp32), made on the card in "
+          f"{time.perf_counter() - t0:.2f} s; parameters {n_params}")
+    cfg = EditConfig(edit_prompt=EDIT_PROMPT, reverse_prompt=REVERSE_PROMPT)
+    pipe = GaussCtrlEditPipeline(cfg, models=models, tokenizer=crc_tokenize)
+    views = EditViews(cams, [t.clone() for t in targets])
+    model_cfg = SplatModelConfig(background_color="white")
+    V, steps = len(views), cfg.num_inference_steps
+    n_chunks = -(-V // cfg.chunk_size)
+    per_eval = count_transformers(models.unet) + count_transformers(models.controlnet)
+    expected = V * steps * 2 * per_eval + n_chunks * steps * (2 + cfg.ref_view_num) * per_eval
+    attention_cuda.launches = 0
+    blend_cuda.launches = blend_cuda.bwd_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.render_reverse(state, views, model_cfg)
+    torch.cuda.synchronize()
+    reverse_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe.edit_images(views)
+    torch.cuda.synchronize()
+    edit_wall = time.perf_counter() - t0
+    b3, b1 = attention_cuda.launches, blend_cuda.launches
+    print(f"    render_reverse {V} views at {S}² ({steps}-step inversion each) {reverse_wall:.3f} s; edit_images "
+          f"{n_chunks} chunks of ≤ {cfg.chunk_size} views + {cfg.ref_view_num} references {edit_wall:.3f} s "
+          f"(host wall, first calls included); reference views {select_reference_views(V, cfg.ref_view_num)}")
+    print(f"    flash_attn_fwd launches {b3} (expected {expected}: {per_eval} Transformer2D blocks per UNet + "
+          f"ControlNet evaluation; inversion {V}×{steps}×{2 * per_eval}, generation "
+          f"{n_chunks}×{steps}×{(2 + cfg.ref_view_num) * per_eval}); blend_fwd launches {b1}; "
+          f"inputs the B3 wrapper copied {attention_cuda.copies}")
+    if b3 != expected or b1 != V:
+        raise SystemExit(f"FAIL: the edit path launched B3 {b3} times (expected {expected}) and B1 {b1} times "
+                         f"(expected {V})")
+    z0s = [pipe.z0[i] for i in range(V)]
+    if not all(z.shape == (S // 8, S // 8, 4) and np.isfinite(z).all() for z in z0s):
+        raise SystemExit("FAIL: a z0 is not finite or not (64, 64, 4)")
+    imgs = torch.stack(views.images)
+    print(f"    z0 std per view {[round(float(z.std()), 4) for z in z0s]}; written back {sorted(views.writes)}; "
+          f"edited images in [{float(imgs.min()):.4f}, {float(imgs.max()):.4f}], mean |edited − render| "
+          f"{float((imgs - torch.stack(targets)).abs().mean()):.4f}")
+    if sorted(views.writes) != list(range(V)) or not bool(torch.isfinite(imgs).all()) \
+            or float(imgs.min()) < 0 or float(imgs.max()) > 1:
+        raise SystemExit("FAIL: the edit did not write every view once with values in [0, 1]")
+
+    ft_cfg = TrainConfig(model=SplatModelConfig(background_color="white"), use_lpips=False)
+    ft = Trainer(GaussianState(state.params, state.alive), views, ft_cfg)
+    blend_cuda.launches = blend_cuda.bwd_launches = 0
+    t0 = time.perf_counter()
+    ft.train(FINETUNE_STEPS, log_every=5)
+    torch.cuda.synchronize()
+    ft_wall = time.perf_counter() - t0
+    ft_launches = (blend_cuda.launches, blend_cuda.bwd_launches)
+    losses = [h["main_loss"] for h in ft.history]
+    print(f"    fine-tune: {FINETUNE_STEPS} steps of Trainer.train on the edited images in {ft_wall:.3f} s host "
+          f"wall; main_loss at steps {[h['step'] for h in ft.history]}: {[round(x, 5) for x in losses]}; "
+          f"blend_fwd/blend_bwd launches {ft_launches}")
+    if not all(np.isfinite(losses)) or ft_launches != (FINETUNE_STEPS, FINETUNE_STEPS):
+        raise SystemExit("FAIL: the fine-tune loss is not finite or the blend kernels were skipped")
+
+    # one full-width ε: bf16 through B3 against fp32 through sdpa_plain on the same weights
+    rev_ctx = pipe._encode([f"{REVERSE_PROMPT}, best quality, extremely detailed"])
+    lat2 = torch.as_tensor(np.stack(z0s[:2]), device=dev)
+    hint2 = torch.as_tensor(np.stack([pipe.disparity[0], pipe.disparity[1]]), device=dev)
+    t2 = torch.full((2,), 501, dtype=torch.long, device=dev)
+    eps_bf16 = pipe.pipe._eps(lat2, t2, rev_ctx.expand(2, -1, -1), hint2, 1.0)
+    m32 = SDModels(copy.deepcopy(models.unet).float(), copy.deepcopy(models.controlnet).float(),
+                   models.vae, models.text_encoder)
+
+    def plain(q, k, v, is_cross):
+        return attention_cuda.sdpa_plain(q, k, v)
+
+    eps_f32 = SDControlNetPipeline(m32)._eps(lat2, t2, rev_ctx.expand(2, -1, -1), hint2, 1.0, plain)
+    eps_rel = rel_l2(eps_bf16.float(), eps_f32)
+    print(f"    _eps at {S // 8}² (B = 2, t = 501): bf16 through B3 vs fp32 through sdpa_plain, relative L2 "
+          f"{eps_rel:.3e} (limit {EPS_BF16_REL_L2}); std of ε {float(eps_f32.std()):.4f}")
+    del m32, eps_f32
+    if not (eps_rel <= EPS_BF16_REL_L2 and bool(torch.isfinite(eps_bf16).all())):
+        raise SystemExit("FAIL: the bf16 ε through B3 disagrees with fp32 through sdpa_plain")
+
+    # the tiny fp32 edit loop on the card vs the plain path on the CPU
+    tiny_cpu = init_random_models(SD_SEED, "cpu", torch.float32, **TINY)
+    tiny_card = SDModels(*(copy.deepcopy(m).to(dev) for m in (tiny_cpu.unet, tiny_cpu.controlnet,
+                                                              tiny_cpu.vae, tiny_cpu.text_encoder)))
+    z_card, img_card = tiny_edit_loop(tiny_card, dev)
+    z_cpu, img_cpu = tiny_edit_loop(tiny_cpu, torch.device("cpu"))
+    tiny_rel = (rel_l2(torch.as_tensor(z_card), torch.as_tensor(z_cpu)),
+                rel_l2(torch.as_tensor(img_card), torch.as_tensor(img_cpu)))
+    print(f"    tiny fp32 edit loop (6 views at 64², 2 steps), card vs CPU: z0 relative L2 {tiny_rel[0]:.3e}, "
+          f"edited images {tiny_rel[1]:.3e} (limit {TINY_LOOP_REL_L2})")
+    if max(tiny_rel) > TINY_LOOP_REL_L2:
+        raise SystemExit("FAIL: the tiny edit loop on the card disagrees with the CPU")
+    return dict(pipe=pipe, views=views, cfg=cfg, model_cfg=model_cfg, ft=ft, ft_cfg=ft_cfg, rev_ctx=rev_ctx,
+                lat2=lat2, hint2=hint2, b3_launches=b3, edit_wall=edit_wall, reverse_wall=reverse_wall)
+
+
+def phase11_timings(dev, state, cams, edit, flash_cases) -> dict:
+    """The edit path by stage, a generation step's device share, and B3 at
+    every phase-9 shape; returns B3's numbers at the main shape."""
+    from gaussctrl_exp_tpu_torch.diffusion.attention import make_cross_view_processor
+    from gaussctrl_exp_tpu_torch.diffusion.pipeline import EVAL_STEP
+    from gaussctrl_exp_tpu_torch.engine.trainer import make_train_step
+    from gaussctrl_exp_tpu_torch.models.splat_model import render_model
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    pipe, views, cfg = edit["pipe"], edit["views"], edit["cfg"]
+    sd, V, steps = pipe.pipe, len(views), cfg.num_inference_steps
+    proc = make_cross_view_processor(cfg.self_attn_coeff_unet, cfg.ref_view_num)
+    z1, h1, rev_ctx = edit["lat2"][:1], edit["hint2"][:1], edit["rev_ctx"]
+    t1 = torch.full((1,), 501, dtype=torch.long, device=dev)
+    nb = cfg.ref_view_num + cfg.chunk_size
+    z9 = torch.as_tensor(np.stack([pipe.z0[i % V] for i in range(nb)]), device=dev)
+    h9 = torch.as_tensor(np.stack([pipe.disparity[i % V] for i in range(nb)]), device=dev)
+    pos = pipe._encode([f"{EDIT_PROMPT}, best quality"]).expand(nb, -1, -1)
+    ctx18, h18 = torch.cat([pos, pos], 0), torch.cat([h9, h9], 0)
+    t18 = torch.full((2 * nb,), 501, dtype=torch.long, device=dev)
+    sd.scheduler.set_timesteps(steps)
+    sd.inverse_scheduler.set_timesteps(steps)
+
+    def gen_step():
+        eps_u, eps_c = sd._eps(torch.cat([z9, z9], 0), t18, ctx18, h18, 1.0, proc).chunk(2, 0)
+        return sd.scheduler.step(eps_u + cfg.guidance_scale * (eps_c - eps_u), 501, z9)
+
+    def render():
+        with torch.no_grad():
+            return render_model(state, cams[0], EVAL_STEP, edit["model_cfg"])
+
+    img1 = views.images[0][None]
+    gen_name = f"generation step (B = {nb}, CFG batch {2 * nb})"
+    stage = {
+        "prompt encode": time_ms(lambda: pipe._encode([EDIT_PROMPT]), iters=10),
+        "render": time_ms(render, iters=10),
+        "VAE encode (1 view)": time_ms(lambda: sd.image_to_latent(img1), iters=5),
+        "inversion step (B = 1)": time_ms(lambda: sd.inverse_scheduler.step(sd._eps(z1, t1, rev_ctx, h1, 1.0), 501, z1),
+                                          iters=5, warmup=2),
+        gen_name: time_ms(gen_step, iters=3, warmup=1),
+        f"VAE decode ({nb} views)": time_ms(lambda: sd.latent_to_image(z9), iters=3, warmup=1),
+    }
+    ft_step = make_train_step(edit["ft_cfg"])
+    stage["fine-tune step"] = time_ms(lambda: ft_step(edit["ft"].state, cams[0], views.images[0]), iters=10)
+    gen_dev_ms, gen_b3_ms, gen_ops = device_share(gen_step, frames=2)
+    print(f"[11] edit path by stage (CUDA events, warm), bf16 at full SD1.x width, {S}² views:")
+    for name, ms in stage.items():
+        print(f"    {name}: {ms:.4f} ms")
+    print(f"    edit_images wall (phase 10, {V} views, {steps} steps, host clock): {edit['edit_wall'] * 1e3:.1f} ms; "
+          f"render_reverse wall {edit['reverse_wall'] * 1e3:.1f} ms")
+    print(f"    generation step device time {gen_dev_ms:.4f} ms in {gen_ops:.0f} device ops (torch.profiler): busy "
+          f"share {gen_dev_ms / stage[gen_name]:.3f}; B3 {gen_b3_ms:.4f} ms = {gen_b3_ms / gen_dev_ms:.3f} of the "
+          f"device time")
+    rows = []
+    for name, shape, (q, k, v) in flash_cases:
+        ms = time_ms(lambda: attention_cuda.flash_attn(q, k, v), iters=10)
+        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), iters=10)
+        bound, by = flash_bound(shape, torch.bfloat16)
+        rows.append((ms, lib_ms, bound, by))
+        print(f"    B3 {name} {shape} bf16: {ms:.4f} ms; bound {bound:.5f} ms ({by}), {bound / ms:.3f} of it; "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms")
+    q, k, v = flash_cases[0][2]
+    ms, lib_ms, bound, by = rows[0]
+    plain_ms = time_ms(lambda: attention_cuda.sdpa_plain(q, k, v), iters=2, warmup=1)
+    B, H, L, T, D = FLASH_MAIN
+    print(f"    B3 main shape {FLASH_MAIN}: {ms:.4f} ms; sdpa_plain (bf16 in, fp32 softmax) {plain_ms:.4f} ms; "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms; bound {bound:.5f} ms ({by}: "
+          f"{4 * B * H * L * T * D:.3e} operations at 989 TFLOP/s)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA card",
@@ -371,7 +740,7 @@ def main() -> int:
     from gaussctrl_exp_tpu_torch.engine.checkpoint import import_splatfacto_checkpoint
     from gaussctrl_exp_tpu_torch.models.gaussians import GaussianState, params_from_numpy
     from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig, model_colors, render_model
-    from gaussctrl_exp_tpu_torch.ops import blend_cuda
+    from gaussctrl_exp_tpu_torch.ops import blend_cuda, cuda_build
     from gaussctrl_exp_tpu_torch.ops.binning import bin_gaussians
     from gaussctrl_exp_tpu_torch.ops.blend import rasterize_tiles_plain
     from gaussctrl_exp_tpu_torch.ops.projection import project_gaussians
@@ -391,10 +760,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    libs = blend_cuda.build()
-    built = ", ".join(f"{lib.name} from {blend_cuda.SOURCES[n].relative_to(ROOT)}" for n, lib in libs.items())
+    libs = cuda_build.build()
+    built = ", ".join(f"{lib.name} from {cuda_build.SOURCES[n].relative_to(ROOT)}" for n, lib in libs.items())
     print(f"[2] built {built} in {time.perf_counter() - t0:.2f} s, one nvcc per source in parallel "
-          f"(nvcc {' '.join(blend_cuda.NVCC_FLAGS)})")
+          f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)}; per source {cuda_build.EXTRA_FLAGS})")
+    for line in cuda_build.logs.get("flash_attn_fwd", "").splitlines():
+        if "Compiling entry" in line or "Used" in line:
+            print("    ptxas " + line.split("ptxas info    :")[-1].strip())
 
     bear = synthetic_params(N_BEAR, 0, 0.8, -4.2, 0.5)
     garden = synthetic_params(N_GARDEN, 7, 1.2, -5.3, 0.4)
@@ -498,7 +870,7 @@ def main() -> int:
             plain_ms = time_ms(lambda: rasterize_tiles_plain(*bear_args, bear_bins, S, S), iters=5, warmup=1)
             g_kernel_ms = time_ms(lambda: blend_cuda.rasterize_tiles(*g_args, g_bins, S, S), iters=20)
             g_plain_ms = time_ms(lambda: rasterize_tiles_plain(*g_args, g_bins, S, S), iters=3, warmup=1)
-            dev_ms, kernels_per_frame = device_share(lambda: render_model(state, cam0, cli.EVAL_STEP, cfg))
+            dev_ms, _, kernels_per_frame = device_share(lambda: render_model(state, cam0, cli.EVAL_STEP, cfg))
         bound_ms, bound_by, work = blend_bound(bear_args, bear_bins, S, S)
         g_bound_ms, g_bound_by, g_work = blend_bound(g_args, g_bins, S, S)
         print(f"[5] bear {S}² per frame (CUDA events, warm): render_model {frame_ms:.4f} ms = "
@@ -649,7 +1021,7 @@ def main() -> int:
                 per_stage[name] += prev.elapsed_time(e) / iters
                 prev = e
             step_total += begin.elapsed_time(marks[-1]) / iters
-        step_dev_ms, step_ops = device_share(lambda: plain_step(st, cam0, gt0))
+        step_dev_ms, _, step_ops = device_share(lambda: plain_step(st, cam0, gt0))
         t_args, t_bins = blend_inputs(GaussianState(st.params, st.alive), cam0, 3)
         fwd_t = blend_cuda.blend_forward(*t_args, t_bins, S, S)
         gen = torch.Generator(device=dev).manual_seed(3)
@@ -675,13 +1047,9 @@ def main() -> int:
               f"({bwd_bound_by}); work {bwd_work}")
         print(f"    garden {N_GARDEN} blend_bwd {g_bwd_ms:.4f} ms vs plain VJP {g_bwd_plain_ms:.4f} ms; bound "
               f"{g_bwd_bound_ms:.5f} ms ({g_bwd_bound_by}); n_isects {g_bins.n_isects}; work {g_bwd_work}")
-        B, H, L, D = B3_SHAPE
-        q, k, v = (torch.randn(B3_SHAPE, dtype=torch.bfloat16, device=dev, generator=gen) for _ in range(3))
-        sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
-        b3_bound_ms, b3_by = roofline(4 * B * H * L * D * 2, 4 * B * H * L * L * D, PEAK_BF16_OPS_S)
-        print(f"    B3 yardstick (not a port; the port has no caller yet): scaled_dot_product_attention "
-              f"(B, H, S, D) = {B3_SHAPE} bf16 {sdpa_ms:.4f} ms; bound {b3_bound_ms:.5f} ms ({b3_by}: "
-              f"{4 * B * H * L * L * D:.3e} operations at 989 TFLOP/s, {4 * B * H * L * D * 2 / 1e6:.1f} MB)")
+        flash_max_abs_err, flash_cases = phase9_flash(dev)
+        edit = phase10_edit(dev, state, cams, targets)
+        flash = phase11_timings(dev, state, cams, edit, flash_cases)
         print(f"    total chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     kernels = {"kernels": [{
@@ -709,6 +1077,18 @@ def main() -> int:
         "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by,
         "library_ms": None,
+    }, {
+        "name": "flash_attn_fwd",
+        "route": "cuda",
+        "source": "gaussctrl_exp_tpu_torch/csrc/flash_attn_fwd.cu",
+        "replaces": "gaussctrl_exp_tpu/diffusion/attention.py:37 (_flash_sdpa, the library TPU flash attention)",
+        "launches": edit["b3_launches"],
+        "max_abs_err": flash_max_abs_err,
+        "ms": flash["ms"],
+        "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"],
     }]}
     print(smi_line())
     print(json.dumps(kernels))

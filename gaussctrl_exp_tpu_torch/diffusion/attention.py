@@ -1,0 +1,162 @@
+"""Attention with pluggable processors, and the SD1.x transformer blocks.
+
+Port of ``gaussctrl_exp_tpu/diffusion/attention.py``. A processor is a
+function ``processor(q, k, v, is_cross) → out`` over (B, H, L, D) heads,
+passed through the module call. ``make_cross_view_processor`` is the
+reference's CrossViewAttnProcessor ("AttnAlign"): in self-attention, with the
+batch laid out as ``unet_chunk_size`` CFG groups × V views, every view's
+queries also attend to the keys and values of reference views 0..3 of its
+group, and the output is ``coeff·self + (1−coeff)·mean(ref0..ref3)``;
+cross-attention (text) is untouched.
+
+``_sdpa`` sends every call on a CUDA tensor to kernel B3
+(``ops/attention_cuda.flash_attn``), self and cross, whatever its shape, and
+every call on a CPU tensor to the plain version ``sdpa_plain``.
+
+Modules are NCHW / (B, L, C) PyTorch modules whose attribute names mirror the
+Flax ones (``to_q``, ``to_out_0``, ``ff.proj``, ``transformer_blocks_0``), so
+that carrying weights across is a mechanical rename (``params.py``). Flax's
+defaults come across: LayerNorm ε = 1e-6, Transformer2D's GroupNorm ε = 1e-6,
+and ``jax.nn.gelu``'s tanh approximation in the GEGLU feed-forward.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import attention_cuda
+from ..ops.attention_cuda import sdpa_plain
+
+Processor = Callable[..., torch.Tensor]
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, D) scaled dot-product attention (fp32 softmax)."""
+    if q.device.type == "cuda":
+        return attention_cuda.flash_attn(q, k, v)
+    if q.device.type == "cpu":
+        return sdpa_plain(q, k, v)
+    raise ValueError(f"no attention for device {q.device}")
+
+
+def default_processor(q, k, v, is_cross: bool) -> torch.Tensor:
+    return _sdpa(q, k, v)
+
+
+def make_cross_view_processor(
+    self_attn_coeff: float, num_ref_views: int = 4, unet_chunk_size: int = 2
+) -> Processor:
+    """Five ``_sdpa`` calls per self-attention (self + one per reference
+    view), as the JAX processor makes them; one per cross-attention."""
+
+    def processor(q, k, v, is_cross: bool) -> torch.Tensor:
+        if is_cross:
+            return _sdpa(q, k, v)
+        B, H, S, D = q.shape
+        V = B // unet_chunk_size  # views per CFG group
+        out_self = _sdpa(q, k, v)
+
+        # K/V of reference view r, broadcast to every view of the group
+        kg = k.reshape(unet_chunk_size, V, H, S, D)
+        vg = v.reshape(unet_chunk_size, V, H, S, D)
+        ref_outs = []
+        for r in range(num_ref_views):
+            k_r = kg[:, r : r + 1].expand(kg.shape).reshape(B, H, S, D)
+            v_r = vg[:, r : r + 1].expand(vg.shape).reshape(B, H, S, D)
+            ref_outs.append(_sdpa(q, k_r, v_r))
+        out_ref = torch.stack(ref_outs).mean(0)
+        return self_attn_coeff * out_self + (1.0 - self_attn_coeff) * out_ref
+
+    return processor
+
+
+class Attention(nn.Module):
+    """Multi-head attention matching diffusers' Attention (to_q/k/v, to_out)."""
+
+    def __init__(self, query_dim: int, heads: int = 8, dim_head: int = 64,
+                 cross_attention_dim: Optional[int] = None):
+        super().__init__()
+        inner = heads * dim_head
+        kv_dim = cross_attention_dim or query_dim
+        self.heads, self.dim_head = heads, dim_head
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(kv_dim, inner, bias=False)
+        self.to_v = nn.Linear(kv_dim, inner, bias=False)
+        self.to_out_0 = nn.Linear(inner, query_dim)
+
+    def forward(self, hidden_states, context=None, processor: Optional[Processor] = None):
+        is_cross = context is not None
+        ctx = hidden_states if context is None else context
+        q = self.to_q(hidden_states)
+        k = self.to_k(ctx)
+        v = self.to_v(ctx)
+        B, S, inner = q.shape
+        T = k.shape[1]
+
+        def split(x, L):  # a strided view: B3 reads the heads in place
+            return x.view(B, L, self.heads, self.dim_head).transpose(1, 2)
+
+        out = (processor or default_processor)(split(q, S), split(k, T), split(v, T), is_cross)
+        out = out.transpose(1, 2).reshape(B, S, inner)
+        return self.to_out_0(out)
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward (diffusers ff.net.0.proj + ff.net.2), with the
+    tanh-approximate GELU of ``jax.nn.gelu``'s default."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        inner = dim * mult
+        self.proj = nn.Linear(dim, inner * 2)
+        self.out = nn.Linear(inner, dim)
+
+    def forward(self, x):
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return self.out(h * F.gelu(gate, approximate="tanh"))
+
+
+class BasicTransformerBlock(nn.Module):
+    """attn1 (self, processor-pluggable) → attn2 (cross) → GEGLU ff."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim: int = 768):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn1 = Attention(dim, heads, dim_head)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn2 = Attention(dim, heads, dim_head, cross_attention_dim)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-6)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, context, processor=None):
+        x = x + self.attn1(self.norm1(x), processor=processor)
+        x = x + self.attn2(self.norm2(x), context=context, processor=processor)
+        return x + self.ff(self.norm3(x))
+
+
+class Transformer2D(nn.Module):
+    """GroupNorm → proj_in → transformer blocks → proj_out + residual, on NCHW."""
+
+    def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
+                 cross_attention_dim: int = 768):
+        super().__init__()
+        self.depth = depth
+        self.norm = nn.GroupNorm(32, channels, eps=1e-6)
+        self.proj_in = nn.Linear(channels, channels)
+        for i in range(depth):
+            self.add_module(f"transformer_blocks_{i}",
+                            BasicTransformerBlock(channels, heads, dim_head, cross_attention_dim))
+        self.proj_out = nn.Linear(channels, channels)
+
+    def forward(self, x, context, processor=None):
+        B, C, H, W = x.shape
+        h = self.norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
+        h = self.proj_in(h)
+        for i in range(self.depth):
+            h = getattr(self, f"transformer_blocks_{i}")(h, context, processor)
+        h = self.proj_out(h)
+        return h.reshape(B, H, W, C).permute(0, 3, 1, 2) + x

@@ -12,37 +12,21 @@ one thread per pixel, with the tile's gaussians staged through shared memory
 (shared atomics), then the tiles (one global atomic per gaussian and field).
 
 ``BlendFunction`` puts them behind autograd: forward B1, backward B2. The
-sources are compiled with ``nvcc`` at first use, one process per source, all
-started together, into plain-C shared libraries under
-``gaussctrl_exp_tpu_torch/_build/`` keyed by a hash of the source, and loaded
-with ``ctypes``. Nothing is built at import.
+sources are compiled by ``cuda_build`` at first use, with the port's other
+kernels; nothing is built at import.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from . import cuda_build
 from .binning import TileBins
 from .blend import BlendOutputs, blend_vjp_plain, rasterize_tiles_plain
 from .projection import BLOCK
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCES = {
-    "blend_fwd": _PKG / "csrc" / "blend_fwd.cu",
-    "blend_bwd": _PKG / "csrc" / "blend_bwd.cu",
-}
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-]
 MAX_CHANNELS = 8
 _ARGTYPES = {
     "blend_fwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
@@ -51,59 +35,10 @@ _ARGTYPES = {
 
 launches = 0  # B1 launches since the caller last set it to 0
 bwd_launches = 0  # B2 launches since the caller last set it to 0
-_libs: dict[str, ctypes.CDLL] = {}
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found; the blend kernels are built from source with nvcc")
-    return path
-
-
-def library_path(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{key}.so"
-
-
-def build() -> dict[str, Path]:
-    """Compile every kernel source that has no library for its hash yet,
-    one ``nvcc`` per source, all started together; returns the libraries."""
-    jobs = []
-    for name, source in SOURCES.items():
-        lib = library_path(name)
-        if lib.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        log = open(lib.with_suffix(f".{os.getpid()}.log"), "w+")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-        jobs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, lib, log))
-    failed = []
-    for proc, tmp, lib, log in jobs:
-        rc = proc.wait()
-        log.seek(0)
-        text = log.read()
-        log.close()
-        os.unlink(log.name)
-        if rc != 0:
-            failed.append(f"nvcc failed ({rc}) for {lib.name}:\n{text}")
-        else:
-            os.replace(tmp, lib)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return {name: library_path(name) for name in SOURCES}
 
 
 def _library(name: str) -> ctypes.CDLL:
-    if name not in _libs:
-        lib = ctypes.CDLL(str(build()[name]))
-        fn = getattr(lib, f"gctorch_{name}")
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return _libs[name]
+    return cuda_build.load(name, _ARGTYPES[name])
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:

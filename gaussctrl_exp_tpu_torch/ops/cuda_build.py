@@ -1,0 +1,97 @@
+"""Build and load the port's CUDA kernels (B1, B2, B3).
+
+Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
+plain-C shared library, keyed by a hash of the source and its flags, under
+``gaussctrl_exp_tpu_torch/_build/``, and loaded with ``ctypes``. ``build()``
+starts one ``nvcc`` per source that has no library yet, all together, and
+waits for them; nothing is built when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCES = {
+    "blend_fwd": _PKG / "csrc" / "blend_fwd.cu",
+    "blend_bwd": _PKG / "csrc" / "blend_bwd.cu",
+    "flash_attn_fwd": _PKG / "csrc" / "flash_attn_fwd.cu",
+}
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+# the blend kernels keep the plain version's roundings (no fused multiply-add);
+# B3's build prints its registers and spills (ptxas -v) into its log
+EXTRA_FLAGS = {
+    "blend_fwd": ["-fmad=false"],
+    "blend_bwd": ["-fmad=false"],
+    "flash_attn_fwd": ["-Xptxas=-v"],
+}
+
+logs: dict[str, str] = {}  # nvcc's output for each source built by this process
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def flags(name: str) -> list[str]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found; the port's kernels are built from source with nvcc")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = SOURCES[name].read_bytes()
+    key = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}_{key}.so"
+
+
+def build() -> dict[str, Path]:
+    """Compile every kernel source that has no library for its hash yet,
+    one ``nvcc`` per source, all started together; returns the libraries."""
+    jobs = []
+    for name, source in SOURCES.items():
+        lib = library_path(name)
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        log = open(lib.with_suffix(f".{os.getpid()}.log"), "w+")
+        cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(source)]
+        jobs.append((name, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, lib, log))
+    failed = []
+    for name, proc, tmp, lib, log in jobs:
+        rc = proc.wait()
+        log.seek(0)
+        logs[name] = log.read()
+        log.close()
+        os.unlink(log.name)
+        if rc != 0:
+            failed.append(f"nvcc failed ({rc}) for {lib.name}:\n{logs[name]}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: library_path(name) for name in SOURCES}
+
+
+def load(name: str, argtypes: list) -> ctypes.CDLL:
+    """The library of kernel ``name`` (built if needed), with its entry
+    point ``gctorch_<name>`` typed by ``argtypes`` and returning an int."""
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build()[name]))
+        fn = getattr(lib, f"gctorch_{name}")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return _libs[name]

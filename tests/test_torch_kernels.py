@@ -1,5 +1,5 @@
-"""Kernels B1 and B2 (the CUDA tile blend and its backward) against their
-plain PyTorch versions.
+"""Kernels B1 and B2 (the CUDA tile blend and its backward) and B3 (the
+flash-attention forward) against their plain PyTorch versions.
 
 Needs an NVIDIA card and nvcc; without a card every test here skips. The
 file imports neither JAX nor the JAX package and uses no fixture of
@@ -174,3 +174,93 @@ def test_backward_kernel_refuses_what_it_does_not_take(cuda_device):
     xys, conics, chan, opacs = args
     with pytest.raises(TypeError):
         blend_cuda.blend_backward(xys.double(), conics, chan, opacs, bins, *res, H, W)
+
+
+# ---------------------------------------------------------------- kernel B3
+
+def _qkv(device, dtype, B, H, S, T, D, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    mk = lambda L: torch.randn((B, H, L, D), generator=gen).to(device=device, dtype=dtype)
+    return mk(S), mk(T), mk(T)
+
+
+def _check_flash(q, k, v):
+    """B3 against sdpa_plain in fp32 on the upcast inputs. bf16: the output is
+    rounded to bf16 (2^-8 relative) and so are the probabilities before P·V,
+    so max |d| ≤ 1e-2·max|plain| and relative L2 ≤ 5e-3; fp32: the same sums
+    in another order, relative L2 ≤ 1e-5."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    before = attention_cuda.launches
+    got = attention_cuda.flash_attn(q, k, v)
+    torch.cuda.synchronize()
+    assert attention_cuda.launches == before + 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    want = attention_cuda.sdpa_plain(q.float(), k.float(), v.float())
+    d = got.float() - want
+    rel = float(d.norm() / want.norm())
+    if q.dtype == torch.bfloat16:
+        assert float(d.abs().max()) <= 1e-2 * float(want.abs().max()), float(d.abs().max())
+        assert rel <= 5e-3, rel
+    else:
+        assert rel <= 1e-5, rel
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [16, 40, 80, 160])
+@pytest.mark.parametrize("S,T", [(256, 256), (200, 77), (100, 130)])
+def test_flash_attn_matches_plain(cuda_device, dtype, D, S, T):
+    _check_flash(*_qkv(cuda_device, dtype, 2, 3, S, T, D, seed=D + S))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attn_strided_heads(cuda_device, dtype):
+    """The head split's transposed view (B, S, H, D) → (B, H, S, D) goes in
+    without a copy and gives what the contiguous tensors give."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    B, H, S, T, D = 2, 4, 96, 77, 24
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    mk = lambda L: torch.randn((B, L, H * D), generator=gen).to(cuda_device, dtype).view(B, L, H, D).transpose(1, 2)
+    q, k, v = mk(S), mk(T), mk(T)
+    assert not q.is_contiguous()
+    copies = attention_cuda.copies
+    got = _check_flash(q, k, v)
+    assert attention_cuda.copies == copies
+    torch.testing.assert_close(got, attention_cuda.flash_attn(q.contiguous(), k.contiguous(), v.contiguous()),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attn_broadcast_reference(cuda_device):
+    """The cross-view processor's reference call: every view of a CFG group
+    attends to reference view r's keys and values."""
+    B, H, S, D = 10, 2, 64, 40
+    q, k, v = _qkv(cuda_device, torch.bfloat16, B, H, S, S, D, seed=9)
+    kg, vg = k.reshape(2, 5, H, S, D), v.reshape(2, 5, H, S, D)
+    k_r = kg[:, 1:2].expand(kg.shape).reshape(B, H, S, D)
+    v_r = vg[:, 1:2].expand(vg.shape).reshape(B, H, S, D)
+    _check_flash(q, k_r, v_r)
+
+
+@pytest.mark.cuda
+def test_flash_attn_refuses_what_it_does_not_take(cuda_device):
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 2, 32, 32, 40)
+    with pytest.raises(ValueError):  # D not a multiple of 8
+        attention_cuda.flash_attn(q[..., :36], k[..., :36], v[..., :36])
+    big = _qkv(cuda_device, torch.bfloat16, 1, 1, 8, 8, 168)
+    with pytest.raises(ValueError):  # D over 160
+        attention_cuda.flash_attn(*big)
+    with pytest.raises(ValueError):  # a CPU tensor
+        attention_cuda.flash_attn(q.cpu(), k.cpu(), v.cpu())
+    with pytest.raises(TypeError):  # mixed types
+        attention_cuda.flash_attn(q, k.float(), v)
+    with pytest.raises(TypeError):  # fp16
+        attention_cuda.flash_attn(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):  # k and v disagree
+        attention_cuda.flash_attn(q, k, v[:, :, :16])
