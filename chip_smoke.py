@@ -7,8 +7,8 @@ Run from the repository root, with one CUDA card visible:
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN.
-  2. build kernels B1, B2 and B3 (csrc/*.cu) with nvcc for sm_90a, one
-     process per source, all started together.
+  2. build kernels B1, B2, B3 and B4/B5 (csrc/*.cu) with nvcc for sm_90a,
+     one process per source, all started together.
   3. B1 against its plain PyTorch version on the same CUDA tensors: the
      bear-scale 512² frame (C = 4 and C = 3), a 300k-gaussian garden-scale
      frame, an all-zero-opacity scene and a 500×372 frame.
@@ -45,6 +45,26 @@ Phases (any failure exits non-zero):
      of a generation step and B3's share of it (torch.profiler), and B3 at
      every phase-9 shape against its bound and
      ``scaled_dot_product_attention``.
+ 12. kernels B4 (dK, dV) and B5 (dQ) (csrc/flash_attn_bwd.cu) against
+     autograd through ``sdpa_plain`` in fp32 on the same CUDA tensors, bf16
+     and fp32, at the depth generator's training shapes (4 views, 64²
+     latents), a ragged shape and strided head-split views; two runs bit for
+     bit; B3's output with and without its log-sum-exp; the gradient through
+     ``diffusion.attention._sdpa`` on the card.
+ 13. the depth generator at full SD1.x width (859,523,844 parameters, fp32,
+     random weights) on 4 rendered views: one step's gradient through
+     B3/B4/B5 against the same step through ``sdpa_plain``; 3 Adam steps of
+     ``train_step`` with B3, B4 and B5 launches read around them; 4-step
+     ``sample`` at CFG batch 8; the tiny generator's step card vs CPU.
+ 14. the experimental paths at full width in bf16 on phase 10's caches:
+     ``edit_images`` with the correspondence and the triplane processors
+     (5 steps instead of 20), ``SDInpaintPipeline.inpaint_images`` on one
+     view, ``render_noise_mask`` on one view's depth (B1 counted).
+ 15. timings: the generator's train step by stage, its busy share and B4 +
+     B5's share of the backward (torch.profiler); B4 and B5 at every
+     phase-12 shape against their bounds and the backward of
+     ``scaled_dot_product_attention``; a sampling step and the
+     correspondence processor's share of it.
 
 The last three lines of standard output are the card's name and power limit,
 one JSON object describing each kernel, and ``{"ok": true, "device": …}``.
@@ -52,6 +72,7 @@ one JSON object describing each kernel, and ``{"ok": true, "device": …}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -510,21 +531,27 @@ def count_transformers(module) -> int:
     return sum(isinstance(m, Transformer2D) for m in module.modules())
 
 
-def device_share(fn, frames=5, match="flash_fwd") -> tuple[float, float, float]:
-    """Device time per call (ms), the part of it in kernels whose name holds
-    ``match`` (ms), and device ops per call, from torch.profiler."""
+def device_times(fn, match) -> tuple[float, float, float]:
+    """Device time of one call (ms), the part in kernels whose name holds
+    ``match`` (ms), and the device ops, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
-            fn()
+        fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(e.device_time_total for e in evs) / 1e3 / frames
-    part = sum(e.device_time_total for e in evs if match in e.name) / 1e3 / frames
-    return total, part, len(evs) / frames
+    return (sum(e.device_time_total for e in evs) / 1e3,
+            sum(e.device_time_total for e in evs if match in e.name) / 1e3, len(evs))
+
+
+def device_share(fn, frames=5, match="flash_fwd") -> tuple[float, float, float]:
+    """Device time per call (ms), the part of it in kernels whose name holds
+    ``match`` (ms), and device ops per call, from torch.profiler, after one
+    warm-up call."""
+    fn()
+    total, part, ops = device_times(lambda: [fn() for _ in range(frames)], match)
+    return total / frames, part / frames, ops / frames
 
 
 def phase9_flash(dev) -> tuple[float, list]:
@@ -729,6 +756,520 @@ def phase11_timings(dev, state, cams, edit, flash_cases) -> dict:
           f"{4 * B * H * L * T * D:.3e} operations at 989 TFLOP/s)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms)
 
+# ---------------------------------------------------------------- phases 12-15
+
+# B4/B5 at the depth generator's training shapes (B, H, S, T, D): 4 views at
+# 64² latents, SD1.x's self-attention at 64², 32², 16², 8² and its
+# cross-attention to the 77 text tokens; then a ragged shape
+MV_V = 4
+MV_MAIN = (MV_V, 8, 4096, 4096, 40)
+MV_SHAPES = [
+    ("self 64²", MV_MAIN),
+    ("self 32²", (MV_V, 8, 1024, 1024, 80)),
+    ("self 16²", (MV_V, 8, 256, 256, 160)),
+    ("self 8²", (MV_V, 8, 64, 64, 160)),
+    ("cross 64²", (MV_V, 8, 4096, 77, 40)),
+    ("cross 32²", (MV_V, 8, 1024, 77, 80)),
+    ("cross 16²", (MV_V, 8, 256, 77, 160)),
+    ("ragged", (2, 3, 100, 77, 24)),
+]
+# B4/B5 against autograd through sdpa_plain in fp32 on the upcast inputs and
+# cotangent, relative L2 per gradient. fp32: the same sums in another order;
+# bf16: the gradients are rounded to bf16, and so are P and dS before their
+# products, as the forward rounds P
+BWD_F32_REL_L2, BWD_BF16_REL_L2 = 1e-5, 1.5e-2
+# B4 does 4 products per (b, h, s, t, d) (Q·Kᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q), B5 3
+# (Q·Kᵀ, dO·Vᵀ, dS·K): 2 operations each
+OPS_B4, OPS_B5 = 8, 6
+MV_PARAMS = 859_523_844  # the SD1.x UNet's 859,520,964 + 320·9 for the depth channel
+MV_ORBIT = 24  # 4 views 15° apart on phase 4's orbit
+MV_LR = 1e-5
+MV_TRAIN_STEPS = 3
+MV_SAMPLE_STEPS = 4
+# the full-width fp32 gradient through B3/B4/B5 against the same step through
+# sdpa_plain: each attention differs by ~1e-6 and the UNet carries it
+MV_GRAD_REL_L2 = 1e-3
+# the tiny fp32 train step on the card against the CPU: loss and gradient
+MV_TINY_REL = 1e-4
+TINY_GEN = dict(block_out=(32, 64), heads=2, cross_dim=16, layers_per_block=1)
+EXP_STEPS = 5  # the experimental processors' edits: 5 steps instead of 20
+INPAINT_STEPS = 20
+
+
+def flash_grads(q, k, v, dout):
+    """FlashAttnFunction's output and (dq, dk, dv)."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = attention_cuda.FlashAttnFunction.apply(*leaves)
+    return out, torch.autograd.grad(out, leaves, dout)
+
+
+def plain_grads(q, k, v, dout):
+    """(dq, dk, dv) of autograd through sdpa_plain in fp32 on the upcast
+    inputs, in batch chunks of at most ~2 GB of scores."""
+    from gaussctrl_exp_tpu_torch.ops.attention_cuda import sdpa_plain
+
+    B, H, S, _ = q.shape
+    chunk = max(1, int(2e9 // (H * S * k.shape[2] * 4)))
+    parts = []
+    for i in range(0, B, chunk):
+        ref = [t[i:i + chunk].detach().float().requires_grad_() for t in (q, k, v)]
+        parts.append(torch.autograd.grad(sdpa_plain(*ref), ref, dout[i:i + chunk].float()))
+    return [torch.cat([p[j] for p in parts]) for j in range(3)]
+
+
+def check_flash_bwd(name, q, k, v, seed) -> dict:
+    """B4/B5 against autograd through sdpa_plain; returns max |d| of dq (B5)
+    and of dk, dv (B4)."""
+    gen = torch.Generator(device=q.device).manual_seed(seed)
+    dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    _, got = flash_grads(q, k, v, dout)
+    torch.cuda.synchronize()
+    want = plain_grads(q, k, v, dout)
+    limit = BWD_BF16_REL_L2 if q.dtype == torch.bfloat16 else BWD_F32_REL_L2
+    errs, parts, ok = {}, [], True
+    for gname, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        d = g.float() - w
+        rel, err = float(d.norm() / w.norm()), float(d.abs().max())
+        errs[gname] = err
+        parts.append(f"{gname} relL2 {rel:.3e} max|d| {err:.3e} (max|plain| {float(w.abs().max()):.3e})")
+        ok &= rel <= limit and g.shape == x.shape and g.dtype == x.dtype and bool(torch.isfinite(g).all())
+    print(f"  {name} {str(q.dtype).split('.')[-1]} (B, H, S, T, D) = {tuple(q.shape[:3]) + tuple(k.shape[2:])}: "
+          + "; ".join(parts))
+    if not ok:
+        raise SystemExit(f"FAIL: flash_attn_bwd disagrees with autograd through sdpa_plain on {name} {q.dtype}")
+    return {"B5": errs["dq"], "B4": max(errs["dk"], errs["dv"])}
+
+
+def phase12_flash_bwd(dev) -> dict:
+    """B4/B5 against autograd through sdpa_plain at the depth generator's
+    shapes, bf16 and fp32; a strided view; two runs bit for bit; B3's
+    output with and without the log-sum-exp; the gradient through _sdpa."""
+    from gaussctrl_exp_tpu_torch.diffusion.attention import _sdpa
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    print("[12] flash attention backward kernels (B4 dK/dV, B5 dQ) vs autograd through sdpa_plain (fp32)")
+    errs = {torch.bfloat16: {"B4": 0.0, "B5": 0.0}, torch.float32: {"B4": 0.0, "B5": 0.0}}
+    for i, (name, shape) in enumerate(MV_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            e = check_flash_bwd(name, *flash_inputs(shape, dtype, 200 + i, dev), seed=300 + i)
+            errs[dtype] = {kk: max(errs[dtype][kk], e[kk]) for kk in e}
+    B, H, S, T, D = 2, 4, 96, 77, 24  # the head split's transposed views
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        mk = lambda L: torch.randn((B, L, H * D), generator=gen, device=dev).to(dtype).view(B, L, H, D).transpose(1, 2)
+        q, k, v = mk(S), mk(T), mk(T)
+        copies = attention_cuda.copies
+        check_flash_bwd("strided head-split views", q, k, v, seed=6)
+        dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+        a = flash_grads(q, k, v, dout)[1]
+        b = flash_grads(q.contiguous(), k.contiguous(), v.contiguous(), dout)[1]
+        if attention_cuda.copies != copies or not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise SystemExit("FAIL: the strided views were copied, or gave other gradients than contiguous inputs")
+    for dtype in (torch.bfloat16, torch.float32):  # determinism and the log-sum-exp at the main shape
+        q, k, v = flash_inputs(MV_MAIN, dtype, 7, dev)
+        dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(8), device=dev).to(dtype)
+        first, second = flash_grads(q, k, v, dout)[1], flash_grads(q, k, v, dout)[1]
+        same = all(torch.equal(x, y) for x, y in zip(first, second))
+        out_plain = attention_cuda.flash_attn(q, k, v)
+        out, lse = attention_cuda.flash_attn(q, k, v, return_lse=True)
+        want = torch.logsumexp(torch.matmul(q[:1].float(), k[:1].float().transpose(-1, -2)) * MV_MAIN[-1] ** -0.5, -1)
+        lse_err = float((lse[:1] - want).abs().max())
+        print(f"  {str(dtype).split('.')[-1]} {MV_MAIN}: two backward runs bit-identical {same}; B3 output with and "
+              f"without the log-sum-exp bit-identical {torch.equal(out, out_plain)}; lse max|d| vs logsumexp of the "
+              f"fp32 scores (batch 0) {lse_err:.3e}")
+        if not (same and torch.equal(out, out_plain) and lse_err <= 1e-3):
+            raise SystemExit("FAIL: the backward is not deterministic, or the log-sum-exp changed B3's output")
+    for dtype in (torch.bfloat16, torch.float32):  # _sdpa keeps the gradient on the card
+        q, k, v = (t.requires_grad_() for t in flash_inputs((2, 8, 1024, 1024, 80), dtype, 9, dev))
+        out = _sdpa(q, k, v)
+        out.float().square().sum().backward()
+        ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        attention_cuda.sdpa_plain(*ref).square().sum().backward()
+        rels = [float((t.grad.float() - r.grad).norm() / r.grad.norm()) for t, r in zip((q, k, v), ref)]
+        limit = BWD_BF16_REL_L2 if dtype == torch.bfloat16 else BWD_F32_REL_L2
+        print(f"  _sdpa on CUDA inputs that require grad ({str(dtype).split('.')[-1]}): out.requires_grad "
+              f"{out.requires_grad}, grad_fn {type(out.grad_fn).__name__}; dq, dk, dv relative L2 vs plain "
+              + ", ".join(f"{r:.3e}" for r in rels))
+        if not out.requires_grad or max(rels) > limit:
+            raise SystemExit("FAIL: _sdpa on the card drops or corrupts the gradient through attention")
+    return errs
+
+
+@contextlib.contextmanager
+def attention_through_plain():
+    """Every ``_sdpa`` call of the diffusion modules goes to ``sdpa_plain``
+    (the processors stay as they are); yields the count of those calls."""
+    from gaussctrl_exp_tpu_torch.diffusion import attention, correspondence, triplane_attention
+    from gaussctrl_exp_tpu_torch.ops.attention_cuda import sdpa_plain
+
+    calls = [0]
+
+    def plain(q, k, v):
+        calls[0] += 1
+        return sdpa_plain(q, k, v)
+
+    saved = [(m, m._sdpa) for m in (attention, correspondence, triplane_attention)]
+    for m, _ in saved:
+        m._sdpa = plain
+    try:
+        yield calls
+    finally:
+        for m, f in saved:
+            m._sdpa = f
+
+
+def counts() -> tuple[int, int, int]:
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    return attention_cuda.launches, attention_cuda.dkv_launches, attention_cuda.dq_launches
+
+
+def zero_counts() -> None:
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    attention_cuda.launches = attention_cuda.dkv_launches = attention_cuda.dq_launches = 0
+
+
+def grad_groups(named_grads, ref) -> tuple[float, dict]:
+    """Relative L2 of the whole gradient against ``ref``, and per top-level
+    block (``down_0``, ``mid``, ``up_3``, ``conv_in``, …)."""
+    num, den, groups = 0.0, 0.0, {}
+    for name, g in named_grads.items():
+        w = ref[name]
+        dn, wn = float((g - w).double().square().sum()), float(w.double().square().sum())
+        num, den = num + dn, den + wn
+        key = "_".join(name.split(".")[0].split("_")[:2]) if name.startswith(("down", "up")) else name.split("_")[0]
+        a, b = groups.get(key, (0.0, 0.0))
+        groups[key] = (a + dn, b + wn)
+    return (num / den) ** 0.5, {k: (a / b) ** 0.5 if b > 0 else 0.0 for k, (a, b) in groups.items()}
+
+
+def mv_views(state, dev):
+    """4 orbit views at 512², 15° apart: rgb and depth from render_model."""
+    from gaussctrl_exp_tpu_torch.cameras import make_camera
+    from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig, render_model
+
+    f = S / (2 * np.tan(np.radians(FOV_DEG) / 2))
+    cams = [make_camera(orbit_c2w(i, MV_ORBIT), f, f, S / 2, S / 2, S, S, device=dev) for i in range(MV_V)]
+    with torch.no_grad():
+        outs = [render_model(state, c, 30_000, SplatModelConfig(background_color="white")) for c in cams]
+    return cams, [o.rgb for o in outs], [o.depth for o in outs]
+
+
+def tiny_train_step(tiny, device) -> tuple[float, dict]:
+    """One Adam(1e-3) step of a copy of the tests' tiny generator ``tiny``
+    (2 views at 32², 8² latents) on ``device`` through its epipolar
+    processor; returns the loss and the gradients on the CPU."""
+    from gaussctrl_exp_tpu_torch.cameras import look_at, make_camera
+    from gaussctrl_exp_tpu_torch.diffusion.mv_generator import DepthGenerator
+
+    gen = DepthGenerator(copy.deepcopy(tiny.unet).to(device), tiny.cfg)
+    cams = [make_camera(look_at(e, np.zeros(3)), 40.0, 40.0, 16, 16, 32, 32, device=device)
+            for e in ([0.0, -4.0, 0.0], [0.5, -3.9, 0.2])]
+    ys, xs = np.mgrid[0:32, 0:32].astype(np.float32) / 32
+    depths = [4.0 + 0.2 * xs - 0.1 * ys, 4.1 - 0.15 * xs + 0.1 * ys]
+    proc, dl, _ = gen.prepare(depths, cams)
+    rng = np.random.default_rng(2)
+    x0 = torch.as_tensor((rng.normal(size=(2, 8, 8, 4)) * 0.5).astype(np.float32), device=device)
+    ctx = torch.as_tensor(rng.normal(size=(2, 77, 16)).astype(np.float32), device=device)
+    noise = torch.as_tensor(rng.normal(size=(2, 8, 8, 4)).astype(np.float32), device=device)
+    t = torch.tensor([437, 81], device=device)
+    opt = torch.optim.Adam(gen.unet.parameters(), lr=1e-3)
+    loss = gen.train_step_at(opt, x0, dl, ctx, t, noise, proc)
+    return float(loss), {n: p.grad.detach().cpu() for n, p in gen.unet.named_parameters()}
+
+
+def phase13_mv(dev, state, edit) -> dict:
+    """The depth generator at full SD1.x width in fp32: 3 Adam steps through
+    the epipolar processor with B3/B4/B5 counted, the step's gradient
+    against the same step through sdpa_plain, sampling, and the tiny step
+    card vs CPU."""
+    from gaussctrl_exp_tpu_torch.diffusion.mv_generator import MVGeneratorConfig, init_depth_generator
+
+    pipe = edit["pipe"]
+    t0 = time.perf_counter()
+    gen = init_depth_generator(SD_SEED, cfg=MVGeneratorConfig(latent_size=S // 8, num_steps=MV_SAMPLE_STEPS), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in gen.unet.parameters())
+    cams, rgbs, depths = mv_views(state, dev)
+    with torch.no_grad():
+        x0 = torch.cat([pipe.pipe.image_to_latent(r[None]).float() for r in rgbs])
+    ctx = pipe._encode([EDIT_PROMPT] * MV_V)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    proc, dl, pair_mask = gen.prepare(depths, cams)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t1
+    print(f"[13] depth generator: UNet with a 5-channel conv_in, {n_params:,} parameters (expected {MV_PARAMS:,}), "
+          f"fp32, random weights (seed {SD_SEED}), made in {t1 - t0:.2f} s with the {MV_V} views' renders and "
+          f"latents; prepare (tables at {gen.attention_resolutions()}, pair mask) {prep_s:.3f} s; pair mask "
+          f"{pair_mask.tolist()}; clean latents {tuple(x0.shape)} std {float(x0.std()):.4f}")
+    if n_params != MV_PARAMS or not (pair_mask - np.eye(MV_V)).any():
+        raise SystemExit("FAIL: the depth generator has the wrong size, or no view pair exchanges attention")
+
+    # one step's gradient through the kernels against the same step through sdpa_plain
+    g = torch.Generator(device=dev).manual_seed(11)
+    t_fix = torch.randint(0, 1000, (MV_V,), generator=g, device=dev)
+    noise_fix = torch.randn(x0.shape, generator=g, device=dev)
+    gen.unet.zero_grad(set_to_none=True)
+    zero_counts()
+    loss_k = gen.loss(x0, dl, ctx, t_fix, noise_fix, proc)
+    loss_k.backward()
+    torch.cuda.synchronize()
+    grad_launches = counts()
+    g_kernel = {n: p.grad.detach().clone() for n, p in gen.unet.named_parameters()}
+    gen.unet.zero_grad(set_to_none=True)
+    zero_counts()
+    with attention_through_plain() as plain_calls:
+        loss_p = gen.loss(x0, dl, ctx, t_fix, noise_fix, proc)
+        loss_p.backward()
+    torch.cuda.synchronize()
+    total_rel, groups = grad_groups(g_kernel, {n: p.grad for n, p in gen.unet.named_parameters()})
+    print(f"    one step at t = {t_fix.tolist()}: loss through B3/B4/B5 {loss_k.item():.7f}, through sdpa_plain "
+          f"{loss_p.item():.7f}; launches (B3, B4, B5) {grad_launches} vs {counts()} and {plain_calls[0]} sdpa_plain "
+          f"calls; gradient relative L2 {total_rel:.3e} (limit {MV_GRAD_REL_L2}); per block "
+          + ", ".join(f"{k} {v:.2e}" for k, v in groups.items()))
+    if total_rel > MV_GRAD_REL_L2 or counts() != (0, 0, 0) or min(grad_launches) == 0:
+        raise SystemExit("FAIL: the full-width gradient through the kernels disagrees with sdpa_plain's")
+    del g_kernel
+    gen.unet.zero_grad(set_to_none=True)
+
+    # the main path: 3 Adam steps, launches counted
+    opt = torch.optim.Adam(gen.unet.parameters(), lr=MV_LR)
+    step = gen.make_train_step(opt, proc)
+    before = {n: p.detach().clone() for n, p in gen.unet.named_parameters()}
+    n_attn = 2 * count_transformers(gen.unet)  # self + cross per Transformer2D
+    gen_draws = torch.Generator(device=dev).manual_seed(12)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = [float(step(x0, dl, ctx, gen_draws)) for _ in range(MV_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = {}
+    for n, p in gen.unet.named_parameters():
+        key = "_".join(n.split(".")[0].split("_")[:2]) if n.startswith(("down", "up")) else n.split("_")[0]
+        moved[key] = max(moved.get(key, 0.0), float((p.detach() - before[n]).abs().max()))
+    del before
+    print(f"    {MV_TRAIN_STEPS} Adam({MV_LR}) steps of train_step ({MV_V} views, 64² latents): losses "
+          f"{[round(x, 6) for x in losses]} in {train_wall:.3f} s host wall (first step included); launches "
+          f"B3 {launches[0]}, B4 {launches[1]}, B5 {launches[2]} (expected {MV_TRAIN_STEPS * n_attn} each: "
+          f"{n_attn} attention calls per step); peak device memory {peak_gb:.2f} GB "
+          f"(torch.cuda.max_memory_allocated); largest |Δ| per block "
+          + ", ".join(f"{k} {v:.1e}" for k, v in moved.items()))
+    if launches != (MV_TRAIN_STEPS * n_attn,) * 3 or not all(np.isfinite(losses)) or min(moved.values()) <= 0:
+        raise SystemExit("FAIL: the train steps skipped a kernel, gave a non-finite loss or left a block unmoved")
+
+    # sampling: 4 DDIM steps, CFG batch 8
+    init = torch.randn((MV_V, S // 8, S // 8, 4), generator=torch.Generator(device=dev).manual_seed(13), device=dev)
+    unc = pipe._encode([""] * MV_V)
+    zero_counts()
+    t0 = time.perf_counter()
+    lat = gen.sample(ctx, unc, depths, cams, init_latents=init)
+    torch.cuda.synchronize()
+    sample_wall = time.perf_counter() - t0
+    sample_launches = counts()
+    with torch.no_grad():
+        imgs = pipe.pipe.latent_to_image(lat).float()
+    print(f"    sample: {MV_SAMPLE_STEPS} steps at CFG batch {2 * MV_V} in {sample_wall:.3f} s host wall (prepare "
+          f"included); launches (B3, B4, B5) {sample_launches}; latents {tuple(lat.shape)} std "
+          f"{float(lat.std()):.4f}; decoded images in [{float(imgs.min()):.4f}, {float(imgs.max()):.4f}]")
+    if lat.shape != (MV_V, S // 8, S // 8, 4) or not bool(torch.isfinite(lat).all()) \
+            or sample_launches != (MV_SAMPLE_STEPS * n_attn, 0, 0) or not bool(torch.isfinite(imgs).all()):
+        raise SystemExit("FAIL: sampling gave non-finite latents or skipped B3")
+
+    # the tiny fp32 train step on the card against the CPU
+    tiny = init_depth_generator(0, latent=8, device="cpu", **TINY_GEN)
+    loss_card, g_card = tiny_train_step(tiny, dev)
+    loss_cpu, g_cpu = tiny_train_step(tiny, torch.device("cpu"))
+    tiny_rel, _ = grad_groups(g_card, g_cpu)
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    print(f"    tiny generator step (2 views, 8² latents), card vs CPU: loss {loss_card:.7f} vs {loss_cpu:.7f} "
+          f"(relative {loss_rel:.2e}), gradient relative L2 {tiny_rel:.3e} (limit {MV_TINY_REL})")
+    if max(loss_rel, tiny_rel) > MV_TINY_REL:
+        raise SystemExit("FAIL: the tiny train step on the card disagrees with the CPU")
+    return dict(gen=gen, opt=opt, proc=proc, dl=dl, ctx=ctx, unc=unc, x0=x0, t=t_fix, noise=noise_fix,
+                launches=launches, train_wall=train_wall, sample_wall=sample_wall, peak_gb=peak_gb)
+
+
+def phase14_experimental(dev, state, cams, targets, edit) -> None:
+    """The edit with the experimental processors on phase 10's caches, an
+    inpaint of one view, and the noise mask of one view, bf16 at full
+    width."""
+    from gaussctrl_exp_tpu_torch.diffusion.inpaint import InpaintConfig, SDInpaintPipeline
+    from gaussctrl_exp_tpu_torch.diffusion.pipeline import EditConfig, GaussCtrlEditPipeline
+    from gaussctrl_exp_tpu_torch.experimental.noise_mask import NoiseMaskConfig, noise_points, render_noise_mask
+    from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig, render_model
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda, blend_cuda
+
+    base = edit["pipe"]
+    V = len(cams)
+    print(f"[14] experimental paths at full SD1.x width, bf16, on phase 10's caches ({V} views at {S}²)")
+    for proc in ("correspondence", "triplane"):
+        cfg = EditConfig(edit_prompt=EDIT_PROMPT, reverse_prompt=REVERSE_PROMPT, attn_processor=proc,
+                         num_inference_steps=EXP_STEPS)
+        pipe = GaussCtrlEditPipeline(cfg, models=base.models, tokenizer=crc_tokenize)
+        for name in ("z0", "disparity", "depths", "unedited"):
+            setattr(pipe, name, dict(getattr(base, name)))
+        views = EditViews(cams, [t.clone() for t in targets])
+        attention_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.edit_images(views)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        imgs = torch.stack(views.images)
+        print(f"    edit_images with attn_processor={proc!r}, {EXP_STEPS} steps (cut from 20): {wall:.3f} s host "
+              f"wall; B3 launches {attention_cuda.launches}; written back {sorted(views.writes)}; images in "
+              f"[{float(imgs.min()):.4f}, {float(imgs.max()):.4f}], mean |edited − render| "
+              f"{float((imgs - torch.stack(targets)).abs().mean()):.4f}")
+        if sorted(views.writes) != list(range(V)) or not bool(torch.isfinite(imgs).all()) \
+                or float(imgs.min()) < 0 or float(imgs.max()) > 1 or attention_cuda.launches == 0:
+            raise SystemExit(f"FAIL: the {proc} edit did not write every view once in [0, 1] through B3")
+
+    ip = SDInpaintPipeline(base.pipe, InpaintConfig(num_steps=INPAINT_STEPS))
+    img = targets[0][None].float()
+    mask = np.zeros((S, S), np.float32)
+    mask[S // 4: 3 * S // 4, S // 4: 3 * S // 4] = 1.0
+    hint = torch.as_tensor(base.disparity[0], device=dev)[None]
+    attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = ip.inpaint_images(torch.Generator(device=dev).manual_seed(14), img, mask,
+                            base._encode([EDIT_PROMPT]), base._encode([""]), hint)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    inside = torch.as_tensor(mask > 0.5, device=dev)
+    kept = bool(torch.equal(out[0][~inside], img[0][~inside]))
+    changed = float((out[0][inside] - img[0][inside]).abs().mean())
+    print(f"    inpaint_images, one view at {S}², centre square masked, {INPAINT_STEPS} steps with the depth hint: "
+          f"{wall:.3f} s host wall; B3 launches {attention_cuda.launches}; output in [{float(out.min()):.4f}, "
+          f"{float(out.max()):.4f}]; outside the mask exact {kept}; mean |d| inside {changed:.4f}")
+    if not (kept and bool(torch.isfinite(out).all()) and 0 <= float(out.min()) and float(out.max()) <= 1
+            and changed > 0 and attention_cuda.launches > 0):
+        raise SystemExit("FAIL: the inpaint is not finite in [0, 1], or changed the kept region")
+
+    t0 = time.perf_counter()
+    pts = noise_points(NoiseMaskConfig())
+    pts_s = time.perf_counter() - t0
+    with torch.no_grad():
+        depth0 = render_model(state, cams[0], 30_000, SplatModelConfig(background_color="white")).depth
+    for window in (NoiseMaskConfig().frag_depth_threshold, 0.1):
+        blend_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = render_noise_mask(pts, depth0, cams[0], NoiseMaskConfig(frag_depth_threshold=window))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"    render_noise_mask, {len(pts)} Perlin points (100³ grid, threshold 0.8, {pts_s:.2f} s on the "
+              f"host), depth window {window}: {wall * 1e3:.2f} ms; blend_fwd launches {blend_cuda.launches}; "
+              f"mask {tuple(m.shape)} in [{float(m.min()):.4f}, {float(m.max()):.4f}], coverage > 0.5 "
+              f"{float((m > 0.5).float().mean()):.5f}")
+        if m.shape != (S, S) or not bool(torch.isfinite(m).all()) or float(m.min()) < 0 or float(m.max()) > 1 \
+                or blend_cuda.launches != 1:
+            raise SystemExit("FAIL: the noise mask is not finite in [0, 1] or skipped B1")
+
+
+def bwd_bound(shape, dtype, kernel) -> tuple[float, str]:
+    """B4's or B5's bound: q, k, v, dO read once, lse and delta read once, its
+    gradients written once; 2·(4 or 3) operations per (b, h, s, t, d)."""
+    B, H, S_, T, D = shape
+    size = 2 if dtype == torch.bfloat16 else 4
+    n_bytes = size * B * H * D * (2 * S_ + 2 * T) + 8 * B * H * S_
+    n_bytes += size * B * H * D * (2 * T if kernel == "B4" else S_)
+    peak = PEAK_BF16_OPS_S if dtype == torch.bfloat16 else PEAK_F32_OPS_S
+    return roofline(n_bytes, (OPS_B4 if kernel == "B4" else OPS_B5) * B * H * S_ * T * D, peak)
+
+
+def phase15_timings(dev, mv) -> dict:
+    """The train step by stage, its busy share and B4 + B5's share of the
+    backward; B4 and B5 at every phase-12 shape against their bounds, the
+    plain version and SDPA's backward; a sampling step and the
+    correspondence processor's share of it."""
+    import torch.nn.functional as F
+
+    from gaussctrl_exp_tpu_torch.diffusion.attention import default_processor
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    gen, opt, proc = mv["gen"], mv["opt"], mv["proc"]
+    args = (mv["x0"], mv["dl"], mv["ctx"], mv["t"], mv["noise"], proc)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    split = np.zeros(3)
+    iters = 2
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        ev[0].record()
+        loss = gen.loss(*args)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        ev[3].record()
+        torch.cuda.synchronize()
+        split += [ev[i].elapsed_time(ev[i + 1]) / iters for i in range(3)]
+
+    def full_step():
+        gen.loss(*args).backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+
+    step_dev, _, step_ops = device_times(full_step, "flash")
+    loss = gen.loss(*args)
+    torch.cuda.synchronize()
+    bwd_dev, bwd_kernels, _ = device_times(loss.backward, "flash_bwd")
+    opt.zero_grad(set_to_none=True)
+    step_ms = float(split.sum())
+    print(f"[15] timings (CUDA events, warm). Depth generator train step, fp32, {MV_V} views at 64²: {step_ms:.2f} ms "
+          f"= forward {split[0]:.2f} + backward {split[1]:.2f} + optimizer {split[2]:.2f}; device time "
+          f"{step_dev:.2f} ms in {step_ops} device ops (torch.profiler): busy share {step_dev / step_ms:.3f}; "
+          f"backward device time {bwd_dev:.2f} ms, of which B4 + B5 {bwd_kernels:.2f} ms = "
+          f"{bwd_kernels / bwd_dev:.3f}")
+
+    rows = {}
+    for i, (name, shape) in enumerate(MV_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(shape, dtype, 400 + i, dev)
+            out, lse = attention_cuda.flash_attn(q, k, v, return_lse=True)
+            dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(i), device=dev).to(dtype)
+            delta = attention_cuda.delta_of(out, dout)
+            b4 = time_ms(lambda: attention_cuda.flash_attn_bwd_dkv(q, k, v, out, lse, dout, delta), iters=5, warmup=1)
+            b5 = time_ms(lambda: attention_cuda.flash_attn_bwd_dq(q, k, v, out, lse, dout, delta), iters=5, warmup=1)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            bwd_ms = {}  # each function's backward: forward + backward − forward
+            for fname, f in (("lib", F.scaled_dot_product_attention), ("plain", attention_cuda.sdpa_plain)):
+                fwd = time_ms(lambda: f(*leaves), iters=3, warmup=1)
+                bwd_ms[fname] = time_ms(lambda: torch.autograd.grad(f(*leaves), leaves, dout), iters=3, warmup=1) - fwd
+            (b4_bound, b4_by), (b5_bound, b5_by) = bwd_bound(shape, dtype, "B4"), bwd_bound(shape, dtype, "B5")
+            rows[(name, dtype)] = dict(b4=b4, b5=b5, b4_bound=b4_bound, b4_by=b4_by, b5_bound=b5_bound, b5_by=b5_by,
+                                       **bwd_ms)
+            print(f"    {name} {shape} {str(dtype).split('.')[-1]}: B4 {b4:.4f} ms (bound {b4_bound:.5f}, {b4_by}, "
+                  f"{b4_bound / b4:.3f} of it); B5 {b5:.4f} ms (bound {b5_bound:.5f}, {b5_by}, {b5_bound / b5:.3f}); "
+                  f"backward (forward + backward − forward) of sdpa_plain {bwd_ms['plain']:.4f} ms, of "
+                  f"scaled_dot_product_attention {bwd_ms['lib']:.4f} ms")
+    main = rows[(MV_SHAPES[0][0], torch.float32)]
+    print(f"    main shape {MV_MAIN} fp32: B4 {main['b4']:.4f} + B5 {main['b5']:.4f} ms; autograd through sdpa_plain "
+          f"backward {main['plain']:.4f} ms; scaled_dot_product_attention backward {main['lib']:.4f} ms")
+
+    # a sampling step at CFG batch 8, and the correspondence processor's share of it
+    lat = torch.randn((2 * MV_V, S // 8, S // 8, 4), generator=torch.Generator(device=dev).manual_seed(15), device=dev)
+    dl2 = torch.cat([mv["dl"], mv["dl"]])
+    ctx2 = torch.cat([mv["unc"], mv["ctx"]])
+    tt = torch.full((2 * MV_V,), 501, dtype=torch.long, device=dev)
+    with torch.no_grad():
+        gen_ms = time_ms(lambda: gen._eps(lat, dl2, tt, ctx2, proc), iters=3, warmup=1)
+        plain_proc_ms = time_ms(lambda: gen._eps(lat, dl2, tt, ctx2, default_processor), iters=3, warmup=1)
+    print(f"    sampling step (CFG batch {2 * MV_V}): {gen_ms:.2f} ms with the epipolar processor, {plain_proc_ms:.2f} ms "
+          f"with plain attention: the correspondence processor is {1 - plain_proc_ms / gen_ms:.3f} of the step; "
+          f"phase 13's sample {mv['sample_wall'] / MV_SAMPLE_STEPS * 1e3:.1f} ms per step host wall (prepare "
+          f"included)")
+    return dict(b4=main["b4"], b5=main["b5"], plain_ms=main["plain"], library_ms=main["lib"],
+                b4_bound=main["b4_bound"], b4_by=main["b4_by"], b5_bound=main["b5_bound"], b5_by=main["b5_by"])
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -764,9 +1305,10 @@ def main() -> int:
     built = ", ".join(f"{lib.name} from {cuda_build.SOURCES[n].relative_to(ROOT)}" for n, lib in libs.items())
     print(f"[2] built {built} in {time.perf_counter() - t0:.2f} s, one nvcc per source in parallel "
           f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)}; per source {cuda_build.EXTRA_FLAGS})")
-    for line in cuda_build.logs.get("flash_attn_fwd", "").splitlines():
-        if "Compiling entry" in line or "Used" in line:
-            print("    ptxas " + line.split("ptxas info    :")[-1].strip())
+    for src in ("flash_attn_fwd", "flash_attn_bwd"):
+        for line in cuda_build.logs.get(src, "").splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line and "0 bytes spill" not in line:
+                print(f"    ptxas {src}: " + line.split("ptxas info    :")[-1].strip())
 
     bear = synthetic_params(N_BEAR, 0, 0.8, -4.2, 0.5)
     garden = synthetic_params(N_GARDEN, 7, 1.2, -5.3, 0.4)
@@ -1050,6 +1592,10 @@ def main() -> int:
         flash_max_abs_err, flash_cases = phase9_flash(dev)
         edit = phase10_edit(dev, state, cams, targets)
         flash = phase11_timings(dev, state, cams, edit, flash_cases)
+        bwd_errs = phase12_flash_bwd(dev)
+        mv = phase13_mv(dev, state, edit)
+        phase14_experimental(dev, state, cams, targets, edit)
+        bwd = phase15_timings(dev, mv)
         print(f"    total chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     kernels = {"kernels": [{
@@ -1089,6 +1635,34 @@ def main() -> int:
         "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
+    }, {
+        "name": "flash_attn_bwd_dkv",
+        "route": "cuda",
+        "source": "gaussctrl_exp_tpu_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941 (_flash_attention_bwd_dkv, pallas_call "
+                    ":1121), the backward of gaussctrl_exp_tpu/diffusion/attention.py:37 _flash_sdpa reached from "
+                    "diffusion/mv_generator.py:198",
+        "launches": mv["launches"][1],
+        "max_abs_err": bwd_errs[torch.float32]["B4"],
+        "ms": bwd["b4"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["b4_bound"],
+        "bound_by": bwd["b4_by"],
+        "library_ms": bwd["library_ms"],
+    }, {
+        "name": "flash_attn_bwd_dq",
+        "route": "cuda",
+        "source": "gaussctrl_exp_tpu_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 (_flash_attention_bwd_dq, pallas_call "
+                    ":1456), the backward of gaussctrl_exp_tpu/diffusion/attention.py:37 _flash_sdpa reached from "
+                    "diffusion/mv_generator.py:198",
+        "launches": mv["launches"][2],
+        "max_abs_err": bwd_errs[torch.float32]["B5"],
+        "ms": bwd["b5"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["b5_bound"],
+        "bound_by": bwd["b5_by"],
+        "library_ms": bwd["library_ms"],
     }]}
     print(smi_line())
     print(json.dumps(kernels))

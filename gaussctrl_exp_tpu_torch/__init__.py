@@ -6,10 +6,13 @@ Pallas kernel, a CUDA C++ kernel written for Hopper (``csrc/``).
 
 Layout (each module names its JAX counterpart):
   cameras.py   — camera model and view/projection matrices
-  ops/         — projection, SH, binning, blend (plain version + CUDA kernel),
-                 renderer
-  models/      — Gaussian parameters, the splat model's render
-  engine/      — splatfacto checkpoint import/export
+  ops/         — projection, SH, binning, blend and attention (plain versions
+                 + CUDA kernels), renderer, losses
+  models/      — Gaussian parameters, the splat model's render, densify
+  engine/      — trainer, optimizers, splatfacto checkpoint import/export
+  diffusion/   — the SD1.x edit stack, the experimental cross-view
+                 processors, the depth generator and inpainting
+  experimental/ — the 3D noise mask
   cli/         — the ``camera-path`` render entry point
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with

@@ -32,6 +32,12 @@
 // computed on zeros and not stored. Strides are given for batch, head and
 // sequence (D contiguous), so the head split's transpose needs no copy, and
 // the output can be written straight into the (B, S, H, D) layout.
+//
+// When the caller passes an `lse` buffer (fp32, (B, H, S) contiguous), each
+// stored query row also gets the log-sum-exp of its scaled scores, m + log(l)
+// of the online softmax in natural-log units: the backward kernels B4 and B5
+// (flash_attn_bwd.cu) recompute P = exp(S - lse) from it. The output does not
+// depend on whether it is written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,6 +54,7 @@ constexpr int VPAD = 8;        // row padding of the transposed V tile
 constexpr int BKF = 32;        // keys per shared-memory tile (fp32)
 constexpr int QUAD = 4;        // threads per query row (fp32)
 constexpr int MAX_D = 160;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, h, s;
@@ -76,8 +83,9 @@ __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* base, long lo
 template <int DP>  // D rounded up to a multiple of 16
 __global__ void __launch_bounds__(WARPS * 32)
     flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H, int S,
-                   int T, int D, Strides qs, Strides ks, Strides vs, Strides os, float scale_log2) {
+                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                   float* __restrict__ lse, int H, int S, int T, int D, Strides qs, Strides ks,
+                   Strides vs, Strides os, float scale_log2) {
   // raw bf16 bits: K rows, and V transposed (Vt[d][key])
   __shared__ __align__(16) uint16_t Ks[BK][DP + KPAD];
   __shared__ __align__(16) uint16_t Vt[DP][BK + VPAD];
@@ -195,6 +203,10 @@ __global__ void __launch_bounds__(WARPS * 32)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  if (lse != nullptr && tq == 0) {  // m is in log2 units of the scaled scores
+    if (r0 < S) lse[(long long)blockIdx.y * S + r0] = (m0 + log2f(l0)) * LN2;
+    if (r1 < S) lse[(long long)blockIdx.y * S + r1] = (m1 + log2f(l1)) * LN2;
+  }
 #pragma unroll
   for (int nt = 0; nt < DP / 8; ++nt) {
     const int c = nt * 8 + tq * 2;
@@ -211,8 +223,8 @@ __global__ void __launch_bounds__(WARPS * 32)
 template <int MAXC>  // the most dims a thread owns: D / 4 ≤ MAXC
 __global__ void __launch_bounds__(BQ * QUAD)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                  float* __restrict__ o, int H, int S, int T, int D, Strides qs, Strides ks,
-                  Strides vs, Strides os, float scale_log2) {
+                  float* __restrict__ o, float* __restrict__ lse, int H, int S, int T, int D,
+                  Strides qs, Strides ks, Strides vs, Strides os, float scale_log2) {
   __shared__ float Ks[BKF][MAX_D];
   __shared__ float Vs[BKF][MAX_D];
 
@@ -270,6 +282,7 @@ __global__ void __launch_bounds__(BQ * QUAD)
   }
 
   if (row >= S) return;
+  if (lse != nullptr && threadIdx.x % QUAD == 0) lse[(long long)blockIdx.y * S + row] = (m + log2f(l)) * LN2;
   float* orow = o + b * os.b + h * os.h + (long long)row * os.s + d0;
   const float inv = 1.f / l;
 #pragma unroll
@@ -278,31 +291,34 @@ __global__ void __launch_bounds__(BQ * QUAD)
 }
 
 template <int DP>
-void launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int S, int T,
-                 int D, Strides qs, Strides ks, Strides vs, Strides os, float sl2, cudaStream_t st) {
+void launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                 int S, int T, int D, Strides qs, Strides ks, Strides vs, Strides os, float sl2,
+                 cudaStream_t st) {
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   flash_fwd_bf16<DP><<<grid, WARPS * 32, 0, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, S, T, D, qs, ks, vs,
-      os, sl2);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, S, T, D, qs, ks,
+      vs, os, sl2);
 }
 
 template <int MAXC>
-void launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int S, int T,
-                int D, Strides qs, Strides ks, Strides vs, Strides os, float sl2, cudaStream_t st) {
+void launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                int S, int T, int D, Strides qs, Strides ks, Strides vs, Strides os, float sl2,
+                cudaStream_t st) {
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   flash_fwd_f32<MAXC><<<grid, BQ * QUAD, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, S, T, D, qs, ks, vs, os, sl2);
+      static_cast<float*>(o), lse, H, S, T, D, qs, ks, vs, os, sl2);
 }
 
 }  // namespace
 
 // q (B, H, S, D), k and v (B, H, T, D), o (B, H, S, D), each given by its
 // pointer and its batch, head and sequence strides in elements (D
-// contiguous). is_bf16: 1 for bf16, 0 for fp32. Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for a shape it does not take).
-extern "C" int gctorch_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, int B,
+// contiguous); lse: null, or fp32 (B, H, S) contiguous for the log-sum-exp.
+// is_bf16: 1 for bf16, 0 for fp32. Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for a shape it does not take).
+extern "C" int gctorch_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse_out, int B,
                                       int H, int S, int T, int D, int is_bf16, long long q_sb,
                                       long long q_sh, long long q_ss, long long k_sb, long long k_sh,
                                       long long k_ss, long long v_sb, long long v_sh, long long v_ss,
@@ -313,25 +329,26 @@ extern "C" int gctorch_flash_attn_fwd(const void* q, const void* k, const void* 
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   const float sl2 = scale * 1.4426950408889634f;  // softmax in base 2: exp(x) = 2^(x·log2 e)
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (is_bf16) {
     switch ((D + 15) / 16) {
-      case 1: launch_bf16<16>(q, k, v, o, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-      case 2: launch_bf16<32>(q, k, v, o, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-      case 3: launch_bf16<48>(q, k, v, o, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-      case 4: launch_bf16<64>(q, k, v, o, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-      case 5: launch_bf16<80>(q, k, v, o, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-      case 6: launch_bf16<96>(q, k, v, o, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-      case 7: launch_bf16<112>(q, k, v, o, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-      case 8: launch_bf16<128>(q, k, v, o, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-      case 9: launch_bf16<144>(q, k, v, o, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-      default: launch_bf16<160>(q, k, v, o, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+      case 1: launch_bf16<16>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+      case 2: launch_bf16<32>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+      case 3: launch_bf16<48>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+      case 4: launch_bf16<64>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+      case 5: launch_bf16<80>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+      case 6: launch_bf16<96>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+      case 7: launch_bf16<112>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+      case 8: launch_bf16<128>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+      case 9: launch_bf16<144>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+      default: launch_bf16<160>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
     }
   } else {
     const int dch = D / QUAD;
-    if (dch <= 8) launch_f32<8>(q, k, v, o, B, H, S, T, D, qs, ks, vs, os, sl2, st);
-    else if (dch <= 16) launch_f32<16>(q, k, v, o, B, H, S, T, D, qs, ks, vs, os, sl2, st);
-    else if (dch <= 24) launch_f32<24>(q, k, v, o, B, H, S, T, D, qs, ks, vs, os, sl2, st);
-    else launch_f32<40>(q, k, v, o, B, H, S, T, D, qs, ks, vs, os, sl2, st);
+    if (dch <= 8) launch_f32<8>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
+    else if (dch <= 16) launch_f32<16>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
+    else if (dch <= 24) launch_f32<24>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
+    else launch_f32<40>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

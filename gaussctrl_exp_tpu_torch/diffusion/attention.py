@@ -9,9 +9,11 @@ queries also attend to the keys and values of reference views 0..3 of its
 group, and the output is ``coeff·self + (1−coeff)·mean(ref0..ref3)``;
 cross-attention (text) is untouched.
 
-``_sdpa`` sends every call on a CUDA tensor to kernel B3
-(``ops/attention_cuda.flash_attn``), self and cross, whatever its shape, and
-every call on a CPU tensor to the plain version ``sdpa_plain``.
+``_sdpa`` sends every call on a CUDA tensor to kernel B3, self and cross,
+whatever its shape: through ``ops/attention_cuda.FlashAttnFunction`` (B3
+forward, B4 and B5 backward) when autograd records the call, else through
+``flash_attn``. Every call on a CPU tensor goes to the plain version
+``sdpa_plain``, which autograd differentiates.
 
 Modules are NCHW / (B, L, C) PyTorch modules whose attribute names mirror the
 Flax ones (``to_q``, ``to_out_0``, ``ff.proj``, ``transformer_blocks_0``), so
@@ -37,6 +39,8 @@ Processor = Callable[..., torch.Tensor]
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(B, H, S, D) scaled dot-product attention (fp32 softmax)."""
     if q.device.type == "cuda":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return attention_cuda.FlashAttnFunction.apply(q, k, v)
         return attention_cuda.flash_attn(q, k, v)
     if q.device.type == "cpu":
         return sdpa_plain(q, k, v)

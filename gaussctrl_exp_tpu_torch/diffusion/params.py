@@ -1,9 +1,11 @@
 """The JAX package's Flax parameter trees → the port's state dicts.
 
 Each function takes a tree of nested dicts of arrays (``unet_params``,
-``controlnet_params``, ``vae_params`` of the JAX package's ``SDModels``, or
-``FlaxCLIPTextModel.params``) and returns the state dict that the matching
-port module loads with ``load_state_dict(strict=True)``. The module names of
+``controlnet_params``, ``vae_params`` of the JAX package's ``SDModels``, a
+``DepthGenerator``'s ``unet_params``, or ``FlaxCLIPTextModel.params``) and
+returns the state dict that the matching port module loads with
+``load_state_dict(strict=True)``; the depth generator's 5-channel
+``conv_in`` needs nothing more than the UNet's rename. The module names of
 the port mirror the Flax ones, so the mapping is mechanical:
 
   * conv ``kernel`` (kh, kw, I, O) → ``weight`` (O, I, kh, kw)

@@ -10,18 +10,20 @@ Port of ``gaussctrl_exp_tpu/diffusion/pipeline.py``:
     resume the per-view sidecars.
 
   edit_images: pick 4 deterministic-random reference views (seed 13789),
-    install the cross-view ("AttnAlign") processor, regenerate chunks of
-    ``chunk_size`` views after the 4 reference views from their inverted
-    latents with the edit prompt at CFG ``guidance_scale``, drop the
-    reference outputs, composite the edited foreground over the unedited
-    render with the mask, and write the images back into the datamanager.
+    install the cross-view processor, regenerate chunks of ``chunk_size``
+    views after the 4 reference views from their inverted latents with the
+    edit prompt at CFG ``guidance_scale``, drop the reference outputs,
+    composite the edited foreground over the unedited render with the mask,
+    and write the images back into the datamanager.
 
-As in the JAX package, one processor built with ``self_attn_coeff_unet``
-(0.6) goes to both the UNet and the ControlNet, and
-``self_attn_coeff_controlnet`` is not read (ROADMAP §C). The experimental
-triplane and correspondence processors are not ported yet (ROADMAP §A):
-asking for them raises ``NotImplementedError``. Caches are numpy arrays in
-the JAX package's shapes: ``z0`` (h, w, 4), ``disparity`` (H, W, 3).
+The cross-view processor is ``EditConfig.attn_processor``: "attn_align"
+(the paper's AttnAlign), or one of the experimental ones, "triplane"
+(``triplane_attention.py``) and "correspondence" (the epipolar processor of
+``correspondence.py``), whose geometry is built per chunk from the depths
+``render_reverse`` cached. As in the JAX package, one processor goes to both
+the UNet and the ControlNet, and ``self_attn_coeff_controlnet`` is not read
+(ROADMAP §C). Caches are numpy arrays in the JAX package's shapes: ``z0``
+(h, w, 4), ``disparity`` (H, W, 3), ``depths`` (H, W).
 """
 
 from __future__ import annotations
@@ -35,8 +37,11 @@ import numpy as np
 import torch
 
 from .attention import make_cross_view_processor
+from .correspondence import build_correspondence_tables, make_multires_epipolar_processor
+from .geometry import depth_to_world_points, scaled_camera
 from .sd_pipeline import SDControlNetPipeline, SDModels, encode_prompt_ids
 from .sd_pipeline import tokenize as models_tokenize
+from .triplane_attention import make_triplane_processor
 
 ADDED_PROMPT = "best quality, extremely detailed"
 NEGATIVE_PROMPT = (
@@ -60,7 +65,14 @@ class EditConfig:
     self_attn_coeff_unet: float = 0.6
     self_attn_coeff_controlnet: float = 0.0  # not read, as in the JAX package
     controlnet_conditioning_scale: float = 1.0
-    attn_processor: str = "attn_align"  # only "attn_align" is ported
+    latent_size: int = 64  # 512² images → 64² latents
+    attn_processor: str = "attn_align"  # "attn_align" | "triplane" | "correspondence"
+    triplane_mix: float = 0.5
+    triplane_bbox_length: float = 8.0
+    triplane_plane_res: int = 32
+    geom_res_divisor: int = 1  # geometry token grid = latent_size // this
+    corr_mix: float = 0.5
+    corr_sigma: float = 0.1
     sidecar_dir: str = ""  # "" = don't persist/resume
     resume_sidecars: bool = True  # False forces a recompute
 
@@ -201,14 +213,37 @@ class GaussCtrlEditPipeline:
         print()
 
     # ------------------------------------------------------------------
-    def _make_processor(self):
+    def _chunk_geometry(self, datamanager, views: list[int]):
+        """Geometry of one chunk for the experimental processors, from the
+        depths ``render_reverse`` cached, strided to the feature grid:
+        correspondence tables (V, V, S, 9) for "correspondence", world points
+        (V, S, 3) for "triplane"; None for "attn_align"."""
+        cfgp = self.cfg
+        if cfgp.attn_processor == "attn_align":
+            return None
+        fh = max(cfgp.latent_size // max(cfgp.geom_res_divisor, 1), 1)
+        depths = [self._tensor(self.depths[i]) for i in views]
+        cams = [datamanager.camera(i) for i in views]
+        if cfgp.attn_processor == "correspondence":
+            return build_correspondence_tables(depths, cams, fh, cfgp.corr_sigma)
+        # triplane: back-project the strided depths to (V, S, 3) world points
+        pts = []
+        for d, c in zip(depths, cams):
+            stride = max(d.shape[0] // fh, 1)
+            ds = d[stride // 2 :: stride, stride // 2 :: stride][:fh, :fh]
+            pts.append(depth_to_world_points(ds, scaled_camera(c, stride, fh)).reshape(-1, 3))
+        return torch.stack(pts)
+
+    def _make_processor(self, geom=None):
         cfgp = self.cfg
         if cfgp.attn_processor == "attn_align":
             return make_cross_view_processor(cfgp.self_attn_coeff_unet, cfgp.ref_view_num)
-        if cfgp.attn_processor in ("triplane", "correspondence"):
-            raise NotImplementedError(
-                f"attn_processor {cfgp.attn_processor!r} is not ported yet: the experimental "
-                "triplane and correspondence processors are a later slice (ROADMAP §A)")
+        if cfgp.attn_processor == "triplane":
+            return make_triplane_processor(geom, mix=cfgp.triplane_mix, bbox_length=cfgp.triplane_bbox_length,
+                                           plane_res=cfgp.triplane_plane_res)
+        if cfgp.attn_processor == "correspondence":
+            nbr_idx, nbr_w = geom
+            return make_multires_epipolar_processor({nbr_idx.shape[2]: (nbr_idx, nbr_w)}, mix=cfgp.corr_mix)
         raise ValueError(f"unknown attn_processor {cfgp.attn_processor!r}")
 
     def edit_images(self, datamanager) -> None:
@@ -216,7 +251,8 @@ class GaussCtrlEditPipeline:
         view is edited once, in order; each chunk goes after the 4 reference
         views, whose own outputs are dropped."""
         cfgp = self.cfg
-        processor = self._make_processor()
+        if cfgp.attn_processor not in ("attn_align", "triplane", "correspondence"):
+            raise ValueError(f"unknown attn_processor {cfgp.attn_processor!r}")
         V = len(datamanager)
         ref_indices = select_reference_views(V, cfgp.ref_view_num)
         pos_ctx = self._encode([f"{cfgp.edit_prompt}, {ADDED_PROMPT}"])
@@ -229,6 +265,7 @@ class GaussCtrlEditPipeline:
             z0 = self._tensor(np.concatenate([ref_z0, np.stack([self.z0[i] for i in chunk])]))
             hint = self._tensor(np.concatenate([ref_disp, np.stack([self.disparity[i] for i in chunk])]))
             B = z0.shape[0]
+            processor = self._make_processor(self._chunk_geometry(datamanager, ref_indices + chunk))
             latents = self.pipe.generate(
                 z0, pos_ctx.expand(B, -1, -1), neg_ctx.expand(B, -1, -1), hint,
                 cfgp.guidance_scale, cfgp.num_inference_steps,

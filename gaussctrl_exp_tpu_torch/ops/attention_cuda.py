@@ -1,17 +1,22 @@
-"""Kernel B3, the flash-attention forward, for CUDA tensors.
+"""Kernels B3 (the flash-attention forward) and B4, B5 (its backward) for
+CUDA tensors.
 
 B3 (``csrc/flash_attn_fwd.cu``) replaces
 ``gaussctrl_exp_tpu/diffusion/attention.py:_flash_sdpa`` (the library TPU
 flash attention) and computes what ``sdpa_plain`` computes: the non-causal
 ``softmax(Q·Kᵀ·D^-½)·V`` of (B, H, S, D) queries against (B, H, T, D) keys
-and values, with an fp32 softmax. bf16 runs on the tensor cores
-(``mma.sync``), fp32 on scalar FMAs; both accumulate in fp32 and return the
-input's type. It is bound by operations at the edit path's shapes; its source
-says how its design meets that.
+and values, with an fp32 softmax. B4 (dK, dV) and B5 (dQ), in
+``csrc/flash_attn_bwd.cu``, replace the library's backward kernels and
+compute what autograd through ``sdpa_plain`` computes, from B3's per-row
+log-sum-exp. bf16 runs on the tensor cores (``mma.sync``), fp32 on scalar
+FMAs; all accumulate in fp32 and return the input's type. The sources say
+what bounds each kernel and how its design meets that.
 
-``diffusion/attention.py``'s ``_sdpa`` sends every CUDA call here and every
-CPU call to ``sdpa_plain``. ``flash_attn`` launches the kernel or raises: it
-never falls back.
+``diffusion/attention.py``'s ``_sdpa`` sends a CUDA call that autograd must
+differentiate to ``FlashAttnFunction`` (B3 forward, B4 and B5 backward),
+every other CUDA call to ``flash_attn`` and every CPU call to
+``sdpa_plain``. The wrappers launch their kernel or raise: they never fall
+back.
 """
 
 from __future__ import annotations
@@ -24,10 +29,14 @@ import torch
 from . import cuda_build
 
 MAX_HEAD_DIM = 160
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p]
+_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 21
+                 + [ctypes.c_float, ctypes.c_void_p])
 
 launches = 0  # B3 launches since the caller last set it to 0
-copies = 0  # inputs the wrapper made contiguous (D not contiguous, or misaligned)
+dkv_launches = 0  # B4 launches, likewise
+dq_launches = 0  # B5 launches, likewise
+copies = 0  # inputs the wrappers made contiguous (D not contiguous, or misaligned)
 
 
 def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -54,40 +63,57 @@ def _strided(name: str, t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Launch kernel B3 on CUDA tensors q (B, H, S, D), k and v (B, H, T, D),
-    all bf16 or all fp32, D a multiple of 8 up to 160. Returns (B, H, S, D) in
-    the input's type, laid out as (B, S, H, D) so that merging the heads back
-    is a view. Raises on anything else."""
-    global launches
+def _check(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[int, int, int, int, int]:
+    """(B, H, S, T, D) of CUDA q (B, H, S, D), k and v (B, H, T, D) that the
+    kernels take; raises on anything else."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
-            raise ValueError(f"flash_attn: {name} is on {t.device}; kernel B3 takes CUDA tensors "
+            raise ValueError(f"{fn}: {name} is on {t.device}; the attention kernels take CUDA tensors "
                              "(diffusion.attention._sdpa sends CPU tensors to sdpa_plain)")
         if t.device != q.device:
-            raise ValueError(f"flash_attn: {name} is on {t.device}, q on {q.device}")
+            raise ValueError(f"{fn}: {name} is on {t.device}, q on {q.device}")
         if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != q.dtype:
-            raise TypeError(f"flash_attn: {name} has dtype {t.dtype}; all of q, k, v must be "
+            raise TypeError(f"{fn}: {name} has dtype {t.dtype}; all of q, k, v must be "
                             "bfloat16 or all float32")
         if t.dim() != 4:
-            raise ValueError(f"flash_attn: {name} has shape {tuple(t.shape)}, expected (B, H, L, D)")
+            raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected (B, H, L, D)")
     B, H, S, D = q.shape
     T = k.shape[2]
     if tuple(k.shape) != (B, H, T, D) or tuple(v.shape) != (B, H, T, D):
-        raise ValueError(f"flash_attn: k {tuple(k.shape)} and v {tuple(v.shape)} do not match "
+        raise ValueError(f"{fn}: k {tuple(k.shape)} and v {tuple(v.shape)} do not match "
                          f"q {tuple(q.shape)}")
     if D % 8 != 0 or not 8 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attn: head dim {D} is not a multiple of 8 in 8..{MAX_HEAD_DIM}")
+        raise ValueError(f"{fn}: head dim {D} is not a multiple of 8 in 8..{MAX_HEAD_DIM}")
     if S == 0 or T == 0 or B * H == 0:
-        raise ValueError(f"flash_attn: empty attention q {tuple(q.shape)} k {tuple(k.shape)}")
+        raise ValueError(f"{fn}: empty attention q {tuple(q.shape)} k {tuple(k.shape)}")
     if B * H > 65535:
-        raise ValueError(f"flash_attn: B·H = {B * H} exceeds the grid's 65535")
+        raise ValueError(f"{fn}: B·H = {B * H} exceeds the grid's 65535")
+    return B, H, S, T, D
+
+
+def _heads_last(B: int, L: int, H: int, D: int, like: torch.Tensor) -> torch.Tensor:
+    """An empty (B, H, L, D) tensor laid out as (B, L, H, D), so that merging
+    the heads back is a view."""
+    return torch.empty((B, L, H, D), dtype=like.dtype, device=like.device).transpose(1, 2)
+
+
+def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               return_lse: bool = False):
+    """Launch kernel B3 on CUDA tensors q (B, H, S, D), k and v (B, H, T, D),
+    all bf16 or all fp32, D a multiple of 8 up to 160. Returns (B, H, S, D) in
+    the input's type, laid out as (B, S, H, D); with ``return_lse`` also each
+    query row's log-sum-exp of its scaled scores, fp32 (B, H, S), which the
+    backward kernels read. Raises on anything else."""
+    global launches
+    B, H, S, T, D = _check("flash_attn", q, k, v)
     q, k, v = _strided("q", q), _strided("k", k), _strided("v", v)
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    out = _heads_last(B, S, H, D, q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if return_lse else None
     lib = cuda_build.load("flash_attn_fwd", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = lib.gctorch_flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
             B, H, S, T, D, int(q.dtype == torch.bfloat16),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
@@ -95,4 +121,89 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd kernel launch failed with CUDA error {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _launch_bwd(which: int, q, k, v, dout, lse, delta, dq, dk, dv) -> None:
+    B, H, S, D = q.shape
+    T = k.shape[2]
+    lib = cuda_build.load("flash_attn_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = lib.gctorch_flash_attn_bwd(
+            which, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr() if dq is not None else None,
+            dk.data_ptr() if dk is not None else None, dv.data_ptr() if dv is not None else None,
+            B, H, S, T, D, int(q.dtype == torch.bfloat16),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
+            *(dq.stride()[:3] if dq is not None else (0, 0, 0)),
+            *(dk.stride()[:3] if dk is not None else (0, 0, 0)),
+            *(dv.stride()[:3] if dv is not None else (0, 0, 0)),
+            D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bwd kernel {'B4' if which == 0 else 'B5'} launch failed "
+                           f"with CUDA error {err}")
+
+
+def _bwd_inputs(fn, q, k, v, out, lse, dout, delta):
+    B, H, S, T, D = _check(fn, q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{fn}: {name} {tuple(t.shape)} {t.dtype} on {t.device} does not match q "
+                             f"{tuple(q.shape)} {q.dtype} on {q.device}")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"{fn}: lse {tuple(lse.shape)} {lse.dtype} is not fp32 (B, H, S) on {q.device}")
+    delta = delta_of(out, dout) if delta is None else delta.float().contiguous()
+    return (_strided("q", q), _strided("k", k), _strided("v", v), _strided("dout", dout),
+            lse.contiguous(), delta)
+
+
+def delta_of(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO ∘ O) in fp32, (B, H, S) contiguous: what the backward
+    subtracts from dP (the JAX wrapper computes it in XLA outside its
+    kernels, as here)."""
+    return (dout.float() * out.float()).sum(-1).contiguous()
+
+
+def flash_attn_bwd_dkv(q, k, v, out, lse, dout, delta=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel B4: dK and dV (B, H, T, D), laid out (B, T, H, D), of the
+    attention B3 computed as ``out`` with log-sum-exp ``lse``, for the output
+    cotangent ``dout``; ``delta`` is ``delta_of(out, dout)``, computed here
+    when not given."""
+    global dkv_launches
+    q, k, v, dout, lse, delta = _bwd_inputs("flash_attn_bwd_dkv", q, k, v, out, lse, dout, delta)
+    B, H, T, D = k.shape
+    dk, dv = _heads_last(B, T, H, D, k), _heads_last(B, T, H, D, k)
+    _launch_bwd(0, q, k, v, dout, lse, delta, None, dk, dv)
+    dkv_launches += 1
+    return dk, dv
+
+
+def flash_attn_bwd_dq(q, k, v, out, lse, dout, delta=None) -> torch.Tensor:
+    """Launch kernel B5: dQ (B, H, S, D), laid out (B, S, H, D)."""
+    global dq_launches
+    q, k, v, dout, lse, delta = _bwd_inputs("flash_attn_bwd_dq", q, k, v, out, lse, dout, delta)
+    B, H, S, D = q.shape
+    dq = _heads_last(B, S, H, D, q)
+    _launch_bwd(1, q, k, v, dout, lse, delta, dq, None, None)
+    dq_launches += 1
+    return dq
+
+
+class FlashAttnFunction(torch.autograd.Function):
+    """Attention with a gradient on the card: B3 forward (with the
+    log-sum-exp), B4 and B5 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_attn(q, k, v, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        delta = delta_of(out, dout)
+        dk, dv = flash_attn_bwd_dkv(q, k, v, out, lse, dout, delta)
+        dq = flash_attn_bwd_dq(q, k, v, out, lse, dout, delta)
+        return dq, dk, dv

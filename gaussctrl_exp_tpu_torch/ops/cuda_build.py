@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (B1, B2, B3).
+"""Build and load the port's CUDA kernels (B1 to B5).
 
 Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
 plain-C shared library, keyed by a hash of the source and its flags, under
@@ -21,6 +21,7 @@ SOURCES = {
     "blend_fwd": _PKG / "csrc" / "blend_fwd.cu",
     "blend_bwd": _PKG / "csrc" / "blend_bwd.cu",
     "flash_attn_fwd": _PKG / "csrc" / "flash_attn_fwd.cu",
+    "flash_attn_bwd": _PKG / "csrc" / "flash_attn_bwd.cu",
 }
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
@@ -28,11 +29,13 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 # the blend kernels keep the plain version's roundings (no fused multiply-add);
-# B3's build prints its registers and spills (ptxas -v) into its log
+# the attention kernels' builds print their registers and spills (ptxas -v)
+# into their logs
 EXTRA_FLAGS = {
     "blend_fwd": ["-fmad=false"],
     "blend_bwd": ["-fmad=false"],
     "flash_attn_fwd": ["-Xptxas=-v"],
+    "flash_attn_bwd": ["-Xptxas=-v"],
 }
 
 logs: dict[str, str] = {}  # nvcc's output for each source built by this process

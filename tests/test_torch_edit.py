@@ -7,8 +7,9 @@ the same BPE tokenizer on its test vocabulary. The renders, the inverted
 latents ``z0`` and the written-back images are compared: relative L2 ≤ 1e-4
 (the float32 loop of render → VAE → 2-step inversion → 2-step CFG
 generation → VAE; measured: renders 1e-7, disparities 7e-7, z0 ≤ 1.5e-5,
-images ≤ 2.3e-5). Also the sidecar resume, and the
-processors that are not ported yet.
+images ≤ 2.3e-5). Also the sidecar resume, and the edit with each of
+the experimental cross-view processors ("correspondence", "triplane") from
+the same inverted latents, against the JAX pipeline at the same 1e-4.
 """
 
 import numpy as np
@@ -148,10 +149,66 @@ def test_sidecar_resume(tiny_models, tmp_path):
 
 @pytest.mark.parametrize("proc", ["triplane", "correspondence"])
 def test_unported_processors_raise(tiny_models, proc):
-    pipe = tpl.GaussCtrlEditPipeline(_cfg(tpl, attn_processor=proc), models=tiny_models,
+    """The experimental processors are ported now: each builds from a
+    chunk's geometry, and only an unknown name raises."""
+    pipe = tpl.GaussCtrlEditPipeline(_cfg(tpl, attn_processor=proc, latent_size=8), models=tiny_models,
                                      tokenizer=CLIPTokenizer(*make_test_vocab()))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.edit_images(_port_dm())
+    dm = _port_dm()
+    pipe.depths = {i: np.full((H, W), 4.0 + 0.1 * i, np.float32) for i in range(V)}
+    geom = pipe._chunk_geometry(dm, [0, 2, 4])
+    if proc == "triplane":
+        assert geom.shape == (3, 64, 3)
+    else:
+        assert geom[0].shape == geom[1].shape == (3, 3, 64, 9)
+    assert callable(pipe._make_processor(geom))
+    bad = tpl.GaussCtrlEditPipeline(_cfg(tpl, attn_processor="bogus"), models=tiny_models,
+                                    tokenizer=CLIPTokenizer(*make_test_vocab()))
+    with pytest.raises(ValueError, match="bogus"):
+        bad.edit_images(dm)
+
+
+@pytest.fixture(scope="module")
+def inverted():
+    """render_reverse in both packages once: their pipelines' caches."""
+    jm = jax_tiny(0)
+    vocab, merges = make_test_vocab()
+    jgs, tgs = _scene()
+    jpipe = jpl.GaussCtrlEditPipeline(_cfg(jpl, latent_size=8), models=jm, tokenizer=JTokenizer(vocab, merges))
+    jpipe.render_reverse(jgs, DM(jmake_camera, jlook_at), JModelConfig(
+        sh_degree=1, background_color="white",
+        render=JRenderConfig(impl="jnp", isect_capacity=1 << 12, max_per_tile=128)))
+    tpipe = tpl.GaussCtrlEditPipeline(_cfg(tpl), models=port_tiny(jm), tokenizer=CLIPTokenizer(vocab, merges))
+    tpipe.render_reverse(tgs, _port_dm(), SplatModelConfig(sh_degree=1, background_color="white"))
+    return jpipe, tpipe
+
+
+@pytest.mark.parametrize("proc", ["correspondence", "triplane"])
+def test_experimental_processors_match_jax(inverted, proc):
+    """edit_images with an experimental processor, whose geometry comes from
+    the cached depths, in both packages from the same inverted latents."""
+    jbase, tbase = inverted
+    mask = (np.random.default_rng(6).uniform(size=(H, W)) > 0.5).astype(np.float32)
+    kw = dict(attn_processor=proc, latent_size=8, triplane_plane_res=8)
+    jpipe = jpl.GaussCtrlEditPipeline(_cfg(jpl, **kw), models=jbase.models, tokenizer=jbase.tokenize)
+    tpipe = tpl.GaussCtrlEditPipeline(_cfg(tpl, **kw), models=tbase.models, tokenizer=tbase.tokenize)
+    for dst, src in ((jpipe, jbase), (tpipe, tbase)):
+        for name in ("z0", "disparity", "depths", "unedited"):
+            setattr(dst, name, dict(getattr(src, name)))
+        dst.masks[MASKED] = mask
+    jdm, tdm = DM(jmake_camera, jlook_at), _port_dm()
+    jpipe.edit_images(jdm)
+    tpipe.edit_images(tdm)
+    assert sorted(tdm.writes) == list(range(V))
+    for i in range(V):
+        assert rel_l2(tdm.images[i], jdm.images[i]) <= REL_LOOP
+    assert tdm.images.min() >= 0.0 and tdm.images.max() <= 1.0
+    # the processor changed the edit: it is not AttnAlign's
+    ref = tpl.GaussCtrlEditPipeline(_cfg(tpl), models=tbase.models, tokenizer=tbase.tokenize)
+    for name in ("z0", "disparity", "depths", "unedited"):
+        setattr(ref, name, dict(getattr(tbase, name)))
+    ref_dm = _port_dm()
+    ref.edit_images(ref_dm)
+    assert float(np.abs(ref_dm.images - tdm.images).max()) > 1e-4
 
 
 @pytest.mark.parametrize("n", [6, 7, 40])

@@ -1,5 +1,6 @@
-"""Kernels B1 and B2 (the CUDA tile blend and its backward) and B3 (the
-flash-attention forward) against their plain PyTorch versions.
+"""Kernels B1 and B2 (the CUDA tile blend and its backward), B3 (the
+flash-attention forward) and B4, B5 (its backward) against their plain
+PyTorch versions.
 
 Needs an NVIDIA card and nvcc; without a card every test here skips. The
 file imports neither JAX nor the JAX package and uses no fixture of
@@ -264,3 +265,142 @@ def test_flash_attn_refuses_what_it_does_not_take(cuda_device):
         attention_cuda.flash_attn(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):  # k and v disagree
         attention_cuda.flash_attn(q, k, v[:, :, :16])
+
+
+# ------------------------------------------------------- kernels B4 and B5
+
+# B4/B5 against autograd through sdpa_plain in fp32 on the upcast inputs and
+# cotangent, relative L2 per gradient. fp32: the same sums in another order
+# (expected ~1e-6); bf16: the inputs' gradients are rounded to bf16, and so
+# are P and dS before their products, as the forward rounds P (expected
+# 3-6e-3)
+BWD_F32_REL_L2, BWD_BF16_REL_L2 = 1e-5, 1.5e-2
+
+
+def _check_grads(q, k, v, seed=0):
+    """FlashAttnFunction's gradients against autograd through sdpa_plain in
+    fp32; returns them."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    dout = torch.randn(q.shape, generator=gen).to(q.device, q.dtype)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (attention_cuda.launches, attention_cuda.dkv_launches, attention_cuda.dq_launches)
+    out = attention_cuda.FlashAttnFunction.apply(*leaves)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    after = (attention_cuda.launches, attention_cuda.dkv_launches, attention_cuda.dq_launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_cuda.sdpa_plain(*ref), ref, dout.float())
+    limit = BWD_BF16_REL_L2 if q.dtype == torch.bfloat16 else BWD_F32_REL_L2
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype, name
+        rel = float((g.float() - w).norm() / w.norm())
+        assert rel <= limit, (name, rel)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [16, 40, 80, 160])
+@pytest.mark.parametrize("S,T", [(256, 256), (200, 77), (100, 130)])
+def test_flash_backward_matches_plain(cuda_device, dtype, D, S, T):
+    _check_grads(*_qkv(cuda_device, dtype, 2, 3, S, T, D, seed=D + S), seed=D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(4, 8, 4096, 4096, 40), (4, 8, 1024, 1024, 80), (4, 8, 256, 256, 160),
+                                   (4, 8, 64, 64, 160), (4, 8, 4096, 77, 40), (4, 8, 1024, 77, 80),
+                                   (4, 8, 256, 77, 160), (2, 3, 100, 77, 24)])
+def test_flash_backward_at_the_depth_generator_shapes(cuda_device, dtype, shape):
+    """The self- and cross-attention shapes of the depth generator's training
+    step (4 views, 64² latents), and a ragged one."""
+    B, H, S, T, D = shape
+    _check_grads(*_qkv(cuda_device, dtype, B, H, S, T, D, seed=S + T), seed=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_strided_heads(cuda_device, dtype):
+    """Head-split views in, gradients laid out (B, L, H, D) out, no copy."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    B, H, S, T, D = 2, 4, 96, 77, 24
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    mk = lambda L: torch.randn((B, L, H * D), generator=gen).to(cuda_device, dtype).view(B, L, H, D).transpose(1, 2)
+    q, k, v = mk(S), mk(T), mk(T)
+    copies = attention_cuda.copies
+    got = _check_grads(q, k, v)
+    assert attention_cuda.copies == copies
+    for g in got:
+        assert g.transpose(1, 2).is_contiguous()
+    cont = _check_grads(q.contiguous(), k.contiguous(), v.contiguous())
+    for a, b in zip(got, cont):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_repeats_bit_for_bit(cuda_device, dtype):
+    first = _check_grads(*_qkv(cuda_device, dtype, 2, 3, 300, 200, 40, seed=3))
+    second = _check_grads(*_qkv(cuda_device, dtype, 2, 3, 300, 200, 40, seed=3))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [40, 160])
+def test_flash_lse_leaves_the_output_alone(cuda_device, dtype, D):
+    """B3 writes the same output bits with and without the log-sum-exp, and
+    the log-sum-exp is that of the scaled scores."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    q, k, v = _qkv(cuda_device, dtype, 2, 3, 200, 77, D, seed=D)
+    plain_out = attention_cuda.flash_attn(q, k, v)
+    out, lse = attention_cuda.flash_attn(q, k, v, return_lse=True)
+    assert torch.equal(out, plain_out)
+    assert lse.shape == (2, 3, 200) and lse.dtype == torch.float32 and lse.is_contiguous()
+    want = torch.logsumexp(torch.matmul(q.float(), k.float().transpose(-1, -2)) * D ** -0.5, dim=-1)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-5 if dtype == torch.float32 else 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sdpa_keeps_the_gradient_on_the_card(cuda_device, dtype):
+    """diffusion.attention._sdpa on CUDA inputs that require grad records the
+    kernels for autograd, and its gradients are the plain ones; without grad
+    it launches B3 alone."""
+    from gaussctrl_exp_tpu_torch.diffusion.attention import _sdpa
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    q, k, v = (t.requires_grad_() for t in _qkv(cuda_device, dtype, 2, 2, 128, 128, 40, seed=4))
+    out = _sdpa(q, k, v)
+    assert out.requires_grad and out.grad_fn is not None
+    dkv, dq = attention_cuda.dkv_launches, attention_cuda.dq_launches
+    out.float().square().sum().backward()
+    assert (attention_cuda.dkv_launches - dkv, attention_cuda.dq_launches - dq) == (1, 1)
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    attention_cuda.sdpa_plain(*ref).square().sum().backward()
+    limit = BWD_BF16_REL_L2 if dtype == torch.bfloat16 else BWD_F32_REL_L2
+    for t, r in zip((q, k, v), ref):
+        assert float((t.grad.float() - r.grad).norm() / r.grad.norm()) <= limit
+    with torch.no_grad():
+        assert not _sdpa(q, k, v).requires_grad
+    assert not _sdpa(q.detach(), k.detach(), v.detach()).requires_grad
+
+
+@pytest.mark.cuda
+def test_flash_backward_refuses_what_it_does_not_take(cuda_device):
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    q, k, v = _qkv(cuda_device, torch.float32, 1, 2, 32, 32, 40)
+    out, lse = attention_cuda.flash_attn(q, k, v, return_lse=True)
+    with pytest.raises(ValueError):  # lse of the wrong shape
+        attention_cuda.flash_attn_bwd_dq(q, k, v, out, lse[..., :16], out)
+    with pytest.raises(ValueError):  # cotangent of the wrong type
+        attention_cuda.flash_attn_bwd_dkv(q, k, v, out, lse, out.double())
+    with pytest.raises(ValueError):  # CPU tensors
+        attention_cuda.flash_attn_bwd_dq(q.cpu(), k.cpu(), v.cpu(), out.cpu(), lse.cpu(), out.cpu())

@@ -128,6 +128,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gaussctrl_exp_tpu", "tr
 def test_port_imports_no_jax_transformers_or_safetensors():
     """The card has neither transformers nor safetensors, and no JAX."""
     files = sorted((REPO / "gaussctrl_exp_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    names = {str(p.relative_to(REPO)) for p in files}
+    for module in ("diffusion/geometry.py", "diffusion/correspondence.py", "diffusion/triplane_attention.py",
+                   "diffusion/mv_generator.py", "diffusion/inpaint.py", "experimental/noise_mask.py",
+                   "ops/attention_cuda.py"):
+        assert f"gaussctrl_exp_tpu_torch/{module}" in names
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
