@@ -7,7 +7,7 @@ Run from the repository root, with one CUDA card visible:
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN.
-  2. build kernels B1, B2, B3 and B4/B5 (csrc/*.cu) with nvcc for sm_90a,
+  2. build kernels B1, B2, B3, B4/B5 and B1v (csrc/*.cu) with nvcc for sm_90a,
      one process per source, all started together.
   3. B1 against its plain PyTorch version on the same CUDA tensors: the
      bear-scale 512² frame (C = 4 and C = 3), a 300k-gaussian garden-scale
@@ -65,7 +65,17 @@ Phases (any failure exits non-zero):
      phase-12 shape against their bounds and the backward of
      ``scaled_dot_product_attention``; a sampling step and the
      correspondence processor's share of it.
+ 16. kernel B1v (csrc/blend_variants.cu, the six blend-forward ablations)
+     against its plain version per mode on the variant script's scene
+     (35,000 gaussians, 512²), a sparse one with empty tiles, the 500×372
+     frame and (base, nomatmul) the garden frame, and ``base`` against B1;
+     B1v per mode against its bound and the plain version; then the main
+     path of this slice: the ported ``bench_blend_variants`` and
+     ``bench_bwd_micro`` scripts at their defaults, with the launches of
+     B1v, B1 and B2 read around them.
 
+A busy share is the union of the device ops' intervals over the wall of
+the same profiled window, both from torch.profiler, so it cannot pass 1.
 The last three lines of standard output are the card's name and power limit,
 one JSON object describing each kernel, and ``{"ok": true, "device": …}``.
 """
@@ -531,27 +541,56 @@ def count_transformers(module) -> int:
     return sum(isinstance(m, Transformer2D) for m in module.modules())
 
 
-def device_times(fn, match) -> tuple[float, float, float]:
-    """Device time of one call (ms), the part in kernels whose name holds
-    ``match`` (ms), and the device ops, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+WINDOW = "chip_smoke_window"
+
+
+def device_window(fn, match="") -> dict:
+    """``fn`` once under torch.profiler, inside a window that ends with a
+    synchronize. Returns the window's wall (ms, as the profiler records the
+    window on the host), the union of the device ops' intervals inside it
+    (ms), the busy share (that union over the wall, so it cannot pass 1), the
+    device ops' summed time (ms), the part in kernels whose name holds
+    ``match`` (ms), the number of device ops, and the device time the profiler
+    put outside the window (ms, 0 when the two clocks agree)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(e.device_time_total for e in evs) / 1e3,
-            sum(e.device_time_total for e in evs if match in e.name) / 1e3, len(evs))
+        with record_function(WINDOW):
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    win = next(e for e in events if e.name == WINDOW and e.device_type != cuda)
+    w0, w1 = win.time_range.start, win.time_range.end
+    dev = [e for e in events if e.device_type == cuda and e.name != WINDOW]
+    busy, end, inside = 0.0, w0, 0.0
+    for s, e in sorted((max(e.time_range.start, w0), min(e.time_range.end, w1)) for e in dev):
+        inside += max(e - s, 0.0)
+        s = max(s, end)
+        if e > s:
+            busy, end = busy + e - s, e
+    total = sum(e.device_time_total for e in dev)
+    share = busy / (w1 - w0)
+    if share > 1.0:
+        raise SystemExit(f"FAIL: a busy share of {share} is not a share")
+    return dict(wall_ms=(w1 - w0) / 1e3, busy_ms=busy / 1e3, busy=share, device_ms=total / 1e3,
+                part_ms=sum(e.device_time_total for e in dev if match and match in e.name) / 1e3,
+                ops=len(dev), outside_ms=max(total - inside, 0.0) / 1e3)
 
 
-def device_share(fn, frames=5, match="flash_fwd") -> tuple[float, float, float]:
-    """Device time per call (ms), the part of it in kernels whose name holds
-    ``match`` (ms), and device ops per call, from torch.profiler, after one
-    warm-up call."""
+def device_share(fn, frames=5, match="flash_fwd") -> dict:
+    """``device_window`` over ``frames`` calls of ``fn`` after one warm-up
+    call, with the device time, its ``match`` part and the ops per call."""
     fn()
-    total, part, ops = device_times(lambda: [fn() for _ in range(frames)], match)
-    return total / frames, part / frames, ops / frames
+    w = device_window(lambda: [fn() for _ in range(frames)], match)
+    return dict(w, device_ms=w["device_ms"] / frames, part_ms=w["part_ms"] / frames, ops=w["ops"] / frames,
+                frames=frames)
+
+
+def busy_text(w: dict) -> str:
+    return (f"busy share {w['busy']:.3f} (device-op union {w['busy_ms']:.4f} ms over the {w['wall_ms']:.4f} ms "
+            f"window timed inside torch.profiler; device time outside the window {w['outside_ms']:.4f} ms)")
 
 
 def phase9_flash(dev) -> tuple[float, list]:
@@ -730,15 +769,15 @@ def phase11_timings(dev, state, cams, edit, flash_cases) -> dict:
     }
     ft_step = make_train_step(edit["ft_cfg"])
     stage["fine-tune step"] = time_ms(lambda: ft_step(edit["ft"].state, cams[0], views.images[0]), iters=10)
-    gen_dev_ms, gen_b3_ms, gen_ops = device_share(gen_step, frames=2)
+    gen_win = device_share(gen_step, frames=2)
+    gen_dev_ms, gen_b3_ms = gen_win["device_ms"], gen_win["part_ms"]
     print(f"[11] edit path by stage (CUDA events, warm), bf16 at full SD1.x width, {S}² views:")
     for name, ms in stage.items():
         print(f"    {name}: {ms:.4f} ms")
     print(f"    edit_images wall (phase 10, {V} views, {steps} steps, host clock): {edit['edit_wall'] * 1e3:.1f} ms; "
           f"render_reverse wall {edit['reverse_wall'] * 1e3:.1f} ms")
-    print(f"    generation step device time {gen_dev_ms:.4f} ms in {gen_ops:.0f} device ops (torch.profiler): busy "
-          f"share {gen_dev_ms / stage[gen_name]:.3f}; B3 {gen_b3_ms:.4f} ms = {gen_b3_ms / gen_dev_ms:.3f} of the "
-          f"device time")
+    print(f"    generation step device time {gen_dev_ms:.4f} ms in {gen_win['ops']:.0f} device ops (torch.profiler, "
+          f"2 steps): {busy_text(gen_win)}; B3 {gen_b3_ms:.4f} ms = {gen_b3_ms / gen_dev_ms:.3f} of the device time")
     rows = []
     for name, shape, (q, k, v) in flash_cases:
         ms = time_ms(lambda: attention_cuda.flash_attn(q, k, v), iters=10)
@@ -1218,16 +1257,17 @@ def phase15_timings(dev, mv) -> dict:
         opt.step()
         opt.zero_grad(set_to_none=True)
 
-    step_dev, _, step_ops = device_times(full_step, "flash")
+    step_win = device_window(full_step, "flash")
     loss = gen.loss(*args)
     torch.cuda.synchronize()
-    bwd_dev, bwd_kernels, _ = device_times(loss.backward, "flash_bwd")
+    bwd_win = device_window(loss.backward, "flash_bwd")
+    bwd_dev, bwd_kernels = bwd_win["device_ms"], bwd_win["part_ms"]
     opt.zero_grad(set_to_none=True)
     step_ms = float(split.sum())
     print(f"[15] timings (CUDA events, warm). Depth generator train step, fp32, {MV_V} views at 64²: {step_ms:.2f} ms "
           f"= forward {split[0]:.2f} + backward {split[1]:.2f} + optimizer {split[2]:.2f}; device time "
-          f"{step_dev:.2f} ms in {step_ops} device ops (torch.profiler): busy share {step_dev / step_ms:.3f}; "
-          f"backward device time {bwd_dev:.2f} ms, of which B4 + B5 {bwd_kernels:.2f} ms = "
+          f"{step_win['device_ms']:.2f} ms in {step_win['ops']} device ops (torch.profiler, one step): "
+          f"{busy_text(step_win)}; backward device time {bwd_dev:.2f} ms, of which B4 + B5 {bwd_kernels:.2f} ms = "
           f"{bwd_kernels / bwd_dev:.3f}")
 
     rows = {}
@@ -1271,6 +1311,169 @@ def phase15_timings(dev, mv) -> dict:
                 b4_bound=main["b4_bound"], b4_by=main["b4_by"], b5_bound=main["b5_bound"], b5_by=main["b5_by"])
 
 
+# ---------------------------------------------------------------- phase 16
+
+# B1v's fp32 operations per evaluated (pixel, slot) pair, from
+# csrc/blend_variants.cu: dx, dy, σ (9), the visibility (2), α and its clamp
+# (2), the two tests (2), aeff (1) and 1 − aeff (1), 19 in every mode; T_excl
+# (an exp and a multiply, 2; scan a multiply, 1; nomatmul none), T_after
+# with its two tests and the done test (4), the cumulation (log1p of −aeff
+# and the add, 3; notrans the add, 1; scan the multiply, 1; nomatmul none).
+# A composited pair adds the weight, the running minimum and a multiply-add
+# per channel
+OPS_VARIANT = {"base": 28, "notrans": 26, "nomatmul": 23, "scan": 25, "pair": 28}
+OPS_VARIANT_COMPOSITED_BASE = 2
+# pixels left out of B1v's comparison (a stop decision within the band around
+# T_EPS, where the kernel's serial sums and the plain version's cumsums may
+# decide apart), as a share of the pixels compared
+VARIANT_BAND_MAX = 5e-3
+N_SPARSE = 500  # the script's scene with 500 gaussians: tiles with no intersection
+
+
+def variant_bound(mode, run, args, bins, table) -> tuple[float, str, dict]:
+    """B1v's bound for mode ``mode``: the fp32 operations of the pairs this
+    run evaluates (``run`` is the plain version's count of them), each input
+    read once and the output written once; ``empty`` only writes."""
+    _, _, colors, _ = args
+    N, C = colors.shape
+    n_bytes = run.out.numel() * 4
+    n_ops = 0
+    if mode != "empty":
+        n_bytes += 4 * (N * (6 + C) + bins.n_isects + 2 * table.num_tiles)
+        if mode == "pair":  # the chunk table and the pair ranges
+            n_bytes += 4 * (3 * table.chunk_tile.numel() + 2 * table.num_tiles)
+        n_ops = OPS_VARIANT[mode] * run.pairs + (OPS_VARIANT_COMPOSITED_BASE + 2 * C) * run.composited
+    bound, by = roofline(n_bytes, n_ops)
+    return bound, by, dict(bytes=n_bytes, ops=n_ops, pairs=run.pairs, composited=run.composited, chunks=run.chunks)
+
+
+def check_variant(name, mode, args, bins, H, W, capacity):
+    """B1v against its plain version on the same CUDA tensors, every tile,
+    the stop band left out; returns max |d|, the plain run and B1v's output."""
+    from gaussctrl_exp_tpu_torch.ops import blend_variants as V
+
+    table = V.bins_chunk_table(bins, H, W, capacity)
+    got = V.blend_variant(mode, *args, bins, H, W, table=table)
+    torch.cuda.synchronize()
+    run = V.variant_plain_run(mode, *args, bins, H, W, table=table)
+    keep = ~run.band
+    d = (got - run.out).abs()[keep]
+    want = run.out[keep]
+    err = float(d.max()) if d.numel() else 0.0
+    tight = bool((d <= ATOL_IMG + RTOL * want.abs()).all())
+    done_ok = torch.equal(got[keep][:, V.COL_DONE], want[:, V.COL_DONE])
+    n_band = int(run.band.sum())
+    defined = V.defined_tiles(mode, table)
+    print(f"  {name} {mode}: max|d| {err:.3e} off the band; band pixels {n_band} of {run.band.numel()}; done flags "
+          f"equal {done_ok}; tiles defined on the TPU {int(defined.sum())} of {table.num_tiles}; chunks evaluated "
+          f"{run.chunks}, pairs {run.pairs}")
+    if not (tight and done_ok and n_band <= VARIANT_BAND_MAX * run.band.numel() and got.shape == run.out.shape):
+        raise SystemExit(f"FAIL: blend_variants {mode} disagrees with its plain version on {name}")
+    return err, run, got
+
+
+def check_base_against_b1(name, got, run, args, bins, H, W) -> float:
+    """``base`` in image layout against kernel B1 on the same inputs, off
+    the stop band of either."""
+    from gaussctrl_exp_tpu_torch.ops import blend_cuda
+    from gaussctrl_exp_tpu_torch.ops import blend_variants as V
+
+    C = args[2].shape[1]
+    img, T = V.tiles_to_image(got, H, W, C)
+    b1 = blend_cuda.blend_forward(*args, bins, H, W)
+    torch.cuda.synchronize()
+    band = V.tiles_to_image(run.band[..., None].expand(-1, -1, V.NCOL).float(), H, W, 1)[1] > 0
+    band |= (b1.final_T - T_EPS).abs() <= V.STOP_BAND * T_EPS
+    d_img, d_T = (img - b1.img).abs()[~band], (T - b1.final_T).abs()[~band]
+    ok = bool((d_img <= ATOL_IMG + RTOL * b1.img.abs()[~band]).all()) and \
+        bool((d_T <= ATOL_T + RTOL * b1.final_T.abs()[~band]).all())
+    err = max(float(d_img.max()), float(d_T.max()))
+    print(f"  {name} base vs B1 (image layout): max|d| {err:.3e} (img {float(d_img.max()):.3e}, T "
+          f"{float(d_T.max()):.3e}) off {int(band.sum())} band pixels")
+    if not ok:
+        raise SystemExit(f"FAIL: blend_variants base disagrees with B1 on {name}")
+    return err
+
+
+def phase16_variants(dev, odd, garden) -> dict:
+    """B1v against its plain version per mode at four scenes and ``base``
+    against B1; the main path: both ported benchmark scripts at their
+    defaults, with the launches of B1v, B1 and B2 read around them; then B1v
+    per mode at the script's scene (its time from the script) against its
+    bound and the plain version."""
+    from gaussctrl_exp_tpu_torch.ops import blend_cuda
+    from gaussctrl_exp_tpu_torch.ops import blend_variants as V
+    from gaussctrl_exp_tpu_torch.scripts import bench_blend_variants as bbv
+    from gaussctrl_exp_tpu_torch.scripts import bench_bwd_micro as micro
+
+    print("[16] kernel B1v (the blend-forward ablations) vs its plain version, every tile (both write the init "
+          "where the TPU kernel leaves a tile undefined), pixels in the stop band left out")
+    scenes = []
+    for n, label in ((bbv.N_DEFAULT, "script scene"), (N_SPARSE, "sparse script scene")):
+        sc = bbv.make_scene(n, bbv.S_DEFAULT, dev)
+        with torch.no_grad():
+            proj, bins = bbv.project_and_bin(sc)
+        scenes.append((f"{label} N={n} {bbv.S_DEFAULT}²", (proj.xys, proj.conics, sc.colors, sc.opacs), bins,
+                       bbv.S_DEFAULT, bbv.S_DEFAULT, V.CAPACITY, V.MODES))
+    (main_name, main_args, main_bins, *_), sparse = scenes[0], scenes[1]
+    sparse_table = V.bins_chunk_table(sparse[2], sparse[3], sparse[4])
+    empty, defined = sparse[2].tile_cnt == 0, V.defined_tiles("base", sparse_table)
+    print(f"    sparse scene: {int(empty.sum())} empty tiles, {int((empty & defined).sum())} of them own a padding "
+          f"chunk (initialised on the TPU), {int((empty & ~defined).sum())} own none (undefined)")
+    if not bool((empty & ~defined).any()):
+        raise SystemExit("FAIL: the sparse scene has no undefined empty tile")
+    g_args, g_bins = garden
+    scenes += [("bear 500×372", *odd, 372, 500, V.CAPACITY, V.MODES),
+               (f"garden {N_GARDEN} {S}²", g_args, g_bins, S, S, max(V.CAPACITY, g_bins.n_isects), ("base", "nomatmul"))]
+    errs = dict.fromkeys(V.MODES, 0.0)
+    for name, args, bins, H, W, cap, modes in scenes:
+        for mode in modes:
+            err, run, got = check_variant(name, mode, args, bins, H, W, cap)
+            errs[mode] = max(errs[mode], err)
+            if mode == "base":
+                check_base_against_b1(name, got, run, args, bins, H, W)
+
+    # the main path: both ported scripts, as a user runs them
+    for mode in V.MODES:
+        V.launches[mode] = 0
+    blend_cuda.launches = blend_cuda.bwd_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slope = bbv.main([])
+    micro_rows = micro.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, b1, b2 = dict(V.launches), blend_cuda.launches, blend_cuda.bwd_launches
+    # each script runs its slope batches, then a kernel-alone measurement (a
+    # warm-up and the timed launches); bench_bwd_micro also runs the forward
+    # once for B2's residuals, and each of its backward batches a forward
+    per_mode = (1 + bbv.REPEATS) * (bbv.K_LO + bbv.K_HI) + 1 + bbv.KERNEL_LAUNCHES
+    micro_slope, micro_alone = (1 + micro.REPEATS) * (micro.K_LO + micro.K_HI), 1 + micro.KERNEL_LAUNCHES
+    expected = (dict.fromkeys(V.MODES, per_mode), per_mode + 1 + 2 * micro_slope + micro_alone,
+                micro_slope + micro_alone)
+    print(f"    the two scripts at their defaults in {wall:.1f} s: launches B1v {counts}, B1 {b1}, B2 {b2} "
+          f"(expected {per_mode} per mode, {expected[1]}, {expected[2]})")
+    times = [v for r in (slope, micro_rows) for row in r.values() for v in row.values()]
+    if (counts, b1, b2) != expected or not all(np.isfinite(times)):
+        raise SystemExit("FAIL: the benchmark scripts skipped a kernel or gave a non-finite time")
+
+    Sv = bbv.S_DEFAULT
+    table = V.bins_chunk_table(main_bins, Sv, Sv)
+    rows = {}
+    print(f"    B1v at the {main_name} against its bound and its plain version (kernel ms: the script's device time "
+          f"per launch; n_isects {main_bins.n_isects}, {len(table.chunk_tile)} chunks of capacity {V.CAPACITY}):")
+    for mode in V.MODES:
+        ms = slope[mode]["kernel_ms"]
+        run = V.variant_plain_run(mode, *main_args, main_bins, Sv, Sv, table=table)
+        plain_ms = time_ms(lambda: V.variant_plain_run(mode, *main_args, main_bins, Sv, Sv, table=table),
+                           iters=3, warmup=1)
+        bound, by, work = variant_bound(mode, run, main_args, main_bins, table)
+        rows[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        print(f"    {mode}: {ms:.4f} ms; bound {bound:.5f} ms ({by}), {bound / ms:.3f} of it; plain {plain_ms:.4f} ms; "
+              f"work {work}")
+    return dict(rows=rows, errs=errs, launches=counts, b2c_launches=b2)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA card",
@@ -1291,6 +1494,7 @@ def main() -> int:
     from gaussctrl_exp_tpu_torch.models.gaussians import PARAM_NAMES
     from gaussctrl_exp_tpu_torch.ops.blend import blend_vjp_plain
     from gaussctrl_exp_tpu_torch.ops.lpips import lpips_random
+    from gaussctrl_exp_tpu_torch.utils.timing import kernel_time_ms
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1412,17 +1616,23 @@ def main() -> int:
             plain_ms = time_ms(lambda: rasterize_tiles_plain(*bear_args, bear_bins, S, S), iters=5, warmup=1)
             g_kernel_ms = time_ms(lambda: blend_cuda.rasterize_tiles(*g_args, g_bins, S, S), iters=20)
             g_plain_ms = time_ms(lambda: rasterize_tiles_plain(*g_args, g_bins, S, S), iters=3, warmup=1)
-            dev_ms, _, kernels_per_frame = device_share(lambda: render_model(state, cam0, cli.EVAL_STEP, cfg))
+            frame_win = device_share(lambda: render_model(state, cam0, cli.EVAL_STEP, cfg))
+            kernel_dev_ms = kernel_time_ms(lambda: blend_cuda.rasterize_tiles(*bear_args, bear_bins, S, S),
+                                             "blend_fwd_kernel")
+            g_kernel_dev_ms = kernel_time_ms(lambda: blend_cuda.rasterize_tiles(*g_args, g_bins, S, S),
+                                               "blend_fwd_kernel")
         bound_ms, bound_by, work = blend_bound(bear_args, bear_bins, S, S)
         g_bound_ms, g_bound_by, g_work = blend_bound(g_args, g_bins, S, S)
         print(f"[5] bear {S}² per frame (CUDA events, warm): render_model {frame_ms:.4f} ms = "
               f"project+SH {proj_ms:.4f} + binning {bin_ms:.4f} + blend_fwd {kernel_ms:.4f} (+ rest)")
-        print(f"    device time per frame {dev_ms:.4f} ms in {kernels_per_frame:.0f} device ops "
-              f"(torch.profiler): busy share {dev_ms / frame_ms:.3f} of the {frame_ms:.4f} ms frame")
-        print(f"    bear blend_fwd {kernel_ms:.4f} ms vs plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms "
-              f"({bound_by}); n_isects {bear_bins.n_isects}; work {work}")
-        print(f"    garden {N_GARDEN} blend_fwd {g_kernel_ms:.4f} ms vs plain {g_plain_ms:.4f} ms; bound "
-              f"{g_bound_ms:.5f} ms ({g_bound_by}); n_isects {g_bins.n_isects}; work {g_work}")
+        print(f"    device time per frame {frame_win['device_ms']:.4f} ms in {frame_win['ops']:.0f} device ops "
+              f"(torch.profiler, {frame_win['frames']} frames): {busy_text(frame_win)}")
+        print(f"    bear blend_fwd {kernel_dev_ms:.4f} ms device time per launch (torch.profiler; {kernel_ms:.4f} ms "
+              f"per call in CUDA events) vs plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}); n_isects "
+              f"{bear_bins.n_isects}; work {work}")
+        print(f"    garden {N_GARDEN} blend_fwd {g_kernel_dev_ms:.4f} ms device time ({g_kernel_ms:.4f} ms in events) "
+              f"vs plain {g_plain_ms:.4f} ms; bound {g_bound_ms:.5f} ms ({g_bound_by}); n_isects {g_bins.n_isects}; "
+              f"work {g_work}")
 
         # ---- phase 6: B2 against the plain VJP
         print("[6] blend backward kernel vs plain VJP (stop-band pixels get a zero cotangent)")
@@ -1563,7 +1773,7 @@ def main() -> int:
                 per_stage[name] += prev.elapsed_time(e) / iters
                 prev = e
             step_total += begin.elapsed_time(marks[-1]) / iters
-        step_dev_ms, _, step_ops = device_share(lambda: plain_step(st, cam0, gt0))
+        step_win = device_share(lambda: plain_step(st, cam0, gt0))
         t_args, t_bins = blend_inputs(GaussianState(st.params, st.alive), cam0, 3)
         fwd_t = blend_cuda.blend_forward(*t_args, t_bins, S, S)
         gen = torch.Generator(device=dev).manual_seed(3)
@@ -1571,11 +1781,17 @@ def main() -> int:
         g_T = torch.randn(fwd_t.final_T.shape, generator=gen, device=dev)
         bwd_ms = time_ms(lambda: blend_cuda.blend_backward(*t_args, t_bins, fwd_t.img, fwd_t.final_T, g_img, g_T, S, S),
                          iters=50)
+        bwd_dev_ms = kernel_time_ms(
+            lambda: blend_cuda.blend_backward(*t_args, t_bins, fwd_t.img, fwd_t.final_T, g_img, g_T, S, S),
+            "blend_bwd_kernel")
         bwd_plain_ms = time_ms(lambda: blend_vjp_plain(*t_args, t_bins, g_img, g_T, S, S), iters=3, warmup=1)
         bwd_bound_ms, bwd_bound_by, bwd_work = blend_bound(t_args, t_bins, S, S, backward=True)
         fwd_g = blend_cuda.blend_forward(*g_args, g_bins, S, S)
         gg_img, gg_T = torch.randn_like(fwd_g.img), torch.randn_like(fwd_g.final_T)
         g_bwd_ms = time_ms(lambda: blend_cuda.blend_backward(*g_args, g_bins, fwd_g.img, fwd_g.final_T, gg_img, gg_T, S, S))
+        g_bwd_dev_ms = kernel_time_ms(
+            lambda: blend_cuda.blend_backward(*g_args, g_bins, fwd_g.img, fwd_g.final_T, gg_img, gg_T, S, S),
+            "blend_bwd_kernel")
         g_bwd_plain_ms = time_ms(lambda: blend_vjp_plain(*g_args, g_bins, gg_img, gg_T, S, S), iters=2, warmup=1)
         g_bwd_bound_ms, g_bwd_bound_by, g_bwd_work = blend_bound(g_args, g_bins, S, S, backward=True)
         print(f"[8] train step, bear {S}², capacity {TRAIN_CAPACITY}, {int(st.alive.sum())} alive, SH degree 3, "
@@ -1583,12 +1799,14 @@ def main() -> int:
               + " + ".join(f"{n} {per_stage[n]:.4f}" for n in stages))
         print(f"    backward {per_stage['backward']:.4f} ms, of which blend_bwd {bwd_ms:.4f} ms (timed alone "
               f"on this view's inputs, C=3, n_isects {t_bins.n_isects})")
-        print(f"    device time per step {step_dev_ms:.4f} ms in {step_ops:.0f} device ops (torch.profiler): "
-              f"busy share {step_dev_ms / step_total:.3f}")
-        print(f"    bear blend_bwd {bwd_ms:.4f} ms vs plain VJP {bwd_plain_ms:.4f} ms; bound {bwd_bound_ms:.5f} ms "
+        print(f"    device time per step {step_win['device_ms']:.4f} ms in {step_win['ops']:.0f} device ops "
+              f"(torch.profiler, {step_win['frames']} steps): {busy_text(step_win)}")
+        print(f"    bear blend_bwd {bwd_dev_ms:.4f} ms device time per launch (torch.profiler; {bwd_ms:.4f} ms per "
+              f"call in CUDA events) vs plain VJP {bwd_plain_ms:.4f} ms; bound {bwd_bound_ms:.5f} ms "
               f"({bwd_bound_by}); work {bwd_work}")
-        print(f"    garden {N_GARDEN} blend_bwd {g_bwd_ms:.4f} ms vs plain VJP {g_bwd_plain_ms:.4f} ms; bound "
-              f"{g_bwd_bound_ms:.5f} ms ({g_bwd_bound_by}); n_isects {g_bins.n_isects}; work {g_bwd_work}")
+        print(f"    garden {N_GARDEN} blend_bwd {g_bwd_dev_ms:.4f} ms device time ({g_bwd_ms:.4f} ms in events) vs "
+              f"plain VJP {g_bwd_plain_ms:.4f} ms; bound {g_bwd_bound_ms:.5f} ms ({g_bwd_bound_by}); n_isects "
+              f"{g_bins.n_isects}; work {g_bwd_work}")
         flash_max_abs_err, flash_cases = phase9_flash(dev)
         edit = phase10_edit(dev, state, cams, targets)
         flash = phase11_timings(dev, state, cams, edit, flash_cases)
@@ -1596,6 +1814,7 @@ def main() -> int:
         mv = phase13_mv(dev, state, edit)
         phase14_experimental(dev, state, cams, targets, edit)
         bwd = phase15_timings(dev, mv)
+        variants = phase16_variants(dev, (args_odd, bins_odd), (g_args, g_bins))
         print(f"    total chip_smoke wall {time.perf_counter() - t_start:.1f} s")
 
     kernels = {"kernels": [{
@@ -1605,8 +1824,8 @@ def main() -> int:
         "replaces": "gaussctrl_exp_tpu/ops/blend_pallas.py:117 (_fwd_kernel)",
         "launches": launches,
         "max_abs_err": max_abs_err,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
+        "ms": kernel_dev_ms,
+        "event_ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -1618,11 +1837,15 @@ def main() -> int:
         "replaces": "gaussctrl_exp_tpu/ops/blend_pallas.py:177 (_bwd_kernel, with _blend_core_bwd's reduction)",
         "launches": train_launches[1],
         "max_abs_err": bwd_max_abs_err,
-        "ms": bwd_ms,
+        "ms": bwd_dev_ms,
+        "event_ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
         "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by,
         "library_ms": None,
+        "also_replaces": "bench.py:310 and scripts/bench_bwd_micro.py:109 (B2c: B2's _bwd_kernel launched directly "
+                         "on fixed cotangents), run in phase 16 by gaussctrl_exp_tpu_torch/scripts/bench_bwd_micro.py",
+        "b2c_launches": variants["b2c_launches"],
     }, {
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -1664,6 +1887,21 @@ def main() -> int:
         "bound_by": bwd["b5_by"],
         "library_ms": bwd["library_ms"],
     }]}
+    for mode, row in variants["rows"].items():
+        kernels["kernels"].append({
+            "name": f"blend_variants/{mode}",
+            "route": "cuda",
+            "source": "gaussctrl_exp_tpu_torch/csrc/blend_variants.cu",
+            "replaces": ("scripts/bench_blend_variants.py:149 (make_pair_kernel)" if mode == "pair" else
+                         f"scripts/bench_blend_variants.py:88 (make_fwd_kernel({mode!r}))") + ", launched :241",
+            "launches": variants["launches"][mode],
+            "max_abs_err": variants["errs"][mode],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+        })
     print(smi_line())
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (B1 to B5).
+"""Build and load the port's CUDA kernels (B1 to B5 and B1v).
 
 Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
 plain-C shared library, keyed by a hash of the source and its flags, under
@@ -22,20 +22,22 @@ SOURCES = {
     "blend_bwd": _PKG / "csrc" / "blend_bwd.cu",
     "flash_attn_fwd": _PKG / "csrc" / "flash_attn_fwd.cu",
     "flash_attn_bwd": _PKG / "csrc" / "flash_attn_bwd.cu",
+    "blend_variants": _PKG / "csrc" / "blend_variants.cu",
 }
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-# the blend kernels keep the plain version's roundings (no fused multiply-add);
-# the attention kernels' builds print their registers and spills (ptxas -v)
-# into their logs
+# the blend kernels (B1, B2 and the variants B1v) keep the plain version's
+# roundings (no fused multiply-add); the attention kernels' builds print
+# their registers and spills (ptxas -v) into their logs
 EXTRA_FLAGS = {
     "blend_fwd": ["-fmad=false"],
     "blend_bwd": ["-fmad=false"],
     "flash_attn_fwd": ["-Xptxas=-v"],
     "flash_attn_bwd": ["-Xptxas=-v"],
+    "blend_variants": ["-fmad=false"],
 }
 
 logs: dict[str, str] = {}  # nvcc's output for each source built by this process

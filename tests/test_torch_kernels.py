@@ -1,6 +1,6 @@
 """Kernels B1 and B2 (the CUDA tile blend and its backward), B3 (the
-flash-attention forward) and B4, B5 (its backward) against their plain
-PyTorch versions.
+flash-attention forward), B4, B5 (its backward) and B1v (the blend-forward
+ablations) against their plain PyTorch versions.
 
 Needs an NVIDIA card and nvcc; without a card every test here skips. The
 file imports neither JAX nor the JAX package and uses no fixture of
@@ -404,3 +404,65 @@ def test_flash_backward_refuses_what_it_does_not_take(cuda_device):
         attention_cuda.flash_attn_bwd_dkv(q, k, v, out, lse, out.double())
     with pytest.raises(ValueError):  # CPU tensors
         attention_cuda.flash_attn_bwd_dq(q.cpu(), k.cpu(), v.cpu(), out.cpu(), lse.cpu(), out.cpu())
+
+
+# ---------------------------------------------------------------- kernel B1v
+
+def _check_variant(mode, args, bins, H, W):
+    """B1v against its plain version on the same CUDA tensors, on every tile
+    (both write the init where the TPU kernel leaves a tile undefined). The
+    two round the transmittance apart (a serial sum or product against a
+    cumsum or cumprod, ~1e-6), so off the band around the 1e-4 stop they
+    agree to 1e-5 + 1e-4·|plain| with equal done flags; pixels in the band
+    are left out and must be rare."""
+    from gaussctrl_exp_tpu_torch.ops import blend_variants as V
+
+    table = V.bins_chunk_table(bins, H, W)
+    before = V.launches[mode]
+    got = V.blend_variant(mode, *args, bins, H, W, table=table)
+    torch.cuda.synchronize()
+    assert V.launches[mode] == before + 1
+    assert got.shape == (table.num_tiles, 256, 16)
+    run = V.variant_plain_run(mode, *args, bins, H, W, table=table)
+    keep = ~run.band
+    assert int(run.band.sum()) <= run.band.numel() // 200
+    want = run.out
+    torch.testing.assert_close(got[keep], want[keep], rtol=1e-4, atol=1e-5)
+    assert torch.equal(got[keep][:, V.COL_DONE], want[keep][:, V.COL_DONE])
+    return got, table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["base", "empty", "notrans", "nomatmul", "scan", "pair"])
+@pytest.mark.parametrize("n,n_chan,H,W", [(400, 4, 64, 64), (400, 3, 60, 76), (400, 8, 44, 60), (2500, 4, 64, 80)])
+def test_variant_kernel_matches_plain(cuda_device, mode, n, n_chan, H, W):
+    args, bins, H, W = _inputs(cuda_device, n=n, H=H, W=W, n_chan=n_chan)
+    _check_variant(mode, args, bins, H, W)
+
+
+@pytest.mark.cuda
+def test_variant_base_matches_blend_kernel(cuda_device):
+    """``base`` carries T from chunk to chunk as B1 does: the same image."""
+    from gaussctrl_exp_tpu_torch.ops import blend_variants as V
+
+    args, bins, H, W = _inputs(cuda_device, n=2500, H=64, W=80)
+    assert int(bins.tile_cnt.max()) > V.CHUNK
+    got, _ = _check_variant("base", args, bins, H, W)
+    img, T = V.tiles_to_image(got, H, W, 4)
+    want = blend_cuda.blend_forward(*args, bins, H, W)
+    torch.testing.assert_close(img, want.img, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(T, want.final_T, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_variant_kernel_refuses_what_it_does_not_take(cuda_device):
+    from gaussctrl_exp_tpu_torch.ops import blend_variants as V
+
+    (xys, conics, chan, opacs), bins, H, W = _inputs(cuda_device)
+    with pytest.raises(ValueError):  # C = 12
+        V.blend_variant("base", xys, conics, chan.repeat(1, 3), opacs, bins, H, W)
+    with pytest.raises(TypeError):
+        V.blend_variant("scan", xys.double(), conics, chan, opacs, bins, H, W)
+    with pytest.raises(ValueError):  # a chunk table of other bins
+        other = V.chunk_table(bins.tile_cnt[:8], 2, 4, V.aligned_capacity(1 << 12, 8))
+        V.blend_variant("pair", xys, conics, chan, opacs, bins, H, W, table=other)
