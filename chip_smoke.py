@@ -4,6 +4,7 @@
 Run from the repository root, with one CUDA card visible:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --attention   # phase 9, then B3, B4, B5 alone (11, 15)
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN.
@@ -43,8 +44,9 @@ Phases (any failure exits non-zero):
      loop on the card against the same loop on the CPU.
  11. timings of the edit path by stage (CUDA events), the device busy share
      of a generation step and B3's share of it (torch.profiler), and B3 at
-     every phase-9 shape against its bound and
-     ``scaled_dot_product_attention``.
+     every phase-9 shape, the inversion's and (fp32) the depth generator's
+     against its three bounds and ``scaled_dot_product_attention``, by
+     device time with the SM clock read around each.
  12. kernels B4 (dK, dV) and B5 (dQ) (csrc/flash_attn_bwd.cu) against
      autograd through ``sdpa_plain`` in fp32 on the same CUDA tensors, bf16
      and fp32, at the depth generator's training shapes (4 views, 64²
@@ -63,7 +65,8 @@ Phases (any failure exits non-zero):
  15. timings: the generator's train step by stage, its busy share and B4 +
      B5's share of the backward (torch.profiler); B4 and B5 at every
      phase-12 shape against their bounds and the backward of
-     ``scaled_dot_product_attention``; a sampling step and the
+     ``scaled_dot_product_attention``, by device time with the SM clock
+     read around each; a sampling step and the
      correspondence processor's share of it.
  16. kernel B1v (csrc/blend_variants.cu, the six blend-forward ablations)
      against its plain version per mode on the variant script's scene
@@ -76,12 +79,18 @@ Phases (any failure exits non-zero):
 
 A busy share is the union of the device ops' intervals over the wall of
 the same profiled window, both from torch.profiler, so it cannot pass 1.
+Every device time is read from a profiled window whose records must match
+a second window of the same calls, op by op, a whole number per call
+(``utils/timing.checked_window``, whose cycles open with spare launches
+that take the profiler's loss of a cycle's first records): a record the
+profiler dropped fails the run.
 The last three lines of standard output are the card's name and power limit,
 one JSON object describing each kernel, and ``{"ok": true, "device": …}``.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import json
@@ -98,10 +107,6 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 outside the tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_OPS_S = 67e12
-PEAK_BF16_OPS_S = 989e12  # dense, tensor cores
 # B1's fp32 operations: every evaluated (pixel, gaussian) pair computes dx, dy,
 # sigma (9), the sigma test, -sigma, exp (counted as one), ×opacity, the
 # clamp and the alpha test; a composited pair adds 1−α, T×, the stop test,
@@ -345,9 +350,12 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def roofline(n_bytes, n_ops, peak_ops_s=PEAK_F32_OPS_S) -> tuple[float, str]:
-    """The least time (ms) for this work on the card, and what bounds it."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / peak_ops_s * 1e3
+def roofline(n_bytes, n_ops, peak_ops_s=None) -> tuple[float, str]:
+    """The least time (ms) for this work on the card at the data sheet's
+    peaks (fp32 unless ``peak_ops_s`` says otherwise), and what bounds it."""
+    from gaussctrl_exp_tpu_torch.utils.timing import PEAK_BYTES_S, PEAK_F32_OPS_S
+
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / (peak_ops_s or PEAK_F32_OPS_S) * 1e3
     return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -471,17 +479,6 @@ def flash_inputs(shape, dtype, seed, dev):
                  for L in (S, T, T))
 
 
-def flash_bound(shape, dtype) -> tuple[float, str]:
-    """Each of q, k, v read once and o written once; 4·S·T·D operations per
-    (batch, head) for the two products, at the tensor cores' bf16 peak or the
-    fp32 peak."""
-    B, H, S, T, D = shape
-    size = 2 if dtype == torch.bfloat16 else 4
-    n_bytes = size * B * H * D * (2 * S + 2 * T)
-    peak = PEAK_BF16_OPS_S if dtype == torch.bfloat16 else PEAK_F32_OPS_S
-    return roofline(n_bytes, 4 * B * H * S * T * D, peak)
-
-
 class EditViews(ViewSet):
     """``ViewSet`` that the edit loop writes back into: the fine-tune then
     trains on the edited images."""
@@ -539,53 +536,6 @@ def count_transformers(module) -> int:
     from gaussctrl_exp_tpu_torch.diffusion.attention import Transformer2D
 
     return sum(isinstance(m, Transformer2D) for m in module.modules())
-
-
-WINDOW = "chip_smoke_window"
-
-
-def device_window(fn, match="") -> dict:
-    """``fn`` once under torch.profiler, inside a window that ends with a
-    synchronize. Returns the window's wall (ms, as the profiler records the
-    window on the host), the union of the device ops' intervals inside it
-    (ms), the busy share (that union over the wall, so it cannot pass 1), the
-    device ops' summed time (ms), the part in kernels whose name holds
-    ``match`` (ms), the number of device ops, and the device time the profiler
-    put outside the window (ms, 0 when the two clocks agree)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function(WINDOW):
-            fn()
-            torch.cuda.synchronize()
-    events = prof.events()
-    cuda = torch.autograd.DeviceType.CUDA
-    win = next(e for e in events if e.name == WINDOW and e.device_type != cuda)
-    w0, w1 = win.time_range.start, win.time_range.end
-    dev = [e for e in events if e.device_type == cuda and e.name != WINDOW]
-    busy, end, inside = 0.0, w0, 0.0
-    for s, e in sorted((max(e.time_range.start, w0), min(e.time_range.end, w1)) for e in dev):
-        inside += max(e - s, 0.0)
-        s = max(s, end)
-        if e > s:
-            busy, end = busy + e - s, e
-    total = sum(e.device_time_total for e in dev)
-    share = busy / (w1 - w0)
-    if share > 1.0:
-        raise SystemExit(f"FAIL: a busy share of {share} is not a share")
-    return dict(wall_ms=(w1 - w0) / 1e3, busy_ms=busy / 1e3, busy=share, device_ms=total / 1e3,
-                part_ms=sum(e.device_time_total for e in dev if match and match in e.name) / 1e3,
-                ops=len(dev), outside_ms=max(total - inside, 0.0) / 1e3)
-
-
-def device_share(fn, frames=5, match="flash_fwd") -> dict:
-    """``device_window`` over ``frames`` calls of ``fn`` after one warm-up
-    call, with the device time, its ``match`` part and the ops per call."""
-    fn()
-    w = device_window(lambda: [fn() for _ in range(frames)], match)
-    return dict(w, device_ms=w["device_ms"] / frames, part_ms=w["part_ms"] / frames, ops=w["ops"] / frames,
-                frames=frames)
 
 
 def busy_text(w: dict) -> str:
@@ -733,6 +683,7 @@ def phase11_timings(dev, state, cams, edit, flash_cases) -> dict:
     from gaussctrl_exp_tpu_torch.engine.trainer import make_train_step
     from gaussctrl_exp_tpu_torch.models.splat_model import render_model
     from gaussctrl_exp_tpu_torch.ops import attention_cuda
+    from gaussctrl_exp_tpu_torch.utils.timing import device_window
 
     pipe, views, cfg = edit["pipe"], edit["views"], edit["cfg"]
     sd, V, steps = pipe.pipe, len(views), cfg.num_inference_steps
@@ -769,7 +720,7 @@ def phase11_timings(dev, state, cams, edit, flash_cases) -> dict:
     }
     ft_step = make_train_step(edit["ft_cfg"])
     stage["fine-tune step"] = time_ms(lambda: ft_step(edit["ft"].state, cams[0], views.images[0]), iters=10)
-    gen_win = device_share(gen_step, frames=2)
+    gen_win = device_window(gen_step, attention_cuda.B3_KERNEL, calls=2)
     gen_dev_ms, gen_b3_ms = gen_win["device_ms"], gen_win["part_ms"]
     print(f"[11] edit path by stage (CUDA events, warm), bf16 at full SD1.x width, {S}² views:")
     for name, ms in stage.items():
@@ -778,22 +729,151 @@ def phase11_timings(dev, state, cams, edit, flash_cases) -> dict:
           f"render_reverse wall {edit['reverse_wall'] * 1e3:.1f} ms")
     print(f"    generation step device time {gen_dev_ms:.4f} ms in {gen_win['ops']:.0f} device ops (torch.profiler, "
           f"2 steps): {busy_text(gen_win)}; B3 {gen_b3_ms:.4f} ms = {gen_b3_ms / gen_dev_ms:.3f} of the device time")
-    rows = []
-    for name, shape, (q, k, v) in flash_cases:
-        ms = time_ms(lambda: attention_cuda.flash_attn(q, k, v), iters=10)
-        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), iters=10)
-        bound, by = flash_bound(shape, torch.bfloat16)
-        rows.append((ms, lib_ms, bound, by))
-        print(f"    B3 {name} {shape} bf16: {ms:.4f} ms; bound {bound:.5f} ms ({by}), {bound / ms:.3f} of it; "
-              f"scaled_dot_product_attention {lib_ms:.4f} ms")
+    rows = b3_rows(dev, flash_cases)
     q, k, v = flash_cases[0][2]
-    ms, lib_ms, bound, by = rows[0]
+    main = rows[flash_cases[0][0]]
     plain_ms = time_ms(lambda: attention_cuda.sdpa_plain(q, k, v), iters=2, warmup=1)
-    B, H, L, T, D = FLASH_MAIN
-    print(f"    B3 main shape {FLASH_MAIN}: {ms:.4f} ms; sdpa_plain (bf16 in, fp32 softmax) {plain_ms:.4f} ms; "
-          f"scaled_dot_product_attention {lib_ms:.4f} ms; bound {bound:.5f} ms ({by}: "
-          f"{4 * B * H * L * T * D:.3e} operations at 989 TFLOP/s)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms)
+    print(f"    B3 main shape {FLASH_MAIN}: {main['ms']:.4f} ms device time; sdpa_plain (bf16 in, fp32 softmax) "
+          f"{plain_ms:.4f} ms (CUDA events); scaled_dot_product_attention {main['sdpa_ms']:.4f} ms device time; "
+          f"B3 / SDPA {main['ratio']:.3f}; at the data sheet's peaks bound {main['rated']['bound_ms']:.5f} ms "
+          f"({main['rated']['bound_by']}), exponentials {main['rated']['exp_ms']:.5f} ms")
+    return dict(ms=main["ms"], plain_ms=plain_ms, bound_ms=main["rated"]["bound_ms"],
+                bound_by=main["rated"]["bound_by"], library_ms=main["sdpa_ms"],
+                exp_floor_ms=main["rated"]["exp_ms"])
+
+
+ATTN_LAUNCHES = 10  # calls in each device-time window of phases 11 and 15
+
+
+def clock_text(c: dict) -> str:
+    return f"SM {c['sm_mhz']:.0f}/{c['max_sm_mhz']:.0f} MHz {c['power_w']:.1f} W {c['temp_c']:.0f} °C"
+
+
+def ops_text(ops: dict) -> str:
+    """SDPA's device ops by name (cut to 90 characters) with their ms: the
+    names say which backend it took."""
+    return "; ".join(f"{name[:90]} {ms:.4f}" for name, ms in sorted(ops.items(), key=lambda x: -x[1]))
+
+
+def time_forward(q, k, v, launches=ATTN_LAUNCHES) -> dict:
+    """B3 and ``scaled_dot_product_attention`` (every device op of its call)
+    on the same inputs, by device time, with the SM clock read before,
+    between and after; B3's bounds at the clock read after it and at the
+    data sheet's peaks."""
+    from torch.nn.functional import scaled_dot_product_attention
+
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+    from gaussctrl_exp_tpu_torch.utils.timing import attention_bound, device_ops_ms, gpu_clocks, kernel_time_ms
+
+    shape = (*q.shape[:3], k.shape[2], q.shape[3])
+    c0 = gpu_clocks()
+    ms = kernel_time_ms(lambda: attention_cuda.flash_attn(q, k, v), attention_cuda.B3_KERNEL, launches)
+    c1 = gpu_clocks()
+    sdpa = device_ops_ms(lambda: scaled_dot_product_attention(q, k, v), launches)
+    c2 = gpu_clocks()
+    sdpa_ms = sum(sdpa.values())
+    return dict(shape=shape, dtype=q.dtype, ms=ms, launches=launches, sdpa_ms=sdpa_ms, ratio=ms / sdpa_ms,
+                sdpa_ops=ops_text(sdpa), clocks=(c0, c1, c2),
+                at_clock=attention_bound(shape, q.dtype, c1["sm_mhz"] * 1e6), rated=attention_bound(shape, q.dtype))
+
+
+def forward_text(name: str, r: dict) -> str:
+    a, b = r["at_clock"], r["rated"]
+    return (f"B3 {name} {r['shape']} {str(r['dtype']).split('.')[-1]}: {r['ms']:.4f} ms device time ({r['launches']} "
+            f"launches, every record kept); SDPA {r['sdpa_ms']:.4f} ms (every device op: {r['sdpa_ops']}); B3 / SDPA "
+            f"{r['ratio']:.3f}; bounds at {a['clock_hz'] / 1e6:.0f} MHz: operations {a['ops_ms']:.5f} ms, bytes "
+            f"{a['bytes_ms']:.5f} ms, exponentials on the SFU {a['exp_ms']:.5f} ms; at the data sheet's peaks "
+            f"({b['clock_hz'] / 1e6:.0f} MHz): bound_ms {b['bound_ms']:.5f} ({b['bound_by']}, {b['bound_ms'] / r['ms']:.3f} "
+            f"of B3), exponentials {b['exp_ms']:.5f} ms; SM clock read before / after B3 / after SDPA (around the "
+            "windows, not during them): " + " | ".join(clock_text(c) for c in r["clocks"]))
+
+
+def time_backward(q, k, v, dout, launches=ATTN_LAUNCHES) -> dict:
+    """B4 and B5 on B3's output and log-sum-exp, and the backward of
+    ``scaled_dot_product_attention`` (its forward + backward less its
+    forward, every device op), by device time, with the SM clock read
+    around each."""
+    from torch.nn.functional import scaled_dot_product_attention
+
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+    from gaussctrl_exp_tpu_torch.utils.timing import device_ops_ms, gpu_clocks, kernel_time_ms
+
+    out, lse = attention_cuda.flash_attn(q, k, v, return_lse=True)
+    delta = attention_cuda.delta_of(out, dout)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    c0 = gpu_clocks()
+    b4 = kernel_time_ms(lambda: attention_cuda.flash_attn_bwd_dkv(q, k, v, out, lse, dout, delta),
+                        attention_cuda.B4_KERNEL, launches)
+    c1 = gpu_clocks()
+    b5 = kernel_time_ms(lambda: attention_cuda.flash_attn_bwd_dq(q, k, v, out, lse, dout, delta),
+                        attention_cuda.B5_KERNEL, launches)
+    c2 = gpu_clocks()
+    both = device_ops_ms(lambda: torch.autograd.grad(scaled_dot_product_attention(*leaves), leaves, dout), launches)
+    fwd = device_ops_ms(lambda: scaled_dot_product_attention(*leaves), launches)
+    c3 = gpu_clocks()
+    sdpa_bwd = sum(both.values()) - sum(fwd.values())
+    bwd_ops = {n: ms - fwd.get(n, 0.0) for n, ms in both.items() if ms - fwd.get(n, 0.0) > 1e-6}
+    return dict(b4=b4, b5=b5, launches=launches, sdpa_bwd_ms=sdpa_bwd, ratio=(b4 + b5) / sdpa_bwd,
+                sdpa_ops=ops_text(bwd_ops), clocks=(c0, c1, c2, c3))
+
+
+def backward_text(name: str, shape, dtype, r: dict) -> str:
+    return (f"B4/B5 {name} {shape} {str(dtype).split('.')[-1]}: B4 {r['b4']:.4f} ms, B5 {r['b5']:.4f} ms device "
+            f"time ({r['launches']} launches each, every record kept); SDPA backward {r['sdpa_bwd_ms']:.4f} ms "
+            f"(forward + backward − forward, every device op: {r['sdpa_ops']}); (B4 + B5) / SDPA {r['ratio']:.3f}; "
+            "SM clock read before / after B4 / after B5 / after SDPA: " + " | ".join(clock_text(c) for c in r["clocks"]))
+
+
+def b3_rows(dev, flash_cases) -> dict:
+    """B3 alone against SDPA at phase 9's bf16 cases and ``B3_TIMED_SHAPES``,
+    printed; the rows by name."""
+    rows = {}
+    for name, shape, (q, k, v) in flash_cases:
+        rows[name] = time_forward(q, k, v)
+        print("    " + forward_text(name, rows[name]), flush=True)
+    for i, (name, shape, dtype) in enumerate(B3_TIMED_SHAPES):
+        rows[name] = time_forward(*flash_inputs(shape, dtype, 98 - i, dev))
+        print("    " + forward_text(name, rows[name]), flush=True)
+    return rows
+
+
+def bwd_rows(dev) -> dict:
+    """B4 and B5 alone against SDPA's backward at phase 12's shapes, fp32
+    and bf16, with their bounds, printed; the rows by (name, dtype)."""
+    rows = {}
+    for i, (name, shape) in enumerate(MV_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(shape, dtype, 400 + i, dev)
+            dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(i), device=dev).to(dtype)
+            r = time_backward(q, k, v, dout)
+            r["b4_bound"], r["b4_by"] = bwd_bound(shape, dtype, "B4")
+            r["b5_bound"], r["b5_by"] = bwd_bound(shape, dtype, "B5")
+            rows[(name, dtype)] = r
+            print(f"    {backward_text(name, shape, dtype, r)}; bounds B4 {r['b4_bound']:.5f} ({r['b4_by']}, "
+                  f"{r['b4_bound'] / r['b4']:.3f} of it), B5 {r['b5_bound']:.5f} ({r['b5_by']}, "
+                  f"{r['b5_bound'] / r['b5']:.3f})", flush=True)
+    return rows
+
+
+def attention_only(dev) -> int:
+    """``--attention``: kernels B3, B4 and B5 built, B3 checked at phase 9's
+    shapes, then the three alone against SDPA by device time (the kernel rows
+    of phases 11 and 15), for a before/after comparison of the attention
+    kernels within one chip call. Prints no kernels line and no result."""
+    from gaussctrl_exp_tpu_torch.ops import cuda_build
+    from gaussctrl_exp_tpu_torch.utils.timing import spare_launches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"{smi_line()}; {ATTN_LAUNCHES} calls a window")
+    cuda_build.build()
+    _, flash_cases = phase9_flash(dev)
+    print("[11] B3 alone, by device time")
+    b3_rows(dev, flash_cases)
+    print("[15] B4 and B5 alone, by device time")
+    bwd_rows(dev)
+    print(f"spare launches a profiled cycle at the end {spare_launches()}")
+    return 0
 
 # ---------------------------------------------------------------- phases 12-15
 
@@ -802,6 +882,12 @@ def phase11_timings(dev, state, cams, edit, flash_cases) -> dict:
 # cross-attention to the 77 text tokens; then a ragged shape
 MV_V = 4
 MV_MAIN = (MV_V, 8, 4096, 4096, 40)
+# B3 timed in phase 11 beyond phase 9's shapes: the DDIM inversion's batch of
+# 1 in bf16 and the depth generator's 4 views in fp32
+B3_TIMED_SHAPES = [
+    ("inversion self 64²", (1, *FLASH_MAIN[1:]), torch.bfloat16),
+    ("generator self 64²", MV_MAIN, torch.float32),
+]
 MV_SHAPES = [
     ("self 64²", MV_MAIN),
     ("self 32²", (MV_V, 8, 1024, 1024, 80)),
@@ -1220,6 +1306,8 @@ def bwd_bound(shape, dtype, kernel) -> tuple[float, str]:
     size = 2 if dtype == torch.bfloat16 else 4
     n_bytes = size * B * H * D * (2 * S_ + 2 * T) + 8 * B * H * S_
     n_bytes += size * B * H * D * (2 * T if kernel == "B4" else S_)
+    from gaussctrl_exp_tpu_torch.utils.timing import PEAK_BF16_OPS_S, PEAK_F32_OPS_S
+
     peak = PEAK_BF16_OPS_S if dtype == torch.bfloat16 else PEAK_F32_OPS_S
     return roofline(n_bytes, (OPS_B4 if kernel == "B4" else OPS_B5) * B * H * S_ * T * D, peak)
 
@@ -1229,10 +1317,9 @@ def phase15_timings(dev, mv) -> dict:
     backward; B4 and B5 at every phase-12 shape against their bounds, the
     plain version and SDPA's backward; a sampling step and the
     correspondence processor's share of it."""
-    import torch.nn.functional as F
-
     from gaussctrl_exp_tpu_torch.diffusion.attention import default_processor
     from gaussctrl_exp_tpu_torch.ops import attention_cuda
+    from gaussctrl_exp_tpu_torch.utils.timing import device_window
 
     gen, opt, proc = mv["gen"], mv["opt"], mv["proc"]
     args = (mv["x0"], mv["dl"], mv["ctx"], mv["t"], mv["noise"], proc)
@@ -1257,43 +1344,32 @@ def phase15_timings(dev, mv) -> dict:
         opt.step()
         opt.zero_grad(set_to_none=True)
 
-    step_win = device_window(full_step, "flash")
-    loss = gen.loss(*args)
-    torch.cuda.synchronize()
-    bwd_win = device_window(loss.backward, "flash_bwd")
+    def fresh_loss():
+        opt.zero_grad(set_to_none=True)
+        return gen.loss(*args)
+
+    step_win = device_window(full_step, attention_cuda.ATTN_KERNELS)
+    bwd_win = device_window(lambda loss: loss.backward(), attention_cuda.BWD_KERNELS, prepare=fresh_loss)
     bwd_dev, bwd_kernels = bwd_win["device_ms"], bwd_win["part_ms"]
     opt.zero_grad(set_to_none=True)
     step_ms = float(split.sum())
     print(f"[15] timings (CUDA events, warm). Depth generator train step, fp32, {MV_V} views at 64²: {step_ms:.2f} ms "
           f"= forward {split[0]:.2f} + backward {split[1]:.2f} + optimizer {split[2]:.2f}; device time "
-          f"{step_win['device_ms']:.2f} ms in {step_win['ops']} device ops (torch.profiler, one step): "
+          f"{step_win['device_ms']:.2f} ms in {step_win['ops']:.0f} device ops (torch.profiler, one step): "
           f"{busy_text(step_win)}; backward device time {bwd_dev:.2f} ms, of which B4 + B5 {bwd_kernels:.2f} ms = "
           f"{bwd_kernels / bwd_dev:.3f}")
 
-    rows = {}
-    for i, (name, shape) in enumerate(MV_SHAPES):
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = flash_inputs(shape, dtype, 400 + i, dev)
-            out, lse = attention_cuda.flash_attn(q, k, v, return_lse=True)
-            dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(i), device=dev).to(dtype)
-            delta = attention_cuda.delta_of(out, dout)
-            b4 = time_ms(lambda: attention_cuda.flash_attn_bwd_dkv(q, k, v, out, lse, dout, delta), iters=5, warmup=1)
-            b5 = time_ms(lambda: attention_cuda.flash_attn_bwd_dq(q, k, v, out, lse, dout, delta), iters=5, warmup=1)
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            bwd_ms = {}  # each function's backward: forward + backward − forward
-            for fname, f in (("lib", F.scaled_dot_product_attention), ("plain", attention_cuda.sdpa_plain)):
-                fwd = time_ms(lambda: f(*leaves), iters=3, warmup=1)
-                bwd_ms[fname] = time_ms(lambda: torch.autograd.grad(f(*leaves), leaves, dout), iters=3, warmup=1) - fwd
-            (b4_bound, b4_by), (b5_bound, b5_by) = bwd_bound(shape, dtype, "B4"), bwd_bound(shape, dtype, "B5")
-            rows[(name, dtype)] = dict(b4=b4, b5=b5, b4_bound=b4_bound, b4_by=b4_by, b5_bound=b5_bound, b5_by=b5_by,
-                                       **bwd_ms)
-            print(f"    {name} {shape} {str(dtype).split('.')[-1]}: B4 {b4:.4f} ms (bound {b4_bound:.5f}, {b4_by}, "
-                  f"{b4_bound / b4:.3f} of it); B5 {b5:.4f} ms (bound {b5_bound:.5f}, {b5_by}, {b5_bound / b5:.3f}); "
-                  f"backward (forward + backward − forward) of sdpa_plain {bwd_ms['plain']:.4f} ms, of "
-                  f"scaled_dot_product_attention {bwd_ms['lib']:.4f} ms")
+    rows = bwd_rows(dev)
     main = rows[(MV_SHAPES[0][0], torch.float32)]
-    print(f"    main shape {MV_MAIN} fp32: B4 {main['b4']:.4f} + B5 {main['b5']:.4f} ms; autograd through sdpa_plain "
-          f"backward {main['plain']:.4f} ms; scaled_dot_product_attention backward {main['lib']:.4f} ms")
+    q, k, v = flash_inputs(MV_MAIN, torch.float32, 400, dev)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    fwd = time_ms(lambda: attention_cuda.sdpa_plain(*leaves), iters=3, warmup=1)
+    plain_bwd = time_ms(lambda: torch.autograd.grad(attention_cuda.sdpa_plain(*leaves), leaves, dout), iters=3,
+                        warmup=1) - fwd
+    print(f"    main shape {MV_MAIN} fp32: B4 {main['b4']:.4f} + B5 {main['b5']:.4f} ms device time; autograd through "
+          f"sdpa_plain backward {plain_bwd:.4f} ms (forward + backward − forward, CUDA events); "
+          f"scaled_dot_product_attention backward {main['sdpa_bwd_ms']:.4f} ms device time")
 
     # a sampling step at CFG batch 8, and the correspondence processor's share of it
     lat = torch.randn((2 * MV_V, S // 8, S // 8, 4), generator=torch.Generator(device=dev).manual_seed(15), device=dev)
@@ -1307,7 +1383,7 @@ def phase15_timings(dev, mv) -> dict:
           f"with plain attention: the correspondence processor is {1 - plain_proc_ms / gen_ms:.3f} of the step; "
           f"phase 13's sample {mv['sample_wall'] / MV_SAMPLE_STEPS * 1e3:.1f} ms per step host wall (prepare "
           f"included)")
-    return dict(b4=main["b4"], b5=main["b5"], plain_ms=main["plain"], library_ms=main["lib"],
+    return dict(b4=main["b4"], b5=main["b5"], plain_ms=plain_bwd, library_ms=main["sdpa_bwd_ms"],
                 b4_bound=main["b4_bound"], b4_by=main["b4_by"], b5_bound=main["b5_bound"], b5_by=main["b5_by"])
 
 
@@ -1405,6 +1481,7 @@ def phase16_variants(dev, odd, garden) -> dict:
     from gaussctrl_exp_tpu_torch.ops import blend_variants as V
     from gaussctrl_exp_tpu_torch.scripts import bench_blend_variants as bbv
     from gaussctrl_exp_tpu_torch.scripts import bench_bwd_micro as micro
+    from gaussctrl_exp_tpu_torch.utils import timing
 
     print("[16] kernel B1v (the blend-forward ablations) vs its plain version, every tile (both write the init "
           "where the TPU kernel leaves a tile undefined), pixels in the stop band left out")
@@ -1436,25 +1513,28 @@ def phase16_variants(dev, odd, garden) -> dict:
     # the main path: both ported scripts, as a user runs them
     for mode in V.MODES:
         V.launches[mode] = 0
-    blend_cuda.launches = blend_cuda.bwd_launches = 0
+    blend_cuda.launches = blend_cuda.bwd_launches = timing.calls_made = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     slope = bbv.main([])
     micro_rows = micro.main([])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts, b1, b2 = dict(V.launches), blend_cuda.launches, blend_cuda.bwd_launches
-    # each script runs its slope batches, then a kernel-alone measurement (a
-    # warm-up and the timed launches); bench_bwd_micro also runs the forward
-    # once for B2's residuals, and each of its backward batches a forward
-    per_mode = (1 + bbv.REPEATS) * (bbv.K_LO + bbv.K_HI) + 1 + bbv.KERNEL_LAUNCHES
-    micro_slope, micro_alone = (1 + micro.REPEATS) * (micro.K_LO + micro.K_HI), 1 + micro.KERNEL_LAUNCHES
-    expected = (dict.fromkeys(V.MODES, per_mode), per_mode + 1 + 2 * micro_slope + micro_alone,
-                micro_slope + micro_alone)
-    print(f"    the two scripts at their defaults in {wall:.1f} s: launches B1v {counts}, B1 {b1}, B2 {b2} "
-          f"(expected {per_mode} per mode, {expected[1]}, {expected[2]})")
+    counts, b1, b2, timed = dict(V.launches), blend_cuda.launches, blend_cuda.bwd_launches, timing.calls_made
+    # each script runs its slope batches, then kernel-alone measurements:
+    # pairs of profiled windows of a warm-up call and the timed launches (a
+    # pair whose records fall short is profiled again); bench_bwd_micro also
+    # runs the forward once for B2's residuals, and each of its backward
+    # batches a forward; B1 is timed alone by both scripts
+    per_mode = (1 + bbv.REPEATS) * (bbv.K_LO + bbv.K_HI)
+    micro_slope = (1 + micro.REPEATS) * (micro.K_LO + micro.K_HI)
+    pair = 2 * (1 + bbv.KERNEL_LAUNCHES)
+    alone = [counts[m] - per_mode for m in V.MODES] + [b1 - per_mode - 1 - 2 * micro_slope, b2 - micro_slope]
+    fewest = [pair] * len(V.MODES) + [2 * pair, pair]
+    print(f"    the two scripts at their defaults in {wall:.1f} s: launches B1v {counts}, B1 {b1}, B2 {b2}; "
+          f"alone (B1v by mode, B1, B2) {alone}, in pairs of {pair} calls, {timed} timed calls in all")
     times = [v for r in (slope, micro_rows) for row in r.values() for v in row.values()]
-    if (counts, b1, b2) != expected or not all(np.isfinite(times)):
+    if any(a < f or a % pair for a, f in zip(alone, fewest)) or sum(alone) != timed or not all(np.isfinite(times)):
         raise SystemExit("FAIL: the benchmark scripts skipped a kernel or gave a non-finite time")
 
     Sv = bbv.S_DEFAULT
@@ -1474,11 +1554,17 @@ def phase16_variants(dev, odd, garden) -> dict:
     return dict(rows=rows, errs=errs, launches=counts, b2c_launches=b2)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--attention", action="store_true",
+                   help="build and time only the attention kernels (phase 9 and the kernel rows of 11 and 15)")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA card",
               file=sys.stderr)
         return 2
+    if args.attention:
+        return attention_only(torch.device("cuda"))
     from gaussctrl_exp_tpu_torch.cameras import camera_matrices, look_at, make_camera
     from gaussctrl_exp_tpu_torch.cli import render as cli
     from gaussctrl_exp_tpu_torch.engine.checkpoint import import_splatfacto_checkpoint
@@ -1494,7 +1580,7 @@ def main() -> int:
     from gaussctrl_exp_tpu_torch.models.gaussians import PARAM_NAMES
     from gaussctrl_exp_tpu_torch.ops.blend import blend_vjp_plain
     from gaussctrl_exp_tpu_torch.ops.lpips import lpips_random
-    from gaussctrl_exp_tpu_torch.utils.timing import kernel_time_ms
+    from gaussctrl_exp_tpu_torch.utils.timing import device_window, kernel_time_ms, spare_launches
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1616,7 +1702,7 @@ def main() -> int:
             plain_ms = time_ms(lambda: rasterize_tiles_plain(*bear_args, bear_bins, S, S), iters=5, warmup=1)
             g_kernel_ms = time_ms(lambda: blend_cuda.rasterize_tiles(*g_args, g_bins, S, S), iters=20)
             g_plain_ms = time_ms(lambda: rasterize_tiles_plain(*g_args, g_bins, S, S), iters=3, warmup=1)
-            frame_win = device_share(lambda: render_model(state, cam0, cli.EVAL_STEP, cfg))
+            frame_win = device_window(lambda: render_model(state, cam0, cli.EVAL_STEP, cfg), calls=5)
             kernel_dev_ms = kernel_time_ms(lambda: blend_cuda.rasterize_tiles(*bear_args, bear_bins, S, S),
                                              "blend_fwd_kernel")
             g_kernel_dev_ms = kernel_time_ms(lambda: blend_cuda.rasterize_tiles(*g_args, g_bins, S, S),
@@ -1626,7 +1712,7 @@ def main() -> int:
         print(f"[5] bear {S}² per frame (CUDA events, warm): render_model {frame_ms:.4f} ms = "
               f"project+SH {proj_ms:.4f} + binning {bin_ms:.4f} + blend_fwd {kernel_ms:.4f} (+ rest)")
         print(f"    device time per frame {frame_win['device_ms']:.4f} ms in {frame_win['ops']:.0f} device ops "
-              f"(torch.profiler, {frame_win['frames']} frames): {busy_text(frame_win)}")
+              f"(torch.profiler, {frame_win['calls']} frames): {busy_text(frame_win)}")
         print(f"    bear blend_fwd {kernel_dev_ms:.4f} ms device time per launch (torch.profiler; {kernel_ms:.4f} ms "
               f"per call in CUDA events) vs plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}); n_isects "
               f"{bear_bins.n_isects}; work {work}")
@@ -1773,7 +1859,7 @@ def main() -> int:
                 per_stage[name] += prev.elapsed_time(e) / iters
                 prev = e
             step_total += begin.elapsed_time(marks[-1]) / iters
-        step_win = device_share(lambda: plain_step(st, cam0, gt0))
+        step_win = device_window(lambda: plain_step(st, cam0, gt0), calls=5)
         t_args, t_bins = blend_inputs(GaussianState(st.params, st.alive), cam0, 3)
         fwd_t = blend_cuda.blend_forward(*t_args, t_bins, S, S)
         gen = torch.Generator(device=dev).manual_seed(3)
@@ -1800,7 +1886,7 @@ def main() -> int:
         print(f"    backward {per_stage['backward']:.4f} ms, of which blend_bwd {bwd_ms:.4f} ms (timed alone "
               f"on this view's inputs, C=3, n_isects {t_bins.n_isects})")
         print(f"    device time per step {step_win['device_ms']:.4f} ms in {step_win['ops']:.0f} device ops "
-              f"(torch.profiler, {step_win['frames']} steps): {busy_text(step_win)}")
+              f"(torch.profiler, {step_win['calls']} steps): {busy_text(step_win)}")
         print(f"    bear blend_bwd {bwd_dev_ms:.4f} ms device time per launch (torch.profiler; {bwd_ms:.4f} ms per "
               f"call in CUDA events) vs plain VJP {bwd_plain_ms:.4f} ms; bound {bwd_bound_ms:.5f} ms "
               f"({bwd_bound_by}); work {bwd_work}")
@@ -1815,7 +1901,8 @@ def main() -> int:
         phase14_experimental(dev, state, cams, targets, edit)
         bwd = phase15_timings(dev, mv)
         variants = phase16_variants(dev, (args_odd, bins_odd), (g_args, g_bins))
-        print(f"    total chip_smoke wall {time.perf_counter() - t_start:.1f} s")
+        print(f"    total chip_smoke wall {time.perf_counter() - t_start:.1f} s; spare launches a profiled cycle at the end "
+              f"{spare_launches()}")
 
     kernels = {"kernels": [{
         "name": "blend_fwd",
@@ -1858,6 +1945,7 @@ def main() -> int:
         "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
+        "exp_floor_ms": flash["exp_floor_ms"],
     }, {
         "name": "flash_attn_bwd_dkv",
         "route": "cuda",

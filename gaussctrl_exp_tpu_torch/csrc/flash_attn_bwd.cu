@@ -131,7 +131,7 @@ struct DkvTile {
 };
 
 template <int DP>
-__global__ void __launch_bounds__(WARPS * 32) flash_bwd_dkv_bf16(Args a) {
+__global__ void __launch_bounds__(WARPS * 32) gctorch_attn_bwd_b4_dkv_bf16(Args a) {
   using L = DkvTile<DP>;
   constexpr int BQ = L::BQ;
   extern __shared__ __align__(16) uint16_t smem[];
@@ -266,7 +266,7 @@ struct DqTile {
 };
 
 template <int DP>
-__global__ void __launch_bounds__(WARPS * 32) flash_bwd_dq_bf16(Args a) {
+__global__ void __launch_bounds__(WARPS * 32) gctorch_attn_bwd_b5_dq_bf16(Args a) {
   constexpr int BK = DqTile<DP>::BK;
   __shared__ __align__(16) uint16_t Ks[BK * (DP + PAD)];
   __shared__ __align__(16) uint16_t Vs[BK * (DP + PAD)];
@@ -381,7 +381,7 @@ __device__ __forceinline__ float row_sum(float x) {
 
 // B4 in fp32: TPR threads per key row, each owning D / TPR dims (≤ MAXC)
 template <int MAXC, int TPR>
-__global__ void __launch_bounds__(ROWS_F32 * TPR) flash_bwd_dkv_f32(Args a) {
+__global__ void __launch_bounds__(ROWS_F32 * TPR) gctorch_attn_bwd_b4_dkv_f32(Args a) {
   __shared__ float Qs[TILE_F32][MAX_D];
   __shared__ float dOs[TILE_F32][MAX_D];
   __shared__ float lse2_s[TILE_F32], delta_s[TILE_F32];
@@ -453,7 +453,7 @@ __global__ void __launch_bounds__(ROWS_F32 * TPR) flash_bwd_dkv_f32(Args a) {
 
 // B5 in fp32: TPR threads per query row
 template <int MAXC, int TPR>
-__global__ void __launch_bounds__(ROWS_F32 * TPR) flash_bwd_dq_f32(Args a) {
+__global__ void __launch_bounds__(ROWS_F32 * TPR) gctorch_attn_bwd_b5_dq_f32(Args a) {
   __shared__ float Ks[TILE_F32][MAX_D];
   __shared__ float Vs[TILE_F32][MAX_D];
 
@@ -515,12 +515,12 @@ template <int DP>
 int launch_bf16(int which, const Args& a, int B, cudaStream_t st) {
   if (which == 0) {
     const size_t bytes = DkvTile<DP>::BYTES;
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t e = cudaFuncSetAttribute(gctorch_attn_bwd_b4_dkv_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
-    flash_bwd_dkv_bf16<DP><<<dim3((a.T + BKEY - 1) / BKEY, B * a.H), WARPS * 32, bytes, st>>>(a);
+    gctorch_attn_bwd_b4_dkv_bf16<DP><<<dim3((a.T + BKEY - 1) / BKEY, B * a.H), WARPS * 32, bytes, st>>>(a);
   } else {
-    flash_bwd_dq_bf16<DP><<<dim3((a.S + BKEY - 1) / BKEY, B * a.H), WARPS * 32, 0, st>>>(a);
+    gctorch_attn_bwd_b5_dq_bf16<DP><<<dim3((a.S + BKEY - 1) / BKEY, B * a.H), WARPS * 32, 0, st>>>(a);
   }
   return 0;
 }
@@ -528,9 +528,9 @@ int launch_bf16(int which, const Args& a, int B, cudaStream_t st) {
 template <int MAXC, int TPR>
 void launch_f32(int which, const Args& a, int B, cudaStream_t st) {
   if (which == 0)
-    flash_bwd_dkv_f32<MAXC, TPR><<<dim3((a.T + ROWS_F32 - 1) / ROWS_F32, B * a.H), ROWS_F32 * TPR, 0, st>>>(a);
+    gctorch_attn_bwd_b4_dkv_f32<MAXC, TPR><<<dim3((a.T + ROWS_F32 - 1) / ROWS_F32, B * a.H), ROWS_F32 * TPR, 0, st>>>(a);
   else
-    flash_bwd_dq_f32<MAXC, TPR><<<dim3((a.S + ROWS_F32 - 1) / ROWS_F32, B * a.H), ROWS_F32 * TPR, 0, st>>>(a);
+    gctorch_attn_bwd_b5_dq_f32<MAXC, TPR><<<dim3((a.S + ROWS_F32 - 1) / ROWS_F32, B * a.H), ROWS_F32 * TPR, 0, st>>>(a);
 }
 
 }  // namespace

@@ -37,6 +37,10 @@ launches = 0  # B3 launches since the caller last set it to 0
 dkv_launches = 0  # B4 launches, likewise
 dq_launches = 0  # B5 launches, likewise
 copies = 0  # inputs the wrappers made contiguous (D not contiguous, or misaligned)
+# the kernels' names as torch.profiler shows them, under a prefix that no
+# library kernel holds: B3, B4 and B5, B4 with B5, and all three
+B3_KERNEL, B4_KERNEL, B5_KERNEL = "gctorch_attn_fwd_b3", "gctorch_attn_bwd_b4", "gctorch_attn_bwd_b5"
+BWD_KERNELS, ATTN_KERNELS = "gctorch_attn_bwd", "gctorch_attn_"
 
 
 def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -48,19 +52,30 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     return torch.matmul(probs, v)
 
 
+def reads_in_place(shape, strides, data_ptr: int, dtype: torch.dtype) -> bool:
+    """Whether the kernels read a tensor of this shape, strides (elements)
+    and address as it lies: D contiguous, and in bf16 every row start on a
+    16-byte boundary, since B3 copies rows 16 bytes at a time (``cp.async``):
+    the address a multiple of 16 bytes and the stride of every dimension
+    longer than 1 a multiple of 8 elements."""
+    if strides[-1] != 1:
+        return False
+    if dtype == torch.bfloat16:
+        return data_ptr % 16 == 0 and all(st % 8 == 0 for n, st in zip(shape[:-1], strides[:-1]) if n > 1)
+    return True
+
+
 def _strided(name: str, t: torch.Tensor) -> torch.Tensor:
-    """``t`` as the kernel reads it: D contiguous, and for bf16 every row
-    start on a 4-byte boundary (the kernel loads pairs of values)."""
+    """``t`` as the kernel reads it: ``t`` itself where ``reads_in_place``,
+    else a contiguous copy in a fresh (aligned) allocation, counted in
+    ``copies``."""
     global copies
-    ok = t.stride(-1) == 1
-    if t.dtype == torch.bfloat16:
-        ok = ok and t.data_ptr() % 4 == 0 and all(s % 2 == 0 for s in t.stride()[:-1])
-    if ok:
+    if reads_in_place(t.shape, t.stride(), t.data_ptr(), t.dtype):
         return t
-    warnings.warn(f"flash_attn: {name} with strides {t.stride()} is copied to a contiguous tensor",
-                  stacklevel=3)
+    warnings.warn(f"flash_attn: {name} with strides {t.stride()} at {t.data_ptr() % 16} bytes past a 16-byte "
+                  "boundary is copied to a contiguous tensor", stacklevel=3)
     copies += 1
-    return t.contiguous()
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _check(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[int, int, int, int, int]:

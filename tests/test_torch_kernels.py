@@ -267,6 +267,68 @@ def test_flash_attn_refuses_what_it_does_not_take(cuda_device):
         attention_cuda.flash_attn(q, k, v[:, :, :16])
 
 
+# B3's bf16 tiling: 128 query rows a CTA at D ≤ 80 (64 above), key tiles of 64
+# at D ≤ 40 (32 above), head widths rounded up to 16, 32, 40, 48, 64, 80, 96,
+# 128 or 160 with the columns past D zero-filled
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 127, 128, 129, 255])
+@pytest.mark.parametrize("T", [1, 77, 129])
+def test_flash_attn_tile_edges(cuda_device, S, T):
+    _check_flash(*_qkv(cuda_device, torch.bfloat16, 2, 3, S, T, 40, seed=S * 1000 + T))
+    _check_flash(*_qkv(cuda_device, torch.bfloat16, 1, 2, S, T, 80, seed=S * 1000 + T + 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 24, 40, 48, 80, 128, 160])
+def test_flash_attn_head_widths(cuda_device, D):
+    """Every width template, against sdpa_plain; the output bits do not
+    depend on the log-sum-exp, and two runs give the same bits."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 2, 3, 200, 130, D, seed=D)
+    got = _check_flash(q, k, v)
+    out, lse = attention_cuda.flash_attn(q, k, v, return_lse=True)
+    assert torch.equal(out, got)
+    assert torch.equal(attention_cuda.flash_attn(q, k, v), got)
+    want = torch.logsumexp(torch.matmul(q.float(), k.float().transpose(-1, -2)) * D ** -0.5, dim=-1)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_flash_attn_large_batch_heads(cuda_device):
+    """B·H = 65,520 (the grid's y dimension holds at most 65,535)."""
+    _check_flash(*_qkv(cuda_device, torch.bfloat16, 4095, 16, 9, 11, 40, seed=3))
+
+
+@pytest.mark.cuda
+def test_flash_attn_misaligned_input_is_copied(cuda_device):
+    """A contiguous bf16 view 8 bytes past a 16-byte boundary is copied to an
+    aligned tensor and counted, not read in place (cp.async takes 16-byte
+    aligned rows)."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 2, 3, 100, 77, 40, seed=4)
+    flat = torch.zeros(k.numel() + 4, dtype=k.dtype, device=cuda_device)
+    k_off = flat[4:].view(k.shape)
+    k_off.copy_(k)
+    assert k_off.is_contiguous() and k_off.data_ptr() % 16 == 8
+    copies = attention_cuda.copies
+    with pytest.warns(UserWarning, match="copied"):
+        got = _check_flash(q, k_off, v)
+    assert attention_cuda.copies == copies + 1
+    torch.testing.assert_close(got, attention_cuda.flash_attn(q, k, v), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attn_repeats_bit_for_bit(cuda_device):
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 3, 8, 1024, 1024, 40, seed=12)
+    first = attention_cuda.flash_attn(q, k, v, return_lse=True)
+    second = attention_cuda.flash_attn(q, k, v, return_lse=True)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
 # ------------------------------------------------------- kernels B4 and B5
 
 # B4/B5 against autograd through sdpa_plain in fp32 on the upcast inputs and
