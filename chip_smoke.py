@@ -350,12 +350,12 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def roofline(n_bytes, n_ops, peak_ops_s=None) -> tuple[float, str]:
-    """The least time (ms) for this work on the card at the data sheet's
-    peaks (fp32 unless ``peak_ops_s`` says otherwise), and what bounds it."""
+def roofline(n_bytes, n_ops) -> tuple[float, str]:
+    """The least time (ms) for this fp32 work on the card at the data
+    sheet's peaks, and what bounds it."""
     from gaussctrl_exp_tpu_torch.utils.timing import PEAK_BYTES_S, PEAK_F32_OPS_S
 
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / (peak_ops_s or PEAK_F32_OPS_S) * 1e3
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_OPS_S * 1e3
     return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -738,8 +738,7 @@ def phase11_timings(dev, state, cams, edit, flash_cases) -> dict:
           f"B3 / SDPA {main['ratio']:.3f}; at the data sheet's peaks bound {main['rated']['bound_ms']:.5f} ms "
           f"({main['rated']['bound_by']}), exponentials {main['rated']['exp_ms']:.5f} ms")
     return dict(ms=main["ms"], plain_ms=plain_ms, bound_ms=main["rated"]["bound_ms"],
-                bound_by=main["rated"]["bound_by"], library_ms=main["sdpa_ms"],
-                exp_floor_ms=main["rated"]["exp_ms"])
+                bound_by=main["rated"]["bound_by"], library_ms=main["sdpa_ms"])
 
 
 ATTN_LAUNCHES = 10  # calls in each device-time window of phases 11 and 15
@@ -837,22 +836,51 @@ def b3_rows(dev, flash_cases) -> dict:
     return rows
 
 
+def bound_text(kernel: str, ms: float, rated: dict, at_clock: dict) -> str:
+    """A backward kernel's bounds (``timing.attention_bwd_bound``) at the
+    data sheet's peaks and at the clock read after it, beside its time."""
+    return (f"{kernel} bound {rated['bound_ms']:.5f} ms ({rated['bound_by']}, {rated['bound_ms'] / ms:.3f} of it): "
+            f"operations at the fp32 FMA peak {rated['fp32_ms']:.5f}, as 3×TF32 {rated['tf32x3_ms']:.5f}, bf16 "
+            f"{rated['bf16_ms']:.5f}, bytes {rated['bytes_ms']:.5f}, exponentials {rated['exp_ms']:.5f} at 1830 "
+            f"MHz; at {at_clock['clock_hz'] / 1e6:.0f} MHz fp32 FMA {at_clock['fp32_ms']:.5f}, 3×TF32 "
+            f"{at_clock['tf32x3_ms']:.5f}, bf16 {at_clock['bf16_ms']:.5f}, exponentials {at_clock['exp_ms']:.5f}")
+
+
 def bwd_rows(dev) -> dict:
     """B4 and B5 alone against SDPA's backward at phase 12's shapes, fp32
-    and bf16, with their bounds, printed; the rows by (name, dtype)."""
+    and bf16, with their bounds (``attention_bwd_bound``: the rated one,
+    and at the clock read after each kernel), printed; the rows by (name,
+    dtype)."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+    from gaussctrl_exp_tpu_torch.utils.timing import attention_bwd_bound
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = {}
     for i, (name, shape) in enumerate(MV_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(shape, dtype, 400 + i, dev)
             dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(i), device=dev).to(dtype)
             r = time_backward(q, k, v, dout)
-            r["b4_bound"], r["b4_by"] = bwd_bound(shape, dtype, "B4")
-            r["b5_bound"], r["b5_by"] = bwd_bound(shape, dtype, "B5")
+            for kern, c in (("B4", r["clocks"][1]), ("B5", r["clocks"][2])):
+                r[kern.lower() + "_rated"] = attention_bwd_bound(shape, dtype, kern)
+                r[kern.lower() + "_at_clock"] = attention_bwd_bound(shape, dtype, kern, c["sm_mhz"] * 1e6)
+            splits = attention_cuda.dkv_splits(*shape, sms) if dtype == torch.float32 else 1
             rows[(name, dtype)] = r
-            print(f"    {backward_text(name, shape, dtype, r)}; bounds B4 {r['b4_bound']:.5f} ({r['b4_by']}, "
-                  f"{r['b4_bound'] / r['b4']:.3f} of it), B5 {r['b5_bound']:.5f} ({r['b5_by']}, "
-                  f"{r['b5_bound'] / r['b5']:.3f})", flush=True)
+            print(f"    {backward_text(name, shape, dtype, r)}; B4 query splits {splits}; "
+                  f"{bound_text('B4', r['b4'], r['b4_rated'], r['b4_at_clock'])}; "
+                  f"{bound_text('B5', r['b5'], r['b5_rated'], r['b5_at_clock'])}", flush=True)
     return rows
+
+
+def print_ptxas() -> None:
+    """The attention kernels' registers and spills, per kernel and width, as
+    ptxas -v reported them to the nvcc runs of this process."""
+    from gaussctrl_exp_tpu_torch.ops import cuda_build
+
+    for src in ("flash_attn_fwd", "flash_attn_bwd"):
+        for line in cuda_build.logs.get(src, "").splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line and "0 bytes spill" not in line:
+                print(f"    ptxas {src}: " + line.split("ptxas info    :")[-1].strip())
 
 
 def attention_only(dev) -> int:
@@ -867,6 +895,7 @@ def attention_only(dev) -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"{smi_line()}; {ATTN_LAUNCHES} calls a window")
     cuda_build.build()
+    print_ptxas()
     _, flash_cases = phase9_flash(dev)
     print("[11] B3 alone, by device time")
     b3_rows(dev, flash_cases)
@@ -903,9 +932,6 @@ MV_SHAPES = [
 # bf16: the gradients are rounded to bf16, and so are P and dS before their
 # products, as the forward rounds P
 BWD_F32_REL_L2, BWD_BF16_REL_L2 = 1e-5, 1.5e-2
-# B4 does 4 products per (b, h, s, t, d) (Q·Kᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q), B5 3
-# (Q·Kᵀ, dO·Vᵀ, dS·K): 2 operations each
-OPS_B4, OPS_B5 = 8, 6
 MV_PARAMS = 859_523_844  # the SD1.x UNet's 859,520,964 + 320·9 for the depth channel
 MV_ORBIT = 24  # 4 views 15° apart on phase 4's orbit
 MV_LR = 1e-5
@@ -1006,6 +1032,21 @@ def phase12_flash_bwd(dev) -> dict:
               f"fp32 scores (batch 0) {lse_err:.3e}")
         if not (same and torch.equal(out, out_plain) and lse_err <= 1e-3):
             raise SystemExit("FAIL: the backward is not deterministic, or the log-sum-exp changed B3's output")
+    # fp32 B4 with its queries split over several CTAs (cross 64²): the
+    # partials are summed in a fixed order, by a second pass that each of
+    # the two backward runs launches once
+    shape = dict(MV_SHAPES)["cross 64²"]
+    q, k, v = flash_inputs(shape, torch.float32, 10, dev)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(11), device=dev)
+    sums = attention_cuda.dkv_sum_launches()
+    first, second = flash_grads(q, k, v, dout)[1], flash_grads(q, k, v, dout)[1]
+    sums = attention_cuda.dkv_sum_launches() - sums
+    splits = attention_cuda.dkv_splits(*shape, torch.cuda.get_device_properties(dev).multi_processor_count)
+    same = all(torch.equal(x, y) for x, y in zip(first, second))
+    print(f"  float32 {shape}: B4's queries split {splits} ways; the partials' sum launched {sums} times in two "
+          f"backward runs; the two runs bit-identical {same}")
+    if splits < 2 or sums != 2 or not same:
+        raise SystemExit("FAIL: the split fp32 backward did not split, or is not deterministic")
     for dtype in (torch.bfloat16, torch.float32):  # _sdpa keeps the gradient on the card
         q, k, v = (t.requires_grad_() for t in flash_inputs((2, 8, 1024, 1024, 80), dtype, 9, dev))
         out = _sdpa(q, k, v)
@@ -1299,19 +1340,6 @@ def phase14_experimental(dev, state, cams, targets, edit) -> None:
             raise SystemExit("FAIL: the noise mask is not finite in [0, 1] or skipped B1")
 
 
-def bwd_bound(shape, dtype, kernel) -> tuple[float, str]:
-    """B4's or B5's bound: q, k, v, dO read once, lse and delta read once, its
-    gradients written once; 2·(4 or 3) operations per (b, h, s, t, d)."""
-    B, H, S_, T, D = shape
-    size = 2 if dtype == torch.bfloat16 else 4
-    n_bytes = size * B * H * D * (2 * S_ + 2 * T) + 8 * B * H * S_
-    n_bytes += size * B * H * D * (2 * T if kernel == "B4" else S_)
-    from gaussctrl_exp_tpu_torch.utils.timing import PEAK_BF16_OPS_S, PEAK_F32_OPS_S
-
-    peak = PEAK_BF16_OPS_S if dtype == torch.bfloat16 else PEAK_F32_OPS_S
-    return roofline(n_bytes, (OPS_B4 if kernel == "B4" else OPS_B5) * B * H * S_ * T * D, peak)
-
-
 def phase15_timings(dev, mv) -> dict:
     """The train step by stage, its busy share and B4 + B5's share of the
     backward; B4 and B5 at every phase-12 shape against their bounds, the
@@ -1384,7 +1412,7 @@ def phase15_timings(dev, mv) -> dict:
           f"phase 13's sample {mv['sample_wall'] / MV_SAMPLE_STEPS * 1e3:.1f} ms per step host wall (prepare "
           f"included)")
     return dict(b4=main["b4"], b5=main["b5"], plain_ms=plain_bwd, library_ms=main["sdpa_bwd_ms"],
-                b4_bound=main["b4_bound"], b4_by=main["b4_by"], b5_bound=main["b5_bound"], b5_by=main["b5_by"])
+                b4_bound=main["b4_rated"], b5_bound=main["b5_rated"])
 
 
 # ---------------------------------------------------------------- phase 16
@@ -1595,10 +1623,7 @@ def main(argv=None) -> int:
     built = ", ".join(f"{lib.name} from {cuda_build.SOURCES[n].relative_to(ROOT)}" for n, lib in libs.items())
     print(f"[2] built {built} in {time.perf_counter() - t0:.2f} s, one nvcc per source in parallel "
           f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)}; per source {cuda_build.EXTRA_FLAGS})")
-    for src in ("flash_attn_fwd", "flash_attn_bwd"):
-        for line in cuda_build.logs.get(src, "").splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line and "0 bytes spill" not in line:
-                print(f"    ptxas {src}: " + line.split("ptxas info    :")[-1].strip())
+    print_ptxas()
 
     bear = synthetic_params(N_BEAR, 0, 0.8, -4.2, 0.5)
     garden = synthetic_params(N_GARDEN, 7, 1.2, -5.3, 0.4)
@@ -1945,7 +1970,6 @@ def main(argv=None) -> int:
         "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
-        "exp_floor_ms": flash["exp_floor_ms"],
     }, {
         "name": "flash_attn_bwd_dkv",
         "route": "cuda",
@@ -1957,8 +1981,8 @@ def main(argv=None) -> int:
         "max_abs_err": bwd_errs[torch.float32]["B4"],
         "ms": bwd["b4"],
         "plain_ms": bwd["plain_ms"],
-        "bound_ms": bwd["b4_bound"],
-        "bound_by": bwd["b4_by"],
+        "bound_ms": bwd["b4_bound"]["bound_ms"],
+        "bound_by": bwd["b4_bound"]["bound_by"],
         "library_ms": bwd["library_ms"],
     }, {
         "name": "flash_attn_bwd_dq",
@@ -1971,8 +1995,8 @@ def main(argv=None) -> int:
         "max_abs_err": bwd_errs[torch.float32]["B5"],
         "ms": bwd["b5"],
         "plain_ms": bwd["plain_ms"],
-        "bound_ms": bwd["b5_bound"],
-        "bound_by": bwd["b5_by"],
+        "bound_ms": bwd["b5_bound"]["bound_ms"],
+        "bound_by": bwd["b5_bound"]["bound_by"],
         "library_ms": bwd["library_ms"],
     }]}
     for mode, row in variants["rows"].items():

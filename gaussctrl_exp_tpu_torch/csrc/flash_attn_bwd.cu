@@ -19,34 +19,58 @@
 // What bounds them: per (batch, head, query, key, dim) B4 does 4 products
 // (Q·Kᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q) and B5 3 (Q·Kᵀ, dO·Vᵀ, dS·K), 2 operations
 // each. At the depth generator's training shape (4, 8, 4096, 4096, 40) fp32
-// that is 1.7e11 and 1.3e11 operations on ~10 MB: bound by the fp32 FMA rate
-// (67 TFLOP/s) by a factor of ~300, as long as the S×T scores never reach
-// device memory. In bf16 the tensor cores' 989 TFLOP/s bound them.
+// that is 1.7e11 and 1.3e11 operations on ~10 MB, as long as the S×T scores
+// never reach device memory. On an H100 SXM at its data sheet's peaks (700
+// W): 2.56 and 1.92 ms at the fp32 FMA rate (67 TFLOP/s), 1.04 and 0.78 ms
+// at a third of the TF32 tensor-core rate (494.7 TFLOP/s), which is what
+// fp32-accurate products cost there (3×TF32); the exponentials, one per
+// score and kernel, take 0.14 ms. In bf16 the tensor cores' 989 TFLOP/s
+// bound them.
 //
-// Design (simple first; ldmatrix, cp.async, wgmma and TMA are later work):
+// Design:
 //  * B4 works on the transposed problem, so that no product needs a
 //    transposed register fragment: each warp owns 16 key rows and computes
-//    Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ directly, whose C fragments are (packed to
-//    bf16) the A fragments of Pᵀ·dO and dSᵀ·Q, exactly as B3 turns its score
-//    fragments into the A fragments of P·V. One CTA of 4 warps per 64 keys;
-//    K and V stay in shared memory, and query tiles of Q and dO are staged
-//    there row-major (B operands of the score products) and transposed (B
-//    operands of the gradient products). dK and dV accumulate in fp32
-//    registers and are written once.
-//  * B5 is B3's layout: each warp owns 16 query rows, Q and dO in registers
-//    as A fragments; key tiles of K and V are staged row-major and K
-//    transposed; the dS fragments feed dS·K.
-//  * bf16 runs on mma.sync.m16n8k16 with fp32 accumulators; P and dS are
-//    rounded to bf16 before their products, as the forward rounds P. fp32
-//    runs on scalar FMAs, TPR threads per row each owning D / TPR dims, with
-//    two shuffle reductions per (query, key) pair.
-//  * Keys past T get P = 0 and queries past S carry lse = +inf (so P = 0),
-//    dO = 0 and delta = 0, and store nothing; D is zero-padded to a multiple
-//    of 16 in registers and shared memory only. Strides are taken for batch,
-//    head and sequence (D contiguous), and the outputs are written in the
-//    (B, L, H, D) layout the wrapper allocates.
-//  * Two kernels and no atomics: the result is the same bit for bit on
-//    every run.
+//    Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ directly, whose C fragments become the A
+//    fragments of Pᵀ·dO and dSᵀ·Q in registers. One CTA of 4 warps per 64
+//    keys; dK and dV accumulate in fp32 registers and are written once.
+//  * B5 is B3's layout: each warp owns 16 query rows with Q and dO as A
+//    fragments; its dS fragments feed dS·K.
+//  * bf16 (mma.sync.m16n8k16): K and V stay in shared memory; query tiles of
+//    Q and dO (B4) or key tiles of K and V (B5) are staged row-major for the
+//    score products and transposed for the gradient products. P and dS are
+//    rounded to bf16 before their products, as the forward rounds P.
+//  * fp32 (3×TF32 on mma.sync.m16n8k8, below): the CTA's own 64 rows (K and
+//    V for B4, Q and dO for B5) and a two-stage ring of the other operands'
+//    tiles are copied by `cp.async`, 16 bytes a thread, row-major with a
+//    pitch of D + 4 floats. m16n8k8's C fragment holds columns 2·tq and
+//    2·tq + 1, its A fragment columns tq and tq + 4: the gradient products
+//    relabel their k-slots (slot tq is column 2·tq, slot tq + 4 is 2·tq + 1)
+//    and read the B fragments with the same labels, so they come from the
+//    row-major tiles and no transposed copy is made. The CTA's own rows are
+//    split into TF32 hi and lo once, when they land (D ≤ 48; above, shared
+//    memory holds them only as they are and their fragments are split as
+//    they are read), each ring tile once when it lands, P and dS in
+//    registers. The gradient products sum each ring tile in a fresh
+//    accumulator and add it to dK, dV or dQ on the FP32 pipe: the tensor
+//    cores truncate their fp32 sums, and a chain over thousands of rows
+//    gathers that bias. P = ex2 of one FFMA of the raw score against
+//    lse·log2 e (`ex2.approx.ftz`). Where B4's key
+//    blocks give too few CTAs for the card (gctorch_flash_attn_bwd_dkv_splits
+//    decides), the query tiles are split over `splits` CTAs that write
+//    partial sums, and a second kernel adds them in a fixed order.
+//  * Keys past T get P = 0; queries past S run on zero rows (so dO = 0,
+//    delta = 0 and P·dO = dS = 0) and store nothing; D is zero-padded in
+//    registers and shared memory only. Strides are taken for batch, head and
+//    sequence (D contiguous), and the outputs are written in the (B, L, H, D)
+//    layout the wrapper allocates.
+//  * No atomics: the result is the same bit for bit on every run.
+//
+// Registers a thread, fp32 B4 / B5, by width (ptxas -v for sm_90a, as
+// chip_smoke.py printed them on an NVIDIA H100 80GB HBM3, 700 W): 8: 102 /
+// 101, 16: 128 / 109, 24: 166 / 144, 32: 171 / 154, 40: 217 / 168, 48: 239
+// / 170, 64: 210 / 141, 80: 252 / 167, 96: 255 / 178, 128: 255 / 194, 160:
+// 255 / 226. B4 spills 4 bytes at 96 and 12 at 160 (dK and dV alone hold D
+// registers); B5 spills nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,11 +81,13 @@ namespace {
 
 constexpr int WARPS = 4;
 constexpr int PAD = 8;          // row padding of the bf16 shared tiles, against bank conflicts
-constexpr int BKEY = WARPS * 16;  // keys per B4 CTA (bf16) and queries per B5 CTA (bf16)
-constexpr int ROWS_F32 = 64;    // key rows per B4 CTA and query rows per B5 CTA (fp32)
-constexpr int TILE_F32 = 32;    // query (B4) or key (B5) rows per shared tile (fp32)
+constexpr int BKEY = WARPS * 16;  // keys per B4 CTA and queries per B5 CTA (bf16)
 constexpr int MAX_D = 160;
 constexpr float LOG2E = 1.4426950408889634f;
+// fp32 B4 splits a key block's queries over more CTAs until the card has
+// this many CTAs an SM
+constexpr int DKV_CTAS_PER_SM = 2;
+long long sum_launches = 0;  // launches of gctorch_attn_bwd_b4_dkv_f32_sum
 
 struct Strides {
   long long b, h, s;
@@ -371,144 +397,456 @@ __global__ void __launch_bounds__(WARPS * 32) gctorch_attn_bwd_b5_dq_bf16(Args a
 
 // ---------------------------------------------------------------- fp32
 
-// the sum of x over the TPR neighbouring lanes that own one row
-template <int TPR>
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < TPR; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// fp32 runs on the tensor cores as 3×TF32: each operand x is split into
+// hi = tf32(x) and lo = tf32(x − hi) (cvt.rna), and a product a·b is taken as
+// a_lo·b_hi + a_hi·b_lo + a_hi·b_hi on mma.sync.m16n8k8 with fp32
+// accumulators, the small terms first. The error is a few units of fp32's
+// last place per product; one pass (a_hi·b_hi) would round the operands to
+// 10 mantissa bits.
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
-// B4 in fp32: TPR threads per key row, each owning D / TPR dims (≤ MAXC)
-template <int MAXC, int TPR>
-__global__ void __launch_bounds__(ROWS_F32 * TPR) gctorch_attn_bwd_b4_dkv_f32(Args a) {
-  __shared__ float Qs[TILE_F32][MAX_D];
-  __shared__ float dOs[TILE_F32][MAX_D];
-  __shared__ float lse2_s[TILE_F32], delta_s[TILE_F32];
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const int key = blockIdx.x * ROWS_F32 + threadIdx.x / TPR;
-  const int dch = a.D / TPR, d0 = (threadIdx.x % TPR) * dch;
-  const bool kok = key < a.T;
+struct FragA {  // an m16n8k8 A fragment split into its hi and lo TF32 parts
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ void split_a(FragA& f, float x0, float x1, float x2, float x3) {
+  const float x[4] = {x0, x1, x2, x3};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f.hi[i] = tf32(x[i]);
+    f.lo[i] = tf32(x[i] - __uint_as_float(f.hi[i]));
+  }
+}
+
+// d += a·b in 3×TF32; b's hi parts at b[0] (k-slot tq) and b[step] (slot
+// tq + 4), its lo parts `lo` floats on
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const float* b, int step, int lo) {
+  const uint32_t h0 = __float_as_uint(b[0]), h1 = __float_as_uint(b[step]);
+  const uint32_t l0 = __float_as_uint(b[lo]), l1 = __float_as_uint(b[lo + step]);
+  mma_tf32(d, a.lo, h0, h1);
+  mma_tf32(d, a.hi, l0, l1);
+  mma_tf32(d, a.hi, h0, h1);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// global → shared, asynchronously; zeros where !ok (nothing is read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// queries (B4) or keys (B5) a ring stage of the fp32 kernels, for head
+// width d: the same for D as for the width DT it is rounded up to
+constexpr int f32_ring_rows(int d) { return d <= 48 ? 32 : d <= 96 ? 16 : 8; }
+constexpr int F32_ROWS = WARPS * 16;  // keys a B4 CTA owns, queries a B5 CTA owns (16 a warp)
+
+// the fp32 tiling for head width DT (D ≤ DT, both multiples of 8)
+template <int DT>
+struct F32Tile {
+  static constexpr int ROWS = F32_ROWS;
+  static constexpr int BN = f32_ring_rows(DT);
+  // row pitch in floats: DT + 4 is 4 × an odd number mod 32, so the reads
+  // (row g, column tq) and (row 2·tq, column g) of a warp hit 32 banks
+  static constexpr int PITCH = DT + 4;
+  static constexpr int CHUNKS = DT / 4;  // 16-byte copies a row
+  static constexpr int KD = DT / 8;      // k-steps over D of the score products, n-tiles of the gradients
+  static constexpr int NB = BN / 8;      // n-tiles of the scores, k-steps of the gradient products
+  // the CTA's own rows of two operands, split into TF32 hi and lo once
+  // where they fit (their lo parts after both hi parts), else kept as they
+  // are and split as their fragments are read
+  static constexpr bool PRESPLIT = DT <= 48;
+  static constexpr int FIXED = (PRESPLIT ? 4 : 2) * ROWS * PITCH;
+  // a ring stage: two operands' tiles, split in place into hi when they have
+  // landed, their lo parts LO floats on, then lse and delta (B4)
+  static constexpr int LO = 2 * BN * PITCH;
+  static constexpr int LSE = 2 * LO;
+  static constexpr int STAGE = LSE + 2 * BN;
+  static constexpr size_t BYTES = (FIXED + 2 * STAGE) * sizeof(float);
+};
+
+// an A fragment of the CTA's own rows (row-major, pitch PITCH) at rows r0,
+// r0 + 8 and columns c, c + 4: from the split copy, or split here
+template <int DT>
+__device__ __forceinline__ void load_a(FragA& f, const float* rows, int r0, int c) {
+  using P = F32Tile<DT>;
+  const int i[4] = {r0 * P::PITCH + c, (r0 + 8) * P::PITCH + c, r0 * P::PITCH + c + 4, (r0 + 8) * P::PITCH + c + 4};
+  if constexpr (P::PRESPLIT) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      f.hi[e] = __float_as_uint(rows[i[e]]);
+      f.lo[e] = __float_as_uint(rows[2 * P::ROWS * P::PITCH + i[e]]);
+    }
+  } else {
+    split_a(f, rows[i[0]], rows[i[1]], rows[i[2]], rows[i[3]]);
+  }
+}
+
+// x[0, n) split in place into hi, and lo into x[n, 2n)
+__device__ __forceinline__ void split_in_place(float* x, int n) {
+  for (int e = threadIdx.x; e < n; e += WARPS * 32) {
+    const float v = x[e];
+    const uint32_t hi = tf32(v);
+    x[e] = __uint_as_float(hi);
+    x[n + e] = __uint_as_float(tf32(v - __uint_as_float(hi)));
+  }
+}
+
+// a ring stage that has landed, and with the first the CTA's own rows,
+// split into hi and lo; then a barrier
+template <int DT>
+__device__ __forceinline__ void split_landed(float* fixed, float* stage, bool first) {
+  using P = F32Tile<DT>;
+  if constexpr (P::PRESPLIT)
+    if (first) split_in_place(fixed, 2 * P::ROWS * P::PITCH);
+  split_in_place(stage, P::LO);
+  __syncthreads();
+}
+
+// rows [r0, r0 + N) of a (rows, D) fp32 matrix into a shared tile of pitch
+// PITCH, 16 bytes a copy; zeros past `rows` and past D
+template <int DT, int N>
+__device__ __forceinline__ void stage_f32(float* dst, const float* base, long long stride, int r0, int rows,
+                                          int D) {
+  using P = F32Tile<DT>;
+#pragma unroll
+  for (int e0 = 0; e0 < N * P::CHUNKS; e0 += WARPS * 32) {
+    const int e = e0 + threadIdx.x;
+    if (N * P::CHUNKS % (WARPS * 32) == 0 || e < N * P::CHUNKS) {
+      const int r = e / P::CHUNKS, c = (e % P::CHUNKS) * 4, row = r0 + r;
+      const bool ok = row < rows && c < D;
+      cp_async16(dst + r * P::PITCH + c, ok ? base + (long long)row * stride + c : base, ok);
+    }
+  }
+}
+
+// acc[nd] += a·B over one ring tile (NB k-steps of 8 rows), B the tile's
+// rows read with the relabelled k-slots from b = tile + 2·tq·PITCH + g
+// (hi, lo LO floats on); each n-tile of D is summed in a fresh accumulator
+// and added to acc on the FP32 pipe
+template <int DT>
+__device__ __forceinline__ void grad_tiles(float (&acc)[F32Tile<DT>::KD][4], const FragA (&a)[F32Tile<DT>::NB],
+                                           const float* b) {
+  using P = F32Tile<DT>;
+#pragma unroll
+  for (int nd = 0; nd < P::KD; ++nd) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kq = 0; kq < P::NB; ++kq) mma3(t, a[kq], b + kq * 8 * P::PITCH + nd * 8, P::PITCH, P::LO);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[nd][j] += t[j];
+  }
+}
+
+// B4 in fp32. Grid (key blocks of ROWS, B·H, splits): split z walks query
+// tiles [z·tiles, (z + 1)·tiles). With one split it writes dK·scale and dV;
+// with more, its unscaled partials go to the workspace `ws` (dK's splits,
+// then dV's, each (B·H, T, D)) for gctorch_attn_bwd_b4_dkv_f32_sum.
+template <int DT>
+__global__ void __launch_bounds__(WARPS * 32, 1) gctorch_attn_bwd_b4_dkv_f32(Args a, float* ws, int tiles) {
+  using P = F32Tile<DT>;
+  constexpr int BN = P::BN, PITCH = P::PITCH, KD = P::KD, NB = P::NB;
+  extern __shared__ __align__(16) float fsm[];
+  float* Ks = fsm;
+  float* Vs = fsm + P::ROWS * PITCH;
+  float* ring = fsm + P::FIXED;  // a stage: Q, dO [BN][PITCH] (hi, then lo), lse [BN], delta [BN]
+
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int key0 = blockIdx.x * P::ROWS;
   const float* qb = static_cast<const float*>(a.q) + b * a.qs.b + h * a.qs.h;
-  const float* dob = static_cast<const float*>(a.dout) + b * a.dos.b + h * a.dos.h;
-  const float* krow = static_cast<const float*>(a.k) + b * a.ks.b + h * a.ks.h + (long long)key * a.ks.s + d0;
-  const float* vrow = static_cast<const float*>(a.v) + b * a.vs.b + h * a.vs.h + (long long)key * a.vs.s + d0;
-  const float* lse = a.lse + (long long)blockIdx.y * a.S;
-  const float* delta = a.delta + (long long)blockIdx.y * a.S;
-
-  float kr[MAXC], vr[MAXC], dk[MAXC], dv[MAXC];
-#pragma unroll
-  for (int i = 0; i < MAXC; ++i) {
-    kr[i] = (i < dch && kok) ? krow[i] : 0.f;
-    vr[i] = (i < dch && kok) ? vrow[i] : 0.f;
-    dk[i] = dv[i] = 0.f;
-  }
-
-  for (int q0 = 0; q0 < a.S; q0 += TILE_F32) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < TILE_F32 * a.D; e += ROWS_F32 * TPR) {
-      const int r = e / a.D, c = e % a.D, qi = q0 + r;
-      Qs[r][c] = qi < a.S ? qb[(long long)qi * a.qs.s + c] : 0.f;
-      dOs[r][c] = qi < a.S ? dob[(long long)qi * a.dos.s + c] : 0.f;
-    }
-    for (int r = threadIdx.x; r < TILE_F32; r += ROWS_F32 * TPR) {
-      const bool in = q0 + r < a.S;
-      lse2_s[r] = in ? lse[q0 + r] * LOG2E : INFINITY;
-      delta_s[r] = in ? delta[q0 + r] : 0.f;
-    }
-    __syncthreads();
-
-    for (int j = 0; j < TILE_F32; ++j) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int i = 0; i < MAXC; ++i)
-        if (i < dch) {
-          s = fmaf(kr[i], Qs[j][d0 + i], s);
-          dp = fmaf(vr[i], dOs[j][d0 + i], dp);
-        }
-      s = row_sum<TPR>(s);
-      dp = row_sum<TPR>(dp);
-      const float p = kok ? exp2f(s * a.scale_log2 - lse2_s[j]) : 0.f;
-      const float ds = p * (dp - delta_s[j]);
-#pragma unroll
-      for (int i = 0; i < MAXC; ++i)
-        if (i < dch) {
-          dv[i] = fmaf(p, dOs[j][d0 + i], dv[i]);
-          dk[i] = fmaf(ds, Qs[j][d0 + i], dk[i]);
-        }
-    }
-  }
-
-  if (!kok) return;
-  float* dkrow = static_cast<float*>(a.dk) + b * a.dks.b + h * a.dks.h + (long long)key * a.dks.s + d0;
-  float* dvrow = static_cast<float*>(a.dv) + b * a.dvs.b + h * a.dvs.h + (long long)key * a.dvs.s + d0;
-#pragma unroll
-  for (int i = 0; i < MAXC; ++i)
-    if (i < dch) {
-      dkrow[i] = dk[i] * a.scale;
-      dvrow[i] = dv[i];
-    }
-}
-
-// B5 in fp32: TPR threads per query row
-template <int MAXC, int TPR>
-__global__ void __launch_bounds__(ROWS_F32 * TPR) gctorch_attn_bwd_b5_dq_f32(Args a) {
-  __shared__ float Ks[TILE_F32][MAX_D];
-  __shared__ float Vs[TILE_F32][MAX_D];
-
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const int row = blockIdx.x * ROWS_F32 + threadIdx.x / TPR;
-  const int dch = a.D / TPR, d0 = (threadIdx.x % TPR) * dch;
-  const bool in = row < a.S;
   const float* kb = static_cast<const float*>(a.k) + b * a.ks.b + h * a.ks.h;
   const float* vb = static_cast<const float*>(a.v) + b * a.vs.b + h * a.vs.h;
-  const float* qrow = static_cast<const float*>(a.q) + b * a.qs.b + h * a.qs.h + (long long)row * a.qs.s + d0;
-  const float* dorow =
-      static_cast<const float*>(a.dout) + b * a.dos.b + h * a.dos.h + (long long)row * a.dos.s + d0;
-  const float lse2 = in ? a.lse[(long long)blockIdx.y * a.S + row] * LOG2E : INFINITY;
-  const float del = in ? a.delta[(long long)blockIdx.y * a.S + row] : 0.f;
+  const float* dob = static_cast<const float*>(a.dout) + b * a.dos.b + h * a.dos.h;
+  const float* lse = a.lse + (long long)bh * a.S;
+  const float* delta = a.delta + (long long)bh * a.S;
+  const int n_q = (a.S + BN - 1) / BN;
+  const int t0 = blockIdx.z * tiles, t1 = min(n_q, t0 + tiles);
 
-  float qr[MAXC], dr[MAXC], dq[MAXC];
-#pragma unroll
-  for (int i = 0; i < MAXC; ++i) {
-    qr[i] = (i < dch && in) ? qrow[i] : 0.f;
-    dr[i] = (i < dch && in) ? dorow[i] : 0.f;
-    dq[i] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < a.T; k0 += TILE_F32) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < TILE_F32 * a.D; e += ROWS_F32 * TPR) {
-      const int r = e / a.D, c = e % a.D, ki = k0 + r;
-      Ks[r][c] = ki < a.T ? kb[(long long)ki * a.ks.s + c] : 0.f;
-      Vs[r][c] = ki < a.T ? vb[(long long)ki * a.vs.s + c] : 0.f;
+  stage_f32<DT, P::ROWS>(Ks, kb, a.ks.s, key0, a.T, a.D);  // split into hi and lo when they land
+  stage_f32<DT, P::ROWS>(Vs, vb, a.vs.s, key0, a.T, a.D);
+  auto load_tile = [&](int t) {  // one commit group a tile, empty past the split's last
+    if (t < t1) {
+      float* st = ring + ((t - t0) & 1) * P::STAGE;
+      const int q0 = t * BN;
+      stage_f32<DT, BN>(st, qb, a.qs.s, q0, a.S, a.D);
+      stage_f32<DT, BN>(st + BN * PITCH, dob, a.dos.s, q0, a.S, a.D);
+      for (int r = threadIdx.x; r < BN; r += WARPS * 32) {  // zeros past S: P·dO = 0 and dS = 0 there
+        const bool ok = q0 + r < a.S;
+        cp_async4(st + P::LSE + r, ok ? lse + q0 + r : lse, ok);
+        cp_async4(st + P::LSE + BN + r, ok ? delta + q0 + r : delta, ok);
+      }
     }
-    __syncthreads();
+    cp_commit();
+  };
+  load_tile(t0);  // K and V land with the first tile
 
-    for (int j = 0; j < TILE_F32; ++j) {
-      float s = 0.f, dp = 0.f;
+  // this warp's key rows: fragment rows g and g + 8
+  const int kl0 = warp * 16 + g, kl1 = kl0 + 8;
+  const bool ok0 = key0 + kl0 < a.T, ok1 = key0 + kl1 < a.T;
+  float dk[KD][4], dv[KD][4];
 #pragma unroll
-      for (int i = 0; i < MAXC; ++i)
-        if (i < dch) {
-          s = fmaf(qr[i], Ks[j][d0 + i], s);
-          dp = fmaf(dr[i], Vs[j][d0 + i], dp);
-        }
-      s = row_sum<TPR>(s);
-      dp = row_sum<TPR>(dp);
-      const float p = k0 + j < a.T ? exp2f(s * a.scale_log2 - lse2) : 0.f;
-      const float ds = p * (dp - del);
+  for (int nd = 0; nd < KD; ++nd)
 #pragma unroll
-      for (int i = 0; i < MAXC; ++i)
-        if (i < dch) dq[i] = fmaf(ds, Ks[j][d0 + i], dq[i]);
+    for (int j = 0; j < 4; ++j) dk[nd][j] = dv[nd][j] = 0.f;
+
+  for (int t = t0; t < t1; ++t) {
+    cp_wait_all();
+    __syncthreads();  // tile t has landed for all; every warp is done with tile t − 1
+    float* Qt = ring + ((t - t0) & 1) * P::STAGE;
+    split_landed<DT>(fsm, Qt, t == t0);
+    load_tile(t + 1);
+    const float* dOt = Qt + BN * PITCH;
+    const float* lse_t = Qt + P::LSE;
+    const float* del_t = lse_t + BN;
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ for the warp's 16 keys × BN queries
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[nt][j] = dp[nt][j] = 0.f;
+    // (one product after the other, so that K's and V's fragments are not
+    // live together: at D = 160, dK and dV alone hold 160 registers)
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      FragA ka;
+      load_a<DT>(ka, Ks, kl0, kd * 8 + tq);
+#pragma unroll
+      for (int nt = 0; nt < NB; ++nt) mma3(s[nt], ka, Qt + (nt * 8 + g) * PITCH + kd * 8 + tq, 4, P::LO);
+    }
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      FragA va;
+      load_a<DT>(va, Vs, kl0, kd * 8 + tq);
+#pragma unroll
+      for (int nt = 0; nt < NB; ++nt) mma3(dp[nt], va, dOt + (nt * 8 + g) * PITCH + kd * 8 + tq, 4, P::LO);
+    }
+
+    // Pᵀ and dSᵀ in place of the scores: C element j of n-tile nt is query
+    // nt·8 + 2·tq + (j & 1), key row kl0 for j < 2 and kl1 above
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qc = nt * 8 + 2 * tq + j;
+        const float nl = -lse_t[qc] * LOG2E, del = del_t[qc];
+        const float p0 = ok0 ? ex2(fmaf(s[nt][j], a.scale_log2, nl)) : 0.f;
+        const float p1 = ok1 ? ex2(fmaf(s[nt][2 + j], a.scale_log2, nl)) : 0.f;
+        s[nt][j] = p0;
+        s[nt][2 + j] = p1;
+        dp[nt][j] = p0 * (dp[nt][j] - del);
+        dp[nt][2 + j] = p1 * (dp[nt][2 + j] - del);
+      }
+
+    // dV += Pᵀ·dO and dK += dSᵀ·Q over the tile's queries, 8 at a time. The C
+    // fragment of n-tile kq holds queries 2·tq and 2·tq + 1 of rows g, g + 8;
+    // as an A fragment its k-slot tq is query 2·tq and slot tq + 4 query
+    // 2·tq + 1, so the B fragments of dO and Q are read with the same labels
+    // (b0 from query 2·tq, b1 from 2·tq + 1, column g), row-major.
+    // Each n-tile of D is summed over the tile's queries in a fresh
+    // accumulator and added to dK, dV on the FP32 pipe (grad_tiles): the
+    // tensor cores truncate their fp32 sums, and one chain over 4,096
+    // queries put dK 2.93e-5 (relative L2) off autograd at (4, 8, 4096, 77,
+    // 40), against a limit of 1e-5 (tests/test_torch_kernels.py, NVIDIA H100
+    // 80GB HBM3, 700 W). dV first, then dK.
+    FragA fa[NB];
+#pragma unroll
+    for (int kq = 0; kq < NB; ++kq) split_a(fa[kq], s[kq][0], s[kq][2], s[kq][1], s[kq][3]);
+    grad_tiles<DT>(dv, fa, dOt + 2 * tq * PITCH + g);
+#pragma unroll
+    for (int kq = 0; kq < NB; ++kq) split_a(fa[kq], dp[kq][0], dp[kq][2], dp[kq][1], dp[kq][3]);
+    grad_tiles<DT>(dk, fa, Qt + 2 * tq * PITCH + g);
+  }
+  cp_wait_all();  // a split with no tile still has K's and V's copies in flight
+
+  const float sk = ws == nullptr ? a.scale : 1.f;
+  float *dkb, *dvb;
+  long long dk_row, dv_row;
+  if (ws == nullptr) {
+    dkb = static_cast<float*>(a.dk) + b * a.dks.b + h * a.dks.h;
+    dvb = static_cast<float*>(a.dv) + b * a.dvs.b + h * a.dvs.h;
+    dk_row = a.dks.s;
+    dv_row = a.dvs.s;
+  } else {
+    const long long n = (long long)gridDim.y * a.T * a.D;
+    dkb = ws + blockIdx.z * n + (long long)bh * a.T * a.D;
+    dvb = dkb + gridDim.z * n;
+    dk_row = dv_row = a.D;
+  }
+#pragma unroll
+  for (int nd = 0; nd < KD; ++nd) {
+    const int c = nd * 8 + tq * 2;
+    if (c >= a.D) continue;
+    if (ok0) {
+      const long long r = key0 + kl0;
+      *reinterpret_cast<float2*>(dkb + r * dk_row + c) = make_float2(dk[nd][0] * sk, dk[nd][1] * sk);
+      *reinterpret_cast<float2*>(dvb + r * dv_row + c) = make_float2(dv[nd][0], dv[nd][1]);
+    }
+    if (ok1) {
+      const long long r = key0 + kl1;
+      *reinterpret_cast<float2*>(dkb + r * dk_row + c) = make_float2(dk[nd][2] * sk, dk[nd][3] * sk);
+      *reinterpret_cast<float2*>(dvb + r * dv_row + c) = make_float2(dv[nd][2], dv[nd][3]);
     }
   }
+}
 
-  if (!in) return;
-  float* dqrow = static_cast<float*>(a.dq) + b * a.dqs.b + h * a.dqs.h + (long long)row * a.dqs.s + d0;
+// B4's second pass when the queries were split: dK and dV as the sums of
+// the splits' partials, taken in split order (no atomics: the same bits on
+// every run), dK scaled, written in the output layout
+__global__ void __launch_bounds__(256) gctorch_attn_bwd_b4_dkv_f32_sum(Args a, const float* ws, int splits,
+                                                                      int BH) {
+  const long long n = (long long)BH * a.T * a.D;
+  const long long i = blockIdx.x * 256ll + threadIdx.x;
+  if (i >= n) return;
+  float sk = 0.f, sv = 0.f;
+  for (int z = 0; z < splits; ++z) {
+    sk += ws[z * n + i];
+    sv += ws[(splits + z) * n + i];
+  }
+  const int d = static_cast<int>(i % a.D);
+  const long long r = i / a.D;
+  const int t = static_cast<int>(r % a.T), bh = static_cast<int>(r / a.T);
+  const int b = bh / a.H, h = bh % a.H;
+  static_cast<float*>(a.dk)[b * a.dks.b + h * a.dks.h + t * a.dks.s + d] = sk * a.scale;
+  static_cast<float*>(a.dv)[b * a.dvs.b + h * a.dvs.h + t * a.dvs.s + d] = sv;
+}
+
+// B5 in fp32: B3's layout, each warp owning 16 query rows; the CTA's Q and
+// dO rows stay in shared memory, key tiles of K and V go through the ring
+template <int DT>
+__global__ void __launch_bounds__(WARPS * 32, 1) gctorch_attn_bwd_b5_dq_f32(Args a) {
+  using P = F32Tile<DT>;
+  constexpr int BN = P::BN, PITCH = P::PITCH, KD = P::KD, NB = P::NB;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;
+  float* dOs = fsm + P::ROWS * PITCH;
+  float* ring = fsm + P::FIXED;  // a stage: K, V [BN][PITCH] (hi, then lo)
+
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int row0 = blockIdx.x * P::ROWS;
+  const float* qb = static_cast<const float*>(a.q) + b * a.qs.b + h * a.qs.h;
+  const float* kb = static_cast<const float*>(a.k) + b * a.ks.b + h * a.ks.h;
+  const float* vb = static_cast<const float*>(a.v) + b * a.vs.b + h * a.vs.h;
+  const float* dob = static_cast<const float*>(a.dout) + b * a.dos.b + h * a.dos.h;
+
+  stage_f32<DT, P::ROWS>(Qs, qb, a.qs.s, row0, a.S, a.D);
+  stage_f32<DT, P::ROWS>(dOs, dob, a.dos.s, row0, a.S, a.D);
+  const int n_k = (a.T + BN - 1) / BN;
+  auto load_tile = [&](int t) {  // one commit group a tile, empty past the last
+    if (t < n_k) {
+      float* st = ring + (t & 1) * P::STAGE;
+      stage_f32<DT, BN>(st, kb, a.ks.s, t * BN, a.T, a.D);
+      stage_f32<DT, BN>(st + BN * PITCH, vb, a.vs.s, t * BN, a.T, a.D);
+    }
+    cp_commit();
+  };
+  load_tile(0);  // Q and dO land with the first tile
+
+  // this warp's query rows r0 (fragment row g) and r1 = r0 + 8; rows past S
+  // run on zeros (P finite, dS = 0) and store nothing
+  const int r0 = warp * 16 + g, r1 = r0 + 8;
+  const bool in0 = row0 + r0 < a.S, in1 = row0 + r1 < a.S;
+  const float* lse = a.lse + (long long)bh * a.S + row0;
+  const float* delta = a.delta + (long long)bh * a.S + row0;
+  const float nl0 = in0 ? -lse[r0] * LOG2E : 0.f, nl1 = in1 ? -lse[r1] * LOG2E : 0.f;
+  const float del0 = in0 ? delta[r0] : 0.f, del1 = in1 ? delta[r1] : 0.f;
+
+  float dq[KD][4];
 #pragma unroll
-  for (int i = 0; i < MAXC; ++i)
-    if (i < dch) dqrow[i] = dq[i] * a.scale;
+  for (int nd = 0; nd < KD; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
+
+  for (int t = 0; t < n_k; ++t) {
+    cp_wait_all();
+    __syncthreads();  // tile t has landed for all; every warp is done with tile t − 1
+    float* Kt = ring + (t & 1) * P::STAGE;
+    split_landed<DT>(fsm, Kt, t == 0);
+    load_tile(t + 1);
+    const float* Vt = Kt + BN * PITCH;
+
+    // S = Q·Kᵀ and dP = dO·Vᵀ for the warp's 16 queries × BN keys
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[nt][j] = dp[nt][j] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      const int c = kd * 8 + tq;
+      FragA qa, oa;
+      load_a<DT>(qa, Qs, r0, c);
+      load_a<DT>(oa, dOs, r0, c);
+#pragma unroll
+      for (int nt = 0; nt < NB; ++nt) {
+        mma3(s[nt], qa, Kt + (nt * 8 + g) * PITCH + c, 4, P::LO);
+        mma3(dp[nt], oa, Vt + (nt * 8 + g) * PITCH + c, 4, P::LO);
+      }
+    }
+
+    // dS in place of dP; keys past T (zero rows of K, in the last tile) get P = 0
+    const int k0 = t * BN;
+    const bool ragged = k0 + BN > a.T;
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float p0 = ex2(fmaf(s[nt][j], a.scale_log2, nl0));
+        float p1 = ex2(fmaf(s[nt][2 + j], a.scale_log2, nl1));
+        if (ragged && k0 + nt * 8 + 2 * tq + j >= a.T) p0 = p1 = 0.f;
+        dp[nt][j] = p0 * (dp[nt][j] - del0);
+        dp[nt][2 + j] = p1 * (dp[nt][2 + j] - del1);
+      }
+
+    // dQ += dS·K over the tile's keys, 8 at a time, with B4's relabelled
+    // k-slots (slot tq is key 2·tq, slot tq + 4 key 2·tq + 1): K row-major
+    FragA da[NB];
+#pragma unroll
+    for (int kq = 0; kq < NB; ++kq) split_a(da[kq], dp[kq][0], dp[kq][2], dp[kq][1], dp[kq][3]);
+    grad_tiles<DT>(dq, da, Kt + 2 * tq * PITCH + g);
+  }
+  cp_wait_all();
+
+  float* dqb = static_cast<float*>(a.dq) + b * a.dqs.b + h * a.dqs.h;
+#pragma unroll
+  for (int nd = 0; nd < KD; ++nd) {
+    const int c = nd * 8 + tq * 2;
+    if (c >= a.D) continue;
+    if (in0)
+      *reinterpret_cast<float2*>(dqb + (long long)(row0 + r0) * a.dqs.s + c) =
+          make_float2(dq[nd][0] * a.scale, dq[nd][1] * a.scale);
+    if (in1)
+      *reinterpret_cast<float2*>(dqb + (long long)(row0 + r1) * a.dqs.s + c) =
+          make_float2(dq[nd][2] * a.scale, dq[nd][3] * a.scale);
+  }
 }
 
 template <int DP>
@@ -524,23 +862,68 @@ int launch_bf16(int which, const Args& a, int B, cudaStream_t st) {
   }
   return 0;
 }
-
-template <int MAXC, int TPR>
-void launch_f32(int which, const Args& a, int B, cudaStream_t st) {
-  if (which == 0)
-    gctorch_attn_bwd_b4_dkv_f32<MAXC, TPR><<<dim3((a.T + ROWS_F32 - 1) / ROWS_F32, B * a.H), ROWS_F32 * TPR, 0, st>>>(a);
-  else
-    gctorch_attn_bwd_b5_dq_f32<MAXC, TPR><<<dim3((a.S + ROWS_F32 - 1) / ROWS_F32, B * a.H), ROWS_F32 * TPR, 0, st>>>(a);
+template <int DT>
+int launch_f32(int which, const Args& a, int B, cudaStream_t st, float* ws, int splits) {
+  using P = F32Tile<DT>;
+  const int bytes = static_cast<int>(P::BYTES);
+  cudaError_t e;
+  if (which == 0) {
+    e = cudaFuncSetAttribute(gctorch_attn_bwd_b4_dkv_f32<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int n_q = (a.S + P::BN - 1) / P::BN;
+    const int tiles = (n_q + splits - 1) / splits;  // query tiles a split; a split past the last has none
+    gctorch_attn_bwd_b4_dkv_f32<DT><<<dim3((a.T + P::ROWS - 1) / P::ROWS, B * a.H, splits), WARPS * 32, bytes, st>>>(
+        a, splits > 1 ? ws : nullptr, tiles);
+    if (splits > 1) {
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return static_cast<int>(e);
+      const long long n = (long long)B * a.H * a.T * a.D;
+      gctorch_attn_bwd_b4_dkv_f32_sum<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(a, ws, splits,
+                                                                                               B * a.H);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return static_cast<int>(e);
+      ++sum_launches;
+    }
+  } else {
+    e = cudaFuncSetAttribute(gctorch_attn_bwd_b5_dq_f32<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    gctorch_attn_bwd_b5_dq_f32<DT><<<dim3((a.S + P::ROWS - 1) / P::ROWS, B * a.H), WARPS * 32, bytes, st>>>(a);
+  }
+  return 0;
 }
 
 }  // namespace
 
+// Over how many CTAs fp32 B4 splits each key block's queries, for a card of
+// `sms` SMs: 1 where its ceil(T / 64) · B · H CTAs already give two an SM
+// (and always in bf16), else enough to reach that, at most one split per 64
+// queries, and no more than leaves each split a ring tile. The caller sizes
+// the workspace of gctorch_flash_attn_bwd from it.
+extern "C" int gctorch_flash_attn_bwd_dkv_splits(int B, int H, int S, int T, int D, int is_bf16, int sms) {
+  const long long ctas = (long long)((T + F32_ROWS - 1) / F32_ROWS) * B * H;
+  const long long want = (long long)DKV_CTAS_PER_SM * sms;
+  if (is_bf16 || B <= 0 || H <= 0 || S <= 0 || T <= 0 || D <= 0 || ctas >= want) return 1;
+  const long long most = (S + F32_ROWS - 1) / F32_ROWS;
+  const int splits = static_cast<int>((want + ctas - 1) / ctas < most ? (want + ctas - 1) / ctas : most);
+  const int n_q = (S + f32_ring_rows(D) - 1) / f32_ring_rows(D);
+  const int tiles = (n_q + splits - 1) / splits;
+  return (n_q + tiles - 1) / tiles;
+}
+
+// Launches of B4's second pass, which sums the splits' partials, since the
+// library was loaded.
+extern "C" long long gctorch_flash_attn_bwd_sum_launches() { return sum_launches; }
+
 // which: 0 launches B4 (writes dk, dv), 1 launches B5 (writes dq).
 // q, dout, dq (B, H, S, D); k, v, dk, dv (B, H, T, D): each given by its
 // pointer and its batch, head and sequence strides in elements (D
-// contiguous). lse and delta: fp32 (B, H, S) contiguous. is_bf16: 1 for bf16,
-// 0 for fp32. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a shape it does not take).
+// contiguous; fp32 rows start on 16-byte boundaries). lse and delta: fp32
+// (B, H, S) contiguous. is_bf16: 1 for bf16, 0 for fp32. splits (fp32 B4
+// only, else 1; gctorch_flash_attn_bwd_dkv_splits gives the rule's): the
+// number of CTAs that share a key block's queries; with more than 1,
+// workspace holds 2 · splits · B · H · T · D floats for their partial
+// sums. Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
+// for a shape it does not take).
 extern "C" int gctorch_flash_attn_bwd(int which, const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta, void* dq,
                                       void* dk, void* dv, int B, int H, int S, int T, int D, int is_bf16,
@@ -549,9 +932,11 @@ extern "C" int gctorch_flash_attn_bwd(int which, const void* q, const void* k, c
                                       long long v_ss, long long do_sb, long long do_sh, long long do_ss,
                                       long long dq_sb, long long dq_sh, long long dq_ss, long long dk_sb,
                                       long long dk_sh, long long dk_ss, long long dv_sb, long long dv_sh,
-                                      long long dv_ss, float scale, void* stream) {
+                                      long long dv_ss, float scale, void* stream, void* workspace,
+                                      int splits) {
   if (B <= 0 || H <= 0 || S <= 0 || T <= 0 || D <= 0 || D % 8 != 0 || D > MAX_D || B * H > 65535 ||
-      (which != 0 && which != 1))
+      (which != 0 && which != 1) || splits < 1 || splits > 65535 ||
+      (splits > 1 && (is_bf16 || which != 0 || workspace == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q;
@@ -577,6 +962,7 @@ extern "C" int gctorch_flash_attn_bwd(int which, const void* q, const void* k, c
   a.scale = scale;
   a.scale_log2 = scale * LOG2E;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ws = static_cast<float*>(workspace);
   int err = 0;
   if (is_bf16) {
     switch ((D + 15) / 16) {
@@ -591,14 +977,20 @@ extern "C" int gctorch_flash_attn_bwd(int which, const void* q, const void* k, c
       case 9: err = launch_bf16<144>(which, a, B, st); break;
       default: err = launch_bf16<160>(which, a, B, st); break;
     }
-  } else if (D <= 32) {
-    launch_f32<8, 4>(which, a, B, st);
-  } else if (D <= 64) {
-    launch_f32<16, 4>(which, a, B, st);
-  } else if (D <= 128) {
-    launch_f32<16, 8>(which, a, B, st);
   } else {
-    launch_f32<20, 8>(which, a, B, st);
+    switch (D <= 48 ? D / 8 : D <= 64 ? 7 : D <= 80 ? 8 : D <= 96 ? 9 : D <= 128 ? 10 : 11) {
+      case 1: err = launch_f32<8>(which, a, B, st, ws, splits); break;
+      case 2: err = launch_f32<16>(which, a, B, st, ws, splits); break;
+      case 3: err = launch_f32<24>(which, a, B, st, ws, splits); break;
+      case 4: err = launch_f32<32>(which, a, B, st, ws, splits); break;
+      case 5: err = launch_f32<40>(which, a, B, st, ws, splits); break;
+      case 6: err = launch_f32<48>(which, a, B, st, ws, splits); break;
+      case 7: err = launch_f32<64>(which, a, B, st, ws, splits); break;
+      case 8: err = launch_f32<80>(which, a, B, st, ws, splits); break;
+      case 9: err = launch_f32<96>(which, a, B, st, ws, splits); break;
+      case 10: err = launch_f32<128>(which, a, B, st, ws, splits); break;
+      default: err = launch_f32<160>(which, a, B, st, ws, splits); break;
+    }
   }
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());

@@ -8,8 +8,9 @@ flash attention) and computes what ``sdpa_plain`` computes: the non-causal
 and values, with an fp32 softmax. B4 (dK, dV) and B5 (dQ), in
 ``csrc/flash_attn_bwd.cu``, replace the library's backward kernels and
 compute what autograd through ``sdpa_plain`` computes, from B3's per-row
-log-sum-exp. bf16 runs on the tensor cores (``mma.sync``), fp32 on scalar
-FMAs; all accumulate in fp32 and return the input's type. The sources say
+log-sum-exp. bf16 runs on the tensor cores (``mma.sync``); fp32 runs on
+scalar FMAs in B3 and on the tensor cores as 3×TF32 in B4 and B5; all
+accumulate in fp32 and return the input's type. The sources say
 what bounds each kernel and how its design meets that.
 
 ``diffusion/attention.py``'s ``_sdpa`` sends a CUDA call that autograd must
@@ -31,7 +32,7 @@ from . import cuda_build
 MAX_HEAD_DIM = 160
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p]
 _BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 21
-                 + [ctypes.c_float, ctypes.c_void_p])
+                 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int])
 
 launches = 0  # B3 launches since the caller last set it to 0
 dkv_launches = 0  # B4 launches, likewise
@@ -52,25 +53,27 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     return torch.matmul(probs, v)
 
 
-def reads_in_place(shape, strides, data_ptr: int, dtype: torch.dtype) -> bool:
+def reads_in_place(shape, strides, data_ptr: int, dtype: torch.dtype, vector: bool = False) -> bool:
     """Whether the kernels read a tensor of this shape, strides (elements)
-    and address as it lies: D contiguous, and in bf16 every row start on a
-    16-byte boundary, since B3 copies rows 16 bytes at a time (``cp.async``):
-    the address a multiple of 16 bytes and the stride of every dimension
-    longer than 1 a multiple of 8 elements."""
+    and address as it lies: D contiguous, and every row start on a 16-byte
+    boundary where a kernel copies rows 16 bytes at a time (``cp.async``):
+    B3 in bf16, and with ``vector`` B4 and B5 in fp32 too. That is the
+    address a multiple of 16 bytes and the stride of every dimension longer
+    than 1 a multiple of 16 bytes' elements."""
     if strides[-1] != 1:
         return False
-    if dtype == torch.bfloat16:
-        return data_ptr % 16 == 0 and all(st % 8 == 0 for n, st in zip(shape[:-1], strides[:-1]) if n > 1)
+    if dtype == torch.bfloat16 or vector:
+        per_16 = 16 // (2 if dtype == torch.bfloat16 else 4)
+        return data_ptr % 16 == 0 and all(st % per_16 == 0 for n, st in zip(shape[:-1], strides[:-1]) if n > 1)
     return True
 
 
-def _strided(name: str, t: torch.Tensor) -> torch.Tensor:
+def _strided(name: str, t: torch.Tensor, vector: bool = False) -> torch.Tensor:
     """``t`` as the kernel reads it: ``t`` itself where ``reads_in_place``,
     else a contiguous copy in a fresh (aligned) allocation, counted in
     ``copies``."""
     global copies
-    if reads_in_place(t.shape, t.stride(), t.data_ptr(), t.dtype):
+    if reads_in_place(t.shape, t.stride(), t.data_ptr(), t.dtype, vector):
         return t
     warnings.warn(f"flash_attn: {name} with strides {t.stride()} at {t.data_ptr() % 16} bytes past a 16-byte "
                   "boundary is copied to a contiguous tensor", stacklevel=3)
@@ -139,10 +142,32 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
-def _launch_bwd(which: int, q, k, v, dout, lse, delta, dq, dk, dv) -> None:
+def _bwd_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("flash_attn_bwd", _BWD_ARGTYPES)
+    lib.gctorch_flash_attn_bwd_dkv_splits.argtypes = [ctypes.c_int] * 7
+    lib.gctorch_flash_attn_bwd_sum_launches.restype = ctypes.c_longlong
+    return lib
+
+
+def dkv_splits(B: int, H: int, S: int, T: int, D: int, sms: int) -> int:
+    """Over how many CTAs fp32 B4 splits each key block's queries on a card
+    of ``sms`` SMs, by the rule of ``csrc/flash_attn_bwd.cu``
+    (``gctorch_flash_attn_bwd_dkv_splits``)."""
+    return _bwd_lib().gctorch_flash_attn_bwd_dkv_splits(B, H, S, T, D, 0, sms)
+
+
+def dkv_sum_launches() -> int:
+    """Launches of fp32 B4's second pass, which sums the partials of its
+    query splits, since the kernel library was loaded."""
+    return _bwd_lib().gctorch_flash_attn_bwd_sum_launches()
+
+
+def _launch_bwd(which: int, q, k, v, dout, lse, delta, dq, dk, dv, splits: int = 1) -> None:
     B, H, S, D = q.shape
     T = k.shape[2]
-    lib = cuda_build.load("flash_attn_bwd", _BWD_ARGTYPES)
+    lib = _bwd_lib()
+    # the partial dK and dV of each split: fp32, on the caller's stream
+    ws = torch.empty((2 * splits, B, H, T, D), dtype=torch.float32, device=q.device) if splits > 1 else None
     with torch.cuda.device(q.device):
         err = lib.gctorch_flash_attn_bwd(
             which, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
@@ -154,6 +179,7 @@ def _launch_bwd(which: int, q, k, v, dout, lse, delta, dq, dk, dv) -> None:
             *(dk.stride()[:3] if dk is not None else (0, 0, 0)),
             *(dv.stride()[:3] if dv is not None else (0, 0, 0)),
             D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
+            ws.data_ptr() if ws is not None else None, splits,
         )
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd kernel {'B4' if which == 0 else 'B5'} launch failed "
@@ -169,7 +195,8 @@ def _bwd_inputs(fn, q, k, v, out, lse, dout, delta):
     if lse.shape != (B, H, S) or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"{fn}: lse {tuple(lse.shape)} {lse.dtype} is not fp32 (B, H, S) on {q.device}")
     delta = delta_of(out, dout) if delta is None else delta.float().contiguous()
-    return (_strided("q", q), _strided("k", k), _strided("v", v), _strided("dout", dout),
+    vec = q.dtype == torch.float32  # B4 and B5 copy fp32 rows 16 bytes at a time
+    return (_strided("q", q, vec), _strided("k", k, vec), _strided("v", v, vec), _strided("dout", dout, vec),
             lse.contiguous(), delta)
 
 
@@ -180,16 +207,21 @@ def delta_of(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return (dout.float() * out.float()).sum(-1).contiguous()
 
 
-def flash_attn_bwd_dkv(q, k, v, out, lse, dout, delta=None) -> tuple[torch.Tensor, torch.Tensor]:
+def flash_attn_bwd_dkv(q, k, v, out, lse, dout, delta=None, _splits=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel B4: dK and dV (B, H, T, D), laid out (B, T, H, D), of the
     attention B3 computed as ``out`` with log-sum-exp ``lse``, for the output
     cotangent ``dout``; ``delta`` is ``delta_of(out, dout)``, computed here
-    when not given."""
+    when not given. In fp32 each key block's queries are split over
+    ``dkv_splits`` CTAs (``_splits`` sets the count, for the tests)."""
     global dkv_launches
     q, k, v, dout, lse, delta = _bwd_inputs("flash_attn_bwd_dkv", q, k, v, out, lse, dout, delta)
-    B, H, T, D = k.shape
+    B, H, S, D = q.shape
+    T = k.shape[2]
+    if _splits is None:
+        _splits = 1 if q.dtype == torch.bfloat16 else dkv_splits(
+            B, H, S, T, D, torch.cuda.get_device_properties(q.device).multi_processor_count)
     dk, dv = _heads_last(B, T, H, D, k), _heads_last(B, T, H, D, k)
-    _launch_bwd(0, q, k, v, dout, lse, delta, None, dk, dv)
+    _launch_bwd(0, q, k, v, dout, lse, delta, None, dk, dv, _splits)
     dkv_launches += 1
     return dk, dv
 

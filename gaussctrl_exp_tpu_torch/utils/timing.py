@@ -1,5 +1,5 @@
 """Timing on the card: slope timing, a kernel's device time, the SM clock
-beside it, and the attention kernels' bounds.
+beside it, and the attention kernels' bounds (forward and backward).
 
 The benchmark scripts of the JAX package time a stage by running it K times
 inside one jitted loop for two values of K and taking the slope
@@ -24,6 +24,13 @@ import torch
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_OPS_S, BF16_RATED_HZ = 989e12, 1.83e9
 PEAK_F32_OPS_S, F32_RATED_HZ = 67e12, 1.98e9
+# TF32 on the tensor cores (132 × 2,048 a clock × 1.83 GHz); fp32-accurate
+# products as 3×TF32 (hi·hi + hi·lo + lo·hi) run at a third of it
+PEAK_TF32_OPS_S, TF32_RATED_HZ = 494.7e12, 1.83e9
+TF32_PASSES = 3
+# products per (b, h, s, t, d) of the attention backward kernels, 2
+# operations each: B4 Q·Kᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q; B5 Q·Kᵀ, dO·Vᵀ, dS·K
+BWD_PRODUCTS = {"B4": 4, "B5": 3}
 SMS = 132
 EX2_PER_SM_CLOCK = 16
 
@@ -229,3 +236,38 @@ def attention_bound(shape: tuple[int, int, int, int, int], dtype: torch.dtype,
     exp_ms = B * H * S * T / (EX2_PER_SM_CLOCK * SMS * clock) * 1e3
     return dict(ops_ms=ops_ms, bytes_ms=bytes_ms, exp_ms=exp_ms, bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes", clock_hz=clock)
+
+
+def attention_bwd_bound(shape: tuple[int, int, int, int, int], dtype: torch.dtype, kernel: str,
+                        sm_clock_hz: float | None = None) -> dict:
+    """What bounds backward kernel ``kernel`` ("B4": dK and dV, "B5": dQ) of
+    non-causal attention of (B, H, S, T, D) in ``dtype`` on the card. Its
+    operations, 2 per product per (b, h, s, t, d) (``BWD_PRODUCTS``), over:
+    ``fp32_ms`` the fp32 FMA peak, ``tf32x3_ms`` a third of the TF32
+    tensor-core peak (fp32-accurate products as 3×TF32), ``bf16_ms`` the
+    bf16 tensor-core peak. ``bytes_ms``: q, k, v, dO read once, lse and
+    delta (fp32) read once, its gradients written once. ``exp_ms``: one
+    exponential per score, B·H·S·T, on the special-function unit. Every
+    rate is taken at the SM clock ``sm_clock_hz``, scaled from the clock it
+    is rated at; with no clock each at its rated clock (the data sheet's
+    peaks) and the exponentials at 1.83 GHz. ``bound_ms`` is the larger of
+    the operations of the design the kernel runs (3×TF32 for fp32, bf16 on
+    the tensor cores) and the bytes, ``bound_by`` which of the two."""
+    B, H, S, T, D = shape
+    if kernel not in BWD_PRODUCTS:
+        raise ValueError(f"kernel {kernel!r} is not one of {sorted(BWD_PRODUCTS)}")
+    bf16 = dtype == torch.bfloat16
+    ops = 2 * BWD_PRODUCTS[kernel] * B * H * S * T * D
+
+    def at(peak, rated):
+        return ops / (peak * (sm_clock_hz or rated) / rated) * 1e3
+
+    size = 2 if bf16 else 4
+    n_bytes = size * B * H * D * (2 * S + 2 * T) + 8 * B * H * S + size * B * H * D * (2 * T if kernel == "B4" else S)
+    r = dict(fp32_ms=at(PEAK_F32_OPS_S, F32_RATED_HZ), tf32x3_ms=at(PEAK_TF32_OPS_S / TF32_PASSES, TF32_RATED_HZ),
+             bf16_ms=at(PEAK_BF16_OPS_S, BF16_RATED_HZ), bytes_ms=n_bytes / PEAK_BYTES_S * 1e3,
+             exp_ms=B * H * S * T / (EX2_PER_SM_CLOCK * SMS * (sm_clock_hz or TF32_RATED_HZ)) * 1e3,
+             clock_hz=sm_clock_hz or TF32_RATED_HZ)
+    design = r["bf16_ms"] if bf16 else r["tf32x3_ms"]
+    r.update(bound_ms=max(design, r["bytes_ms"]), bound_by="operations" if design >= r["bytes_ms"] else "bytes")
+    return r

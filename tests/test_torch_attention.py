@@ -42,6 +42,24 @@ def test_sdpa_plain_matches_jax(B, H, S, T, D):
     assert rel_l2(got, want) <= REL
 
 
+@pytest.mark.parametrize("D", [40, 80, 160])
+@pytest.mark.parametrize("cross", [False, True])
+def test_sdpa_gradient_matches_jax_vjp(D, cross):
+    """The gradient that B4 and B5 compute on the card, here through their
+    plain version: autograd through ``sdpa_plain`` against ``jax.vjp`` of the
+    JAX package's ``_sdpa`` (its XLA path on the CPU), on the same inputs and
+    cotangent, fp32, relative L2 ≤ 1e-5 per gradient."""
+    B, H, S = 2, 2, 48
+    T = 77 if cross else S
+    q, k, v, dout = _arrays((B, H, S, D), (B, H, T, D), (B, H, T, D), (B, H, S, D), seed=D + T)
+    _, vjp = jax.vjp(jatt._sdpa, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    leaves = [to_t(a).requires_grad_() for a in (q, k, v)]
+    got = torch.autograd.grad(attention_cuda.sdpa_plain(*leaves), leaves, to_t(dout))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert rel_l2(g, np.asarray(w)) <= REL, name
+
+
 def test_flash_attn_refuses_cpu_tensors():
     q, k, v = (to_t(a) for a in _arrays((1, 2, 16, 40), (1, 2, 16, 40), (1, 2, 16, 40)))
     with pytest.raises(ValueError, match="CUDA"):

@@ -1,10 +1,11 @@
-"""The attention kernels' bounds (``utils/timing.attention_bound``): the
-arithmetic at the edit path's shapes, on the CPU."""
+"""The attention kernels' bounds (``utils/timing.attention_bound`` for B3,
+``attention_bwd_bound`` for B4 and B5): the arithmetic at the edit path's
+and the depth generator's shapes, on the CPU."""
 
 import pytest
 import torch
 
-from gaussctrl_exp_tpu_torch.utils.timing import attention_bound
+from gaussctrl_exp_tpu_torch.utils.timing import attention_bound, attention_bwd_bound
 
 MAIN = (18, 8, 4096, 4096, 40)  # B3 at 64²: SD1.x self-attention over the CFG batch of 18
 
@@ -94,3 +95,59 @@ def test_a_window_must_keep_every_record(first, second, calls, bad):
     from gaussctrl_exp_tpu_torch.utils.timing import record_mismatch
 
     assert record_mismatch(Counter(first), Counter(second), calls) == bad
+
+
+# ------------------------------------------- the backward kernels B4 and B5
+
+GEN = (4, 8, 4096, 4096, 40)  # the depth generator's self-attention at 64², fp32
+
+
+@pytest.mark.parametrize("kernel, fp32, bf16, tf32x3", [
+    ("B4", 2.5642, 0.17371, 1.04184),  # 8·B·H·S·T·D = 1.718e11 operations
+    ("B5", 1.92312, 0.13028, 0.78138),  # 6·B·H·S·T·D = 1.288e11
+])
+def test_backward_bounds_at_the_generator_shape(kernel, fp32, bf16, tf32x3):
+    """At (4, 8, 4096, 4096, 40): the operations at the fp32 FMA peak (67
+    TFLOP/s at 1.98 GHz), at the bf16 tensor-core peak (989 at 1.83 GHz) and
+    as 3×TF32 (494.7 / 3 at 1.83 GHz); fp32 is bound by the last."""
+    b = attention_bwd_bound(GEN, torch.float32, kernel)
+    assert b["fp32_ms"] == pytest.approx(fp32, abs=5e-5)
+    assert b["bf16_ms"] == pytest.approx(bf16, abs=5e-6)
+    assert b["tf32x3_ms"] == pytest.approx(tf32x3, abs=5e-6)
+    assert b["bound_ms"] == b["tf32x3_ms"] and b["bound_by"] == "operations"
+    assert attention_bwd_bound(GEN, torch.bfloat16, kernel)["bound_ms"] == pytest.approx(bf16, abs=5e-6)
+
+
+def test_backward_exponentials_and_bytes():
+    """One exponential per score, B·H·S·T = 5.37e8, at 16 per SM per clock
+    on 132 SMs at 1.83 GHz: 0.13891 ms for each kernel. B4 reads q, k, v, dO,
+    lse and delta and writes dK and dV; B5 writes dQ."""
+    for kernel in ("B4", "B5"):
+        assert attention_bwd_bound(GEN, torch.float32, kernel)["exp_ms"] == pytest.approx(0.13891, abs=5e-6)
+    B, H, S, T, D = GEN
+    read = 4 * B * H * D * (2 * S + 2 * T) + 8 * B * H * S
+    b4, b5 = (attention_bwd_bound(GEN, torch.float32, k)["bytes_ms"] for k in ("B4", "B5"))
+    assert b4 == pytest.approx((read + 4 * B * H * T * D * 2) / 3.35e12 * 1e3, rel=1e-12)
+    assert b5 == pytest.approx((read + 4 * B * H * S * D) / 3.35e12 * 1e3, rel=1e-12)
+    short = attention_bwd_bound((4, 8, 4096, 1, 40), torch.bfloat16, "B5")
+    assert short["bound_by"] == "bytes" and short["bound_ms"] == short["bytes_ms"]
+
+
+def test_backward_bounds_follow_the_clock():
+    """At a clock every rate scales from the clock it is rated at, the
+    exponentials with it; the bytes do not move."""
+    rated = attention_bwd_bound(GEN, torch.float32, "B4")
+    fast = attention_bwd_bound(GEN, torch.float32, "B4", 1.98e9)
+    assert rated["clock_hz"] == 1.83e9 and fast["clock_hz"] == 1.98e9
+    assert fast["fp32_ms"] == pytest.approx(rated["fp32_ms"], rel=1e-12)  # fp32 is rated at 1.98 GHz
+    assert fast["tf32x3_ms"] == pytest.approx(1.04184 * 1.83 / 1.98, abs=5e-6)
+    assert fast["bf16_ms"] == pytest.approx(0.17371 * 1.83 / 1.98, abs=5e-6)
+    assert fast["exp_ms"] == pytest.approx(0.13891 * 1.83 / 1.98, abs=5e-6)
+    assert fast["bytes_ms"] == rated["bytes_ms"]
+    slow = attention_bwd_bound(GEN, torch.float32, "B5", 0.99e9)
+    assert slow["fp32_ms"] == pytest.approx(2 * 1.92312, abs=1e-4)
+
+
+def test_backward_bound_names_its_kernel():
+    with pytest.raises(ValueError):
+        attention_bwd_bound(GEN, torch.float32, "B3")

@@ -468,6 +468,163 @@ def test_flash_backward_refuses_what_it_does_not_take(cuda_device):
         attention_cuda.flash_attn_bwd_dq(q.cpu(), k.cpu(), v.cpu(), out.cpu(), lse.cpu(), out.cpu())
 
 
+# fp32 B4/B5 (3×TF32 on the tensor cores): 64 keys a B4 CTA and 64 queries a
+# B5 CTA, ring tiles of 32 (D ≤ 80) or 16 rows, widths rounded up to 8…48,
+# 64, 80, 96, 128 or 160; B4 splits its queries over several CTAs
+# where its key blocks are too few for the card (attention_cuda.dkv_splits,
+# whose rule is in csrc/flash_attn_bwd.cu)
+
+
+def _direct_grads(q, k, v, dout, splits=None):
+    """(dq, dk, dv) from B3's output through the two wrappers, B4 split
+    ``splits`` ways (by the rule when not given)."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    out, lse = attention_cuda.flash_attn(q, k, v, return_lse=True)
+    delta = attention_cuda.delta_of(out, dout)
+    dk, dv = attention_cuda.flash_attn_bwd_dkv(q, k, v, out, lse, dout, delta, _splits=splits)
+    return attention_cuda.flash_attn_bwd_dq(q, k, v, out, lse, dout, delta), dk, dv
+
+
+def _plain_grads(q, k, v, dout):
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    return torch.autograd.grad(attention_cuda.sdpa_plain(*ref), ref, dout.float())
+
+
+def _assert_f32_grads(got, want, names=("dq", "dk", "dv")):
+    for name, g, w in zip(names, got, want):
+        assert bool(torch.isfinite(g).all()), name
+        rel = float((g - w).norm() / w.norm())
+        assert rel <= BWD_F32_REL_L2, (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 24, 40, 48, 80, 128, 160])
+def test_flash_backward_f32_head_widths(cuda_device, D):
+    """Every fp32 width template against autograd through sdpa_plain, with
+    and without the query split."""
+    q, k, v = _qkv(cuda_device, torch.float32, 2, 3, 200, 130, D, seed=D)
+    got = _check_grads(q, k, v, seed=D)
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cpu").manual_seed(D)).to(cuda_device)
+    want = _plain_grads(q, k, v, dout)
+    for splits in (1, 3):
+        _assert_f32_grads(_direct_grads(q, k, v, dout, splits), want)
+    assert all(g.dtype == torch.float32 for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129])
+def test_flash_backward_f32_tile_edges(cuda_device, S, T):
+    """Query and key counts on each side of the CTA rows (64) and the ring
+    tiles (32 at D = 40, 16 at D = 160). With one key, P = 1 and dP = dO·V =
+    delta, so dQ and dK vanish but for rounding on both sides: there they
+    are held to 1e-5 of dV's norm instead of their own."""
+    for B, H, D, seed in ((2, 3, 40, S * 1000 + T), (1, 2, 160, S * 1000 + T + 1)):
+        q, k, v = _qkv(cuda_device, torch.float32, B, H, S, T, D, seed=seed)
+        if T > 1:
+            _check_grads(q, k, v, seed=seed)
+            continue
+        dout = torch.randn(q.shape, generator=torch.Generator(device="cpu").manual_seed(seed)).to(cuda_device)
+        got, want = _direct_grads(q, k, v, dout), _plain_grads(q, k, v, dout)
+        for g, w in zip(got[:2], want[:2]):
+            assert float((g - w).norm()) <= BWD_F32_REL_L2 * float(want[2].norm())
+        _assert_f32_grads(got[2:], want[2:], ("dv",))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (4, 8, 4096, 77, 40),  # cross 64²: split 5 ways by the rule
+    (4, 8, 256, 256, 160),  # self 16²: 3
+    (32, 8, 100, 64, 40),  # 256 CTAs: just under the rule's 264, split 2 ways
+    (33, 8, 100, 64, 40),  # 264 CTAs: not split
+    (2, 3, 300, 200, 80),
+])
+def test_flash_backward_f32_query_split_matches_unsplit(cuda_device, shape):
+    """B4 with its queries split (by the rule, and 2 or 7 ways) against the
+    unsplit kernel and the plain gradients; the split sums its partials in a
+    fixed order, so each split count repeats bit for bit."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    B, H, S, T, D = shape
+    q, k, v = _qkv(cuda_device, torch.float32, B, H, S, T, D, seed=S + T)
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cpu").manual_seed(T)).to(cuda_device)
+    want = _plain_grads(q, k, v, dout)
+    rule = attention_cuda.dkv_splits(B, H, S, T, D,
+                                     torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    one = _direct_grads(q, k, v, dout, 1)
+    _assert_f32_grads(one, want)
+    for splits in sorted({rule, 2, 7}):
+        got = _direct_grads(q, k, v, dout, splits)
+        _assert_f32_grads(got, want)
+        assert torch.equal(got[0], one[0])  # dQ (B5) does not split
+        for g, u in zip(got[1:], one[1:]):
+            assert float((g - u).norm() / u.norm()) <= BWD_F32_REL_L2
+        again = _direct_grads(q, k, v, dout, splits)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+    sums = attention_cuda.dkv_sum_launches()
+    auto = _direct_grads(q, k, v, dout)
+    assert attention_cuda.dkv_sum_launches() == sums + (rule > 1)  # the second pass ran where the rule splits
+    assert all(torch.equal(x, y) for x, y in zip(auto, _direct_grads(q, k, v, dout, rule)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,splits", [
+    ((4, 8, 4096, 4096, 40), 1),  # self 64²: 64 · 32 = 2,048 CTAs
+    ((4, 8, 1024, 1024, 80), 1),  # self 32²: 512
+    ((4, 8, 256, 256, 160), 3),  # self 16²: 128 CTAs → 3 splits (384)
+    ((4, 8, 64, 64, 40), 1),  # self 8²: 32 CTAs, but 64 queries
+    ((4, 8, 4096, 77, 40), 5),  # cross 64²: 64 CTAs → 5 splits (320)
+    ((4, 8, 1024, 77, 80), 5),
+    ((4, 8, 256, 77, 160), 4),  # at most one split per 64 queries
+    ((2, 3, 100, 77, 40), 2),
+    ((5, 7, 288, 77, 40), 3),  # 70 CTAs want 4 splits; 9 ring tiles of 32 go 3 a split
+    ((33, 8, 100, 64, 40), 1),  # 264 CTAs: two an SM already
+    ((32, 8, 100, 64, 40), 2),  # 256: one short
+])
+def test_dkv_query_splits(cuda_device, shape, splits):
+    """fp32 B4 splits each key block's queries over more CTAs where its
+    ceil(T / 64) · B · H CTAs give fewer than two for each of 132 SMs, at
+    most one split per 64 queries; bf16 never splits."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    assert attention_cuda.dkv_splits(*shape, sms=132) == splits
+    assert attention_cuda._bwd_lib().gctorch_flash_attn_bwd_dkv_splits(*shape, 1, 132) == 1
+
+
+@pytest.mark.cuda
+def test_flash_backward_f32_split_repeats_bit_for_bit(cuda_device):
+    """FlashAttnFunction at the cross-attention shape, where B4 splits."""
+    first = _check_grads(*_qkv(cuda_device, torch.float32, 4, 8, 1024, 77, 40, seed=8), seed=2)
+    second = _check_grads(*_qkv(cuda_device, torch.float32, 4, 8, 1024, 77, 40, seed=8), seed=2)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_backward_f32_misaligned_input_is_copied(cuda_device):
+    """A contiguous fp32 view 4 bytes past a 16-byte boundary is copied to an
+    aligned tensor and counted (B4 and B5 copy fp32 rows 16 bytes at a time)
+    and gives the aligned input's gradients."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    q, k, v = _qkv(cuda_device, torch.float32, 2, 3, 100, 77, 40, seed=4)
+    flat = torch.zeros(k.numel() + 4, dtype=k.dtype, device=cuda_device)
+    k_off = flat[1:-3].view(k.shape)
+    k_off.copy_(k)
+    assert k_off.is_contiguous() and k_off.data_ptr() % 16 == 4
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cpu").manual_seed(4)).to(cuda_device)
+    want = _direct_grads(q, k, v, dout)
+    out, lse = attention_cuda.flash_attn(q, k, v, return_lse=True)
+    copies = attention_cuda.copies
+    with pytest.warns(UserWarning, match="copied"):
+        dk, dv = attention_cuda.flash_attn_bwd_dkv(q, k_off, v, out, lse, dout)
+    assert attention_cuda.copies == copies + 1
+    assert torch.equal(dk, want[1]) and torch.equal(dv, want[2])
+
+
 # ---------------------------------------------------------------- kernel B1v
 
 def _check_variant(mode, args, bins, H, W):
