@@ -147,6 +147,9 @@ FLASH_SHAPES = [
 # reference does, so max |d| ≤ 1e-2·max|plain| and relative L2 ≤ 5e-3; fp32:
 # the same sums in another order, relative L2 ≤ 1e-5
 FLASH_BF16_MAX_REL, FLASH_BF16_REL_L2, FLASH_F32_REL_L2 = 1e-2, 5e-3, 1e-5
+# B3's fp32 log-sum-exp against torch.logsumexp of the fp32 scores: a few
+# ulp of values near 8
+FLASH_F32_LSE = 1e-5
 # one full-width ε (UNet + ControlNet) in bf16 through B3 against fp32 through
 # sdpa_plain on the same (bf16-valued) weights: bf16 rounds every
 # activation to 2^-8 through ~70 layers
@@ -543,17 +546,20 @@ def busy_text(w: dict) -> str:
             f"window timed inside torch.profiler; device time outside the window {w['outside_ms']:.4f} ms)")
 
 
-def phase9_flash(dev) -> tuple[float, list]:
-    """B3 against sdpa_plain at every shape, bf16 and fp32; returns the
-    largest bf16 max |d| and the bf16 inputs of each shape for phase 11."""
+def phase9_flash(dev) -> tuple[dict, list]:
+    """B3 against sdpa_plain at every edit-path shape, bf16 and fp32, and in
+    fp32 at the depth generator's shapes (training and sampling), with the
+    log-sum-exp and a repeat at its main shape; returns the largest max |d|
+    by dtype and the bf16 inputs of each edit-path shape for phase 11."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
     print("[9] flash attention kernel vs sdpa_plain (fp32 on the upcast inputs)")
-    errs, cases = [], []
+    errs, cases = {torch.bfloat16: [], torch.float32: []}, []
     for i, (name, shape) in enumerate(FLASH_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = flash_inputs(shape, dtype, 100 + i, dev)
-            err = check_flash(name, q, k, v)
+            errs[dtype].append(check_flash(name, q, k, v))
             if dtype == torch.bfloat16:
-                errs.append(err)
                 cases.append((name, shape, (q, k, v)))
     B, H, L, _, D = FLASH_MAIN
     for dtype in (torch.bfloat16, torch.float32):  # as the cross-view processor builds a reference call
@@ -561,9 +567,20 @@ def phase9_flash(dev) -> tuple[float, list]:
         kg, vg = k.reshape(2, B // 2, H, L, D), v.reshape(2, B // 2, H, L, D)
         k_r = kg[:, 1:2].expand(kg.shape).reshape(B, H, L, D)
         v_r = vg[:, 1:2].expand(vg.shape).reshape(B, H, L, D)
-        err = check_flash("reference view 1 of each CFG group", q, k_r, v_r)
-        errs += [err] if dtype == torch.bfloat16 else []
-    return max(errs), cases
+        errs[dtype].append(check_flash("reference view 1 of each CFG group", q, k_r, v_r))
+    for i, (name, shape) in enumerate([*MV_SHAPES, ("sampling self 64² (CFG 8)", MV_SAMPLE_MAIN)]):
+        errs[torch.float32].append(check_flash(f"generator {name}", *flash_inputs(shape, torch.float32, 500 + i, dev)))
+    q, k, v = flash_inputs(MV_MAIN, torch.float32, 510, dev)
+    out, lse = attention_cuda.flash_attn(q, k, v, return_lse=True)
+    again, lse_again = attention_cuda.flash_attn(q, k, v, return_lse=True)
+    want = torch.logsumexp(torch.matmul(q[:1], k[:1].transpose(-1, -2)) * MV_MAIN[-1] ** -0.5, -1)
+    lse_err = float((lse[:1] - want).abs().max())
+    same = torch.equal(out, again) and torch.equal(lse, lse_again)
+    print(f"  generator {MV_MAIN} float32: two runs bit-identical {same}; lse max|d| vs logsumexp of the fp32 "
+          f"scores (batch 0) {lse_err:.3e} (limit {FLASH_F32_LSE})")
+    if not same or lse_err > FLASH_F32_LSE:
+        raise SystemExit("FAIL: B3 in fp32 is not deterministic, or its log-sum-exp is off")
+    return {dtype: max(e) for dtype, e in errs.items()}, cases
 
 
 def phase10_edit(dev, state, cams, targets) -> dict:
@@ -737,8 +754,18 @@ def phase11_timings(dev, state, cams, edit, flash_cases) -> dict:
           f"{plain_ms:.4f} ms (CUDA events); scaled_dot_product_attention {main['sdpa_ms']:.4f} ms device time; "
           f"B3 / SDPA {main['ratio']:.3f}; at the data sheet's peaks bound {main['rated']['bound_ms']:.5f} ms "
           f"({main['rated']['bound_by']}), exponentials {main['rated']['exp_ms']:.5f} ms")
+    gen = rows[f"generator {MV_SHAPES[0][0]}"]
+    q, k, v = flash_inputs(MV_MAIN, torch.float32, 98, dev)
+    gen_plain_ms = time_ms(lambda: attention_cuda.sdpa_plain(q, k, v), iters=2, warmup=1)
+    print(f"    B3 generator shape {MV_MAIN} fp32: {gen['ms']:.4f} ms device time; sdpa_plain {gen_plain_ms:.4f} ms "
+          f"(CUDA events); scaled_dot_product_attention {gen['sdpa_ms']:.4f} ms device time; B3 / SDPA "
+          f"{gen['ratio']:.3f}; at the data sheet's peaks bound {gen['rated']['bound_ms']:.5f} ms as 3×TF32 "
+          f"({gen['rated']['bound_by']}, {gen['rated']['bound_ms'] / gen['ms']:.3f} of B3), "
+          f"{gen['rated']['ops_ms']:.5f} ms at the fp32 FMA peak")
     return dict(ms=main["ms"], plain_ms=plain_ms, bound_ms=main["rated"]["bound_ms"],
-                bound_by=main["rated"]["bound_by"], library_ms=main["sdpa_ms"])
+                bound_by=main["rated"]["bound_by"], library_ms=main["sdpa_ms"],
+                f32=dict(ms=gen["ms"], plain_ms=gen_plain_ms, bound_ms=gen["rated"]["bound_ms"],
+                         bound_by=gen["rated"]["bound_by"], library_ms=gen["sdpa_ms"]))
 
 
 ATTN_LAUNCHES = 10  # calls in each device-time window of phases 11 and 15
@@ -778,12 +805,15 @@ def time_forward(q, k, v, launches=ATTN_LAUNCHES) -> dict:
 
 def forward_text(name: str, r: dict) -> str:
     a, b = r["at_clock"], r["rated"]
+    ops = f"operations {a['ops_ms']:.5f} ms"
+    if r["dtype"] == torch.float32:
+        ops += f" at the fp32 FMA peak, {a['tf32x3_ms']:.5f} ms as 3×TF32"
     return (f"B3 {name} {r['shape']} {str(r['dtype']).split('.')[-1]}: {r['ms']:.4f} ms device time ({r['launches']} "
             f"launches, every record kept); SDPA {r['sdpa_ms']:.4f} ms (every device op: {r['sdpa_ops']}); B3 / SDPA "
-            f"{r['ratio']:.3f}; bounds at {a['clock_hz'] / 1e6:.0f} MHz: operations {a['ops_ms']:.5f} ms, bytes "
-            f"{a['bytes_ms']:.5f} ms, exponentials on the SFU {a['exp_ms']:.5f} ms; at the data sheet's peaks "
-            f"({b['clock_hz'] / 1e6:.0f} MHz): bound_ms {b['bound_ms']:.5f} ({b['bound_by']}, {b['bound_ms'] / r['ms']:.3f} "
-            f"of B3), exponentials {b['exp_ms']:.5f} ms; SM clock read before / after B3 / after SDPA (around the "
+            f"{r['ratio']:.3f}; bounds at {a['clock_hz'] / 1e6:.0f} MHz: {ops}, bytes "
+            f"{a['bytes_ms']:.5f} ms, exponentials on the SFU {a['exp_ms']:.5f} ms; at the data sheet's peaks: "
+            f"bound_ms {b['bound_ms']:.5f} ({b['bound_by']}, {b['bound_ms'] / r['ms']:.3f} of B3), exponentials "
+            f"{b['exp_ms']:.5f} ms at {b['clock_hz'] / 1e6:.0f} MHz; SM clock read before / after B3 / after SDPA (around the "
             "windows, not during them): " + " | ".join(clock_text(c) for c in r["clocks"]))
 
 
@@ -911,12 +941,6 @@ def attention_only(dev) -> int:
 # cross-attention to the 77 text tokens; then a ragged shape
 MV_V = 4
 MV_MAIN = (MV_V, 8, 4096, 4096, 40)
-# B3 timed in phase 11 beyond phase 9's shapes: the DDIM inversion's batch of
-# 1 in bf16 and the depth generator's 4 views in fp32
-B3_TIMED_SHAPES = [
-    ("inversion self 64²", (1, *FLASH_MAIN[1:]), torch.bfloat16),
-    ("generator self 64²", MV_MAIN, torch.float32),
-]
 MV_SHAPES = [
     ("self 64²", MV_MAIN),
     ("self 32²", (MV_V, 8, 1024, 1024, 80)),
@@ -926,6 +950,15 @@ MV_SHAPES = [
     ("cross 32²", (MV_V, 8, 1024, 77, 80)),
     ("cross 16²", (MV_V, 8, 256, 77, 160)),
     ("ragged", (2, 3, 100, 77, 24)),
+]
+MV_SAMPLE_MAIN = (2 * MV_V, *MV_MAIN[1:])  # the sampling step's self-attention at 64², CFG batch 8
+# B3 timed in phase 11 beyond phase 9's bf16 shapes: the DDIM inversion's
+# batch of 1 in bf16, and in fp32 the depth generator's shapes (training and
+# sampling)
+B3_TIMED_SHAPES = [
+    ("inversion self 64²", (1, *FLASH_MAIN[1:]), torch.bfloat16),
+    *((f"generator {name}", shape, torch.float32) for name, shape in MV_SHAPES),
+    ("generator sampling self 64² (CFG 8)", MV_SAMPLE_MAIN, torch.float32),
 ]
 # B4/B5 against autograd through sdpa_plain in fp32 on the upcast inputs and
 # cotangent, relative L2 per gradient. fp32: the same sums in another order;
@@ -1377,6 +1410,7 @@ def phase15_timings(dev, mv) -> dict:
         return gen.loss(*args)
 
     step_win = device_window(full_step, attention_cuda.ATTN_KERNELS)
+    fwd_win = device_window(fresh_loss, attention_cuda.B3_KERNEL)
     bwd_win = device_window(lambda loss: loss.backward(), attention_cuda.BWD_KERNELS, prepare=fresh_loss)
     bwd_dev, bwd_kernels = bwd_win["device_ms"], bwd_win["part_ms"]
     opt.zero_grad(set_to_none=True)
@@ -1384,8 +1418,9 @@ def phase15_timings(dev, mv) -> dict:
     print(f"[15] timings (CUDA events, warm). Depth generator train step, fp32, {MV_V} views at 64²: {step_ms:.2f} ms "
           f"= forward {split[0]:.2f} + backward {split[1]:.2f} + optimizer {split[2]:.2f}; device time "
           f"{step_win['device_ms']:.2f} ms in {step_win['ops']:.0f} device ops (torch.profiler, one step): "
-          f"{busy_text(step_win)}; backward device time {bwd_dev:.2f} ms, of which B4 + B5 {bwd_kernels:.2f} ms = "
-          f"{bwd_kernels / bwd_dev:.3f}")
+          f"{busy_text(step_win)}; forward device time {fwd_win['device_ms']:.2f} ms, of which B3 "
+          f"{fwd_win['part_ms']:.2f} ms = {fwd_win['part_ms'] / fwd_win['device_ms']:.3f}; backward device time "
+          f"{bwd_dev:.2f} ms, of which B4 + B5 {bwd_kernels:.2f} ms = {bwd_kernels / bwd_dev:.3f}")
 
     rows = bwd_rows(dev)
     main = rows[(MV_SHAPES[0][0], torch.float32)]
@@ -1407,8 +1442,11 @@ def phase15_timings(dev, mv) -> dict:
     with torch.no_grad():
         gen_ms = time_ms(lambda: gen._eps(lat, dl2, tt, ctx2, proc), iters=3, warmup=1)
         plain_proc_ms = time_ms(lambda: gen._eps(lat, dl2, tt, ctx2, default_processor), iters=3, warmup=1)
+        sample_win = device_window(lambda: gen._eps(lat, dl2, tt, ctx2, proc), attention_cuda.B3_KERNEL)
     print(f"    sampling step (CFG batch {2 * MV_V}): {gen_ms:.2f} ms with the epipolar processor, {plain_proc_ms:.2f} ms "
           f"with plain attention: the correspondence processor is {1 - plain_proc_ms / gen_ms:.3f} of the step; "
+          f"device time {sample_win['device_ms']:.2f} ms, of which B3 {sample_win['part_ms']:.2f} ms = "
+          f"{sample_win['part_ms'] / sample_win['device_ms']:.3f}; {busy_text(sample_win)}; "
           f"phase 13's sample {mv['sample_wall'] / MV_SAMPLE_STEPS * 1e3:.1f} ms per step host wall (prepare "
           f"included)")
     return dict(b4=main["b4"], b5=main["b5"], plain_ms=plain_bwd, library_ms=main["sdpa_bwd_ms"],
@@ -1918,7 +1956,7 @@ def main(argv=None) -> int:
         print(f"    garden {N_GARDEN} blend_bwd {g_bwd_dev_ms:.4f} ms device time ({g_bwd_ms:.4f} ms in events) vs "
               f"plain VJP {g_bwd_plain_ms:.4f} ms; bound {g_bwd_bound_ms:.5f} ms ({g_bwd_bound_by}); n_isects "
               f"{g_bins.n_isects}; work {g_bwd_work}")
-        flash_max_abs_err, flash_cases = phase9_flash(dev)
+        flash_errs, flash_cases = phase9_flash(dev)
         edit = phase10_edit(dev, state, cams, targets)
         flash = phase11_timings(dev, state, cams, edit, flash_cases)
         bwd_errs = phase12_flash_bwd(dev)
@@ -1964,12 +2002,21 @@ def main(argv=None) -> int:
         "source": "gaussctrl_exp_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "gaussctrl_exp_tpu/diffusion/attention.py:37 (_flash_sdpa, the library TPU flash attention)",
         "launches": edit["b3_launches"],
-        "max_abs_err": flash_max_abs_err,
+        "max_abs_err": flash_errs[torch.bfloat16],
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
+    }, {
+        "name": "flash_attn_fwd_f32",
+        "route": "cuda",
+        "source": "gaussctrl_exp_tpu_torch/csrc/flash_attn_fwd.cu",
+        "replaces": "gaussctrl_exp_tpu/diffusion/attention.py:37 (_flash_sdpa in fp32: jax/experimental/pallas/ops/tpu/"
+                    "flash_attention.py:589, pallas_call :758), reached from diffusion/mv_generator.py:198",
+        "launches": mv["launches"][0],
+        "max_abs_err": flash_errs[torch.float32],
+        **flash["f32"],
     }, {
         "name": "flash_attn_bwd_dkv",
         "route": "cuda",

@@ -39,25 +39,24 @@
 //    Q and dO (B4) or key tiles of K and V (B5) are staged row-major for the
 //    score products and transposed for the gradient products. P and dS are
 //    rounded to bf16 before their products, as the forward rounds P.
-//  * fp32 (3×TF32 on mma.sync.m16n8k8, below): the CTA's own 64 rows (K and
-//    V for B4, Q and dO for B5) and a two-stage ring of the other operands'
-//    tiles are copied by `cp.async`, 16 bytes a thread, row-major with a
-//    pitch of D + 4 floats. m16n8k8's C fragment holds columns 2·tq and
-//    2·tq + 1, its A fragment columns tq and tq + 4: the gradient products
-//    relabel their k-slots (slot tq is column 2·tq, slot tq + 4 is 2·tq + 1)
-//    and read the B fragments with the same labels, so they come from the
-//    row-major tiles and no transposed copy is made. The CTA's own rows are
-//    split into TF32 hi and lo once, when they land (D ≤ 48; above, shared
-//    memory holds them only as they are and their fragments are split as
-//    they are read), each ring tile once when it lands, P and dS in
-//    registers. The gradient products sum each ring tile in a fresh
-//    accumulator and add it to dK, dV or dQ on the FP32 pipe: the tensor
-//    cores truncate their fp32 sums, and a chain over thousands of rows
-//    gathers that bias. P = ex2 of one FFMA of the raw score against
-//    lse·log2 e (`ex2.approx.ftz`). Where B4's key
-//    blocks give too few CTAs for the card (gctorch_flash_attn_bwd_dkv_splits
-//    decides), the query tiles are split over `splits` CTAs that write
-//    partial sums, and a second kernel adds them in a fixed order.
+//  * fp32 (3×TF32 on mma.sync.m16n8k8, tf32_mma.cuh): the CTA's own 64 rows (K
+//    and V for B4, Q and dO for B5) and a two-stage ring of the other operands'
+//    tiles are copied by `cp.async`, 16 bytes a thread, row-major with a pitch
+//    of D + 4 floats. m16n8k8's C fragment holds columns 2·tq and 2·tq + 1, its
+//    A fragment columns tq and tq + 4: the gradient products relabel their
+//    k-slots (slot tq is column 2·tq, slot tq + 4 is 2·tq + 1) and read the B
+//    fragments with the same labels, so they come from the row-major tiles and
+//    no transposed copy is made. The CTA's own rows are split into TF32 hi and
+//    lo once, when they land (D ≤ 48; above, shared memory holds them only as
+//    they are and their fragments are split as they are read), each ring tile
+//    once when it lands, P and dS in registers. The gradient products sum each
+//    ring tile in a fresh accumulator and add it to dK, dV or dQ on the FP32
+//    pipe: the tensor cores truncate their fp32 sums, and a chain over
+//    thousands of rows gathers that bias. P = ex2 of one FFMA of the raw score
+//    against lse·log2 e (`ex2.approx.ftz`). Where B4's key blocks give too few
+//    CTAs for the card (gctorch_flash_attn_bwd_dkv_splits decides), the query
+//    tiles are split over `splits` CTAs that write partial sums, and a second
+//    kernel adds them in a fixed order.
 //  * Keys past T get P = 0; queries past S run on zero rows (so dO = 0,
 //    delta = 0 and P·dO = dS = 0) and store nothing; D is zero-padded in
 //    registers and shared memory only. Strides are taken for batch, head and
@@ -76,6 +75,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -397,79 +398,18 @@ __global__ void __launch_bounds__(WARPS * 32) gctorch_attn_bwd_b5_dq_bf16(Args a
 
 // ---------------------------------------------------------------- fp32
 
-// fp32 runs on the tensor cores as 3×TF32: each operand x is split into
-// hi = tf32(x) and lo = tf32(x − hi) (cvt.rna), and a product a·b is taken as
-// a_lo·b_hi + a_hi·b_lo + a_hi·b_hi on mma.sync.m16n8k8 with fp32
-// accumulators, the small terms first. The error is a few units of fp32's
-// last place per product; one pass (a_hi·b_hi) would round the operands to
-// 10 mantissa bits.
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-struct FragA {  // an m16n8k8 A fragment split into its hi and lo TF32 parts
-  uint32_t hi[4], lo[4];
-};
-
-__device__ __forceinline__ void split_a(FragA& f, float x0, float x1, float x2, float x3) {
-  const float x[4] = {x0, x1, x2, x3};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f.hi[i] = tf32(x[i]);
-    f.lo[i] = tf32(x[i] - __uint_as_float(f.hi[i]));
-  }
-}
-
-// d += a·b in 3×TF32; b's hi parts at b[0] (k-slot tq) and b[step] (slot
-// tq + 4), its lo parts `lo` floats on
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const float* b, int step, int lo) {
-  const uint32_t h0 = __float_as_uint(b[0]), h1 = __float_as_uint(b[step]);
-  const uint32_t l0 = __float_as_uint(b[lo]), l1 = __float_as_uint(b[lo + step]);
-  mma_tf32(d, a.lo, h0, h1);
-  mma_tf32(d, a.hi, l0, l1);
-  mma_tf32(d, a.hi, h0, h1);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// global → shared, asynchronously; zeros where !ok (nothing is read)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a), "l"(src), "r"(ok ? 4 : 0) : "memory");
 }
 
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-// queries (B4) or keys (B5) a ring stage of the fp32 kernels, for head
-// width d: the same for D as for the width DT it is rounded up to
-constexpr int f32_ring_rows(int d) { return d <= 48 ? 32 : d <= 96 ? 16 : 8; }
 constexpr int F32_ROWS = WARPS * 16;  // keys a B4 CTA owns, queries a B5 CTA owns (16 a warp)
 
-// the fp32 tiling for head width DT (D ≤ DT, both multiples of 8)
+// the fp32 tiling for head width DT (D ≤ DT, both multiples of 8); its ring
+// tiles hold queries (B4) or keys (B5)
 template <int DT>
 struct F32Tile {
+  static constexpr int THREADS = WARPS * 32;
   static constexpr int ROWS = F32_ROWS;
   static constexpr int BN = f32_ring_rows(DT);
   // row pitch in floats: DT + 4 is 4 × an odd number mod 32, so the reads
@@ -482,6 +422,7 @@ struct F32Tile {
   // where they fit (their lo parts after both hi parts), else kept as they
   // are and split as their fragments are read
   static constexpr bool PRESPLIT = DT <= 48;
+  static constexpr int OWN_LO = 2 * ROWS * PITCH;
   static constexpr int FIXED = (PRESPLIT ? 4 : 2) * ROWS * PITCH;
   // a ring stage: two operands' tiles, split in place into hi when they have
   // landed, their lo parts LO floats on, then lse and delta (B4)
@@ -490,23 +431,6 @@ struct F32Tile {
   static constexpr int STAGE = LSE + 2 * BN;
   static constexpr size_t BYTES = (FIXED + 2 * STAGE) * sizeof(float);
 };
-
-// an A fragment of the CTA's own rows (row-major, pitch PITCH) at rows r0,
-// r0 + 8 and columns c, c + 4: from the split copy, or split here
-template <int DT>
-__device__ __forceinline__ void load_a(FragA& f, const float* rows, int r0, int c) {
-  using P = F32Tile<DT>;
-  const int i[4] = {r0 * P::PITCH + c, (r0 + 8) * P::PITCH + c, r0 * P::PITCH + c + 4, (r0 + 8) * P::PITCH + c + 4};
-  if constexpr (P::PRESPLIT) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      f.hi[e] = __float_as_uint(rows[i[e]]);
-      f.lo[e] = __float_as_uint(rows[2 * P::ROWS * P::PITCH + i[e]]);
-    }
-  } else {
-    split_a(f, rows[i[0]], rows[i[1]], rows[i[2]], rows[i[3]]);
-  }
-}
 
 // x[0, n) split in place into hi, and lo into x[n, 2n)
 __device__ __forceinline__ void split_in_place(float* x, int n) {
@@ -527,23 +451,6 @@ __device__ __forceinline__ void split_landed(float* fixed, float* stage, bool fi
     if (first) split_in_place(fixed, 2 * P::ROWS * P::PITCH);
   split_in_place(stage, P::LO);
   __syncthreads();
-}
-
-// rows [r0, r0 + N) of a (rows, D) fp32 matrix into a shared tile of pitch
-// PITCH, 16 bytes a copy; zeros past `rows` and past D
-template <int DT, int N>
-__device__ __forceinline__ void stage_f32(float* dst, const float* base, long long stride, int r0, int rows,
-                                          int D) {
-  using P = F32Tile<DT>;
-#pragma unroll
-  for (int e0 = 0; e0 < N * P::CHUNKS; e0 += WARPS * 32) {
-    const int e = e0 + threadIdx.x;
-    if (N * P::CHUNKS % (WARPS * 32) == 0 || e < N * P::CHUNKS) {
-      const int r = e / P::CHUNKS, c = (e % P::CHUNKS) * 4, row = r0 + r;
-      const bool ok = row < rows && c < D;
-      cp_async16(dst + r * P::PITCH + c, ok ? base + (long long)row * stride + c : base, ok);
-    }
-  }
 }
 
 // acc[nd] += a·B over one ring tile (NB k-steps of 8 rows), B the tile's
@@ -590,14 +497,14 @@ __global__ void __launch_bounds__(WARPS * 32, 1) gctorch_attn_bwd_b4_dkv_f32(Arg
   const int n_q = (a.S + BN - 1) / BN;
   const int t0 = blockIdx.z * tiles, t1 = min(n_q, t0 + tiles);
 
-  stage_f32<DT, P::ROWS>(Ks, kb, a.ks.s, key0, a.T, a.D);  // split into hi and lo when they land
-  stage_f32<DT, P::ROWS>(Vs, vb, a.vs.s, key0, a.T, a.D);
+  stage_f32<P, P::ROWS>(Ks, kb, a.ks.s, key0, a.T, a.D);  // split into hi and lo when they land
+  stage_f32<P, P::ROWS>(Vs, vb, a.vs.s, key0, a.T, a.D);
   auto load_tile = [&](int t) {  // one commit group a tile, empty past the split's last
     if (t < t1) {
       float* st = ring + ((t - t0) & 1) * P::STAGE;
       const int q0 = t * BN;
-      stage_f32<DT, BN>(st, qb, a.qs.s, q0, a.S, a.D);
-      stage_f32<DT, BN>(st + BN * PITCH, dob, a.dos.s, q0, a.S, a.D);
+      stage_f32<P, BN>(st, qb, a.qs.s, q0, a.S, a.D);
+      stage_f32<P, BN>(st + BN * PITCH, dob, a.dos.s, q0, a.S, a.D);
       for (int r = threadIdx.x; r < BN; r += WARPS * 32) {  // zeros past S: P·dO = 0 and dS = 0 there
         const bool ok = q0 + r < a.S;
         cp_async4(st + P::LSE + r, ok ? lse + q0 + r : lse, ok);
@@ -638,14 +545,14 @@ __global__ void __launch_bounds__(WARPS * 32, 1) gctorch_attn_bwd_b4_dkv_f32(Arg
 #pragma unroll
     for (int kd = 0; kd < KD; ++kd) {
       FragA ka;
-      load_a<DT>(ka, Ks, kl0, kd * 8 + tq);
+      load_a<P>(ka, Ks, kl0, kd * 8 + tq);
 #pragma unroll
       for (int nt = 0; nt < NB; ++nt) mma3(s[nt], ka, Qt + (nt * 8 + g) * PITCH + kd * 8 + tq, 4, P::LO);
     }
 #pragma unroll
     for (int kd = 0; kd < KD; ++kd) {
       FragA va;
-      load_a<DT>(va, Vs, kl0, kd * 8 + tq);
+      load_a<P>(va, Vs, kl0, kd * 8 + tq);
 #pragma unroll
       for (int nt = 0; nt < NB; ++nt) mma3(dp[nt], va, dOt + (nt * 8 + g) * PITCH + kd * 8 + tq, 4, P::LO);
     }
@@ -759,14 +666,14 @@ __global__ void __launch_bounds__(WARPS * 32, 1) gctorch_attn_bwd_b5_dq_f32(Args
   const float* vb = static_cast<const float*>(a.v) + b * a.vs.b + h * a.vs.h;
   const float* dob = static_cast<const float*>(a.dout) + b * a.dos.b + h * a.dos.h;
 
-  stage_f32<DT, P::ROWS>(Qs, qb, a.qs.s, row0, a.S, a.D);
-  stage_f32<DT, P::ROWS>(dOs, dob, a.dos.s, row0, a.S, a.D);
+  stage_f32<P, P::ROWS>(Qs, qb, a.qs.s, row0, a.S, a.D);
+  stage_f32<P, P::ROWS>(dOs, dob, a.dos.s, row0, a.S, a.D);
   const int n_k = (a.T + BN - 1) / BN;
   auto load_tile = [&](int t) {  // one commit group a tile, empty past the last
     if (t < n_k) {
       float* st = ring + (t & 1) * P::STAGE;
-      stage_f32<DT, BN>(st, kb, a.ks.s, t * BN, a.T, a.D);
-      stage_f32<DT, BN>(st + BN * PITCH, vb, a.vs.s, t * BN, a.T, a.D);
+      stage_f32<P, BN>(st, kb, a.ks.s, t * BN, a.T, a.D);
+      stage_f32<P, BN>(st + BN * PITCH, vb, a.vs.s, t * BN, a.T, a.D);
     }
     cp_commit();
   };
@@ -803,8 +710,8 @@ __global__ void __launch_bounds__(WARPS * 32, 1) gctorch_attn_bwd_b5_dq_f32(Args
     for (int kd = 0; kd < KD; ++kd) {
       const int c = kd * 8 + tq;
       FragA qa, oa;
-      load_a<DT>(qa, Qs, r0, c);
-      load_a<DT>(oa, dOs, r0, c);
+      load_a<P>(qa, Qs, r0, c);
+      load_a<P>(oa, dOs, r0, c);
 #pragma unroll
       for (int nt = 0; nt < NB; ++nt) {
         mma3(s[nt], qa, Kt + (nt * 8 + g) * PITCH + c, 4, P::LO);

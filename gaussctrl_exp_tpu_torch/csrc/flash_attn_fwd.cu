@@ -61,15 +61,46 @@
 //  * Registers a thread (ptxas -v for sm_90a; no template spills), by width:
 //    16: 128, 32: 160, 40: 168, 48: 128, 64: 156, 80: 168, 96: 128,
 //    128: 166, 160: 244. At 168 a 128-thread CTA fits 3 times an SM.
-//  * fp32: the same tiling as before with scalar fp32 FMAs, 4 threads per
-//    query row, each owning a quarter of D, 32 keys per shared-memory tile; it
-//    exists so that the card can be held to the CPU in fp32, and it is the
-//    depth generator's forward.
+//
+// Design, fp32 (the depth generator's forward, and the card's check against
+// the CPU): both products as 3×TF32 on mma.sync.m16n8k8 (tf32_mma.cuh: each
+// operand split into TF32 hi and lo, a·b = a_lo·b_hi + a_hi·b_lo + a_hi·b_hi).
+// At the generator's main shape, (4, 8, 4096, 4096, 40), 4·B·H·S·T·D =
+// 8.59e10 operations take 0.521 ms at a third of the TF32 peak (494.7
+// TFLOP/s at 1.83 GHz), 1.282 ms at the fp32 FMA peak; the exponentials
+// 0.139 ms, the bytes 0.006 ms. So the products, three mma a product, set
+// the pace, with the shared-memory reads that feed them.
+//  * Tiles: 4 warps a CTA. At D ≤ 48 each warp owns 32 query rows (two
+//    16-row mma blocks, 128 a CTA), so that each K and V fragment read from
+//    shared memory feeds two products; above, 16 (64 a CTA). The CTA's Q
+//    rows are copied into shared memory and split into hi and lo once.
+//  * K and V go through a ring of 2 stages of 32 keys (D ≤ 48), 16 (D ≤ 96)
+//    or 8, copied by `cp.async` 16 bytes a thread (zero-fill past T and past
+//    D), row-major with a pitch of D + 4 floats. Each thread splits the
+//    chunks it copied in place (hi, and lo after the tile) once they have
+//    landed, so one barrier a tile publishes tile j while tile j + 1's copy
+//    is in flight.
+//  * Softmax: the bf16 path's, on m16n8k8's C fragments: the running max in
+//    raw-score units moved only on 2^8 growth, one FFMA and one
+//    `ex2.approx.ftz` a score, max and sum in a quad of lanes, keys past T
+//    set to −inf only in the ragged last tile.
+//  * P·V: P is split into hi and lo in registers; its k-slots are relabelled
+//    (slot tq is key 2·tq, slot tq + 4 key 2·tq + 1), so the C fragments of
+//    Q·Kᵀ are P·V's A fragments and V's B fragments are read row-major with
+//    the same labels (B5's dS·K). Each ring tile's P·V is summed in a fresh
+//    accumulator and added to the output on the FP32 pipe: the tensor cores
+//    truncate their fp32 sums.
+//  * Registers a thread (ptxas -v for sm_90a, as chip_smoke.py printed them
+//    on an NVIDIA H100 80GB HBM3, 700 W; no spills), by width: 8: 100, 16:
+//    123, 24: 150, 32: 166, 40: 206, 48: 220, 64: 139, 80: 170, 96: 178,
+//    128: 197, 160: 236. CTAs an SM by registers and shared memory (24-123
+//    KB a CTA): 4 at D ≤ 16, 3 at 24, 32 and 64, 2 at 40, 48, 80, 96 and
+//    128, 1 at 160.
 // Queries past S are computed on zeros and not stored. Strides are given for
-// batch, head and sequence (D contiguous); bf16 rows start on 16-byte
-// boundaries (the wrapper checks, and copies what does not), so the head
-// split's transpose needs no copy, and the output can be written straight
-// into the (B, S, H, D) layout.
+// batch, head and sequence (D contiguous); rows start on 16-byte boundaries
+// (the wrapper checks, and copies what does not), so the head split's
+// transpose needs no copy, and the output can be written straight into the
+// (B, S, H, D) layout.
 //
 // When the caller passes an `lse` buffer (fp32, (B, H, S) contiguous), each
 // stored query row also gets the log-sum-exp of its scaled scores,
@@ -83,11 +114,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int BQ = 64;         // queries per CTA (fp32)
-constexpr int BKF = 32;        // keys per shared-memory tile (fp32)
-constexpr int QUAD = 4;        // threads per query row (fp32)
 constexpr int MAX_D = 160;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float RESCALE = 8.f;  // log2 growth of a row's max that moves the running max
@@ -157,17 +187,9 @@ __device__ __forceinline__ void cp_async16(uint16_t* dst, const void* src, bool 
                : "memory");
 }
 
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -474,74 +496,263 @@ __global__ void __launch_bounds__(Tile<DT>::WARPS * 32)
   }
 }
 
-template <int MAXC>  // the most dims a thread owns: D / 4 ≤ MAXC
-__global__ void __launch_bounds__(BQ * QUAD)
+// ---------------------------------------------------------------- fp32
+
+// the fp32 tiling for head width DT (D ≤ DT, both multiples of 8): 4 warps
+// of MT 16-row mma blocks, and a two-stage ring of K and V tiles
+template <int DT>
+struct F32Tile {
+  static constexpr int WARPS = 4, THREADS = WARPS * 32;
+  // 16-row mma blocks a warp: two at D ≤ 48 (128 query rows a CTA), so that
+  // each K and V fragment read from shared memory feeds two products
+  static constexpr int MT = DT <= 48 ? 2 : 1;
+  static constexpr int ROWS = WARPS * 16 * MT;  // query rows a CTA
+  static constexpr int BN = f32_ring_rows(DT);   // keys a ring tile
+  // row pitch in floats: DT + 4 is 4 × an odd number mod 32, so the reads
+  // (row g, column tq) of Q and K and (row 2·tq, column g) of V hit 32 banks
+  static constexpr int PITCH = DT + 4;
+  static constexpr int CHUNKS = DT / 4;  // 16-byte copies a row
+  static constexpr int KD = DT / 8;      // k-steps of Q·Kᵀ over D, n-tiles of P·V
+  static constexpr int NB = BN / 8;      // n-tiles of the scores, k-steps of P·V
+  // Q is split into TF32 hi and lo once, its lo parts after its hi parts
+  static constexpr bool PRESPLIT = true;
+  static constexpr int OWN_LO = ROWS * PITCH;
+  static constexpr int FIXED = 2 * ROWS * PITCH;
+  // a ring stage: K's and V's tiles, split in place into hi when they have
+  // landed, their lo parts LO floats on
+  static constexpr int LO = 2 * BN * PITCH;
+  static constexpr int STAGE = 2 * LO;
+  static constexpr size_t BYTES = (FIXED + 2 * STAGE) * sizeof(float);
+  // CTAs an SM by shared memory (227 KB, 1 KB a CTA reserved), at most 3:
+  // the registers a thread are capped to match
+  static constexpr int SMEM_CTAS = 232448 / (BYTES + 1024);
+  static constexpr int CTAS = SMEM_CTAS < 3 ? SMEM_CTAS : 3;
+};
+
+// this thread's own 16-byte copies of stage_f32<P, N>(dst, ...), landed,
+// split into TF32 hi in place and lo `lo` floats on
+template <class P, int N>
+__device__ __forceinline__ void split_own(float* dst, int lo) {
+#pragma unroll
+  for (int e0 = 0; e0 < N * P::CHUNKS; e0 += P::THREADS) {
+    const int e = e0 + threadIdx.x;
+    if (N * P::CHUNKS % P::THREADS == 0 || e < N * P::CHUNKS) {
+      float* x = dst + (e / P::CHUNKS) * P::PITCH + (e % P::CHUNKS) * 4;
+      const float4 a = *reinterpret_cast<const float4*>(x);
+      const float4 hi = make_float4(__uint_as_float(tf32(a.x)), __uint_as_float(tf32(a.y)),
+                                    __uint_as_float(tf32(a.z)), __uint_as_float(tf32(a.w)));
+      *reinterpret_cast<float4*>(x) = hi;
+      *reinterpret_cast<float4*>(x + lo) =
+          make_float4(__uint_as_float(tf32(a.x - hi.x)), __uint_as_float(tf32(a.y - hi.y)),
+                      __uint_as_float(tf32(a.z - hi.z)), __uint_as_float(tf32(a.w - hi.w)));
+    }
+  }
+}
+
+template <class P>
+using F32Acc = float[P::MT][P::KD][4];  // the output accumulators
+template <class P>
+using F32Scores = float[P::MT][P::NB][4];  // a tile's scores, then probabilities (C fragments)
+
+// B3's online softmax on one ring tile of scores s (keys k0 .. k0 + BN; C
+// fragments: rows g and g + 8 of each of the warp's 16-row blocks), replaced
+// in place by the probabilities; as the bf16 path's `softmax`: the running
+// max m in raw-score units moves only where a row's max grew by more than
+// RESCALE, and then l and acc are rescaled. MASK: the tile holds keys past T
+// (the last, ragged one).
+template <class P, bool MASK>
+__device__ __forceinline__ void softmax_f32(F32Scores<P>& s, int k0, int T, int tq, float sl2, F32Acc<P>& acc,
+                                            float (&m)[P::MT][2], float (&l)[P::MT][2]) {
+  constexpr int MT = P::MT, NB = P::NB;
+  if constexpr (MASK) {
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (k0 + nt * 8 + tq * 2 + j >= T)
+#pragma unroll
+          for (int i = 0; i < MT; ++i) s[i][nt][j] = s[i][nt][2 + j] = -INFINITY;
+  }
+  float mx[MT][2];
+  bool grow = false;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = fmaxf(s[i][0][2 * r], s[i][0][2 * r + 1]);
+#pragma unroll
+      for (int nt = 1; nt < NB; ++nt) x = fmaxf(x, fmaxf(s[i][nt][2 * r], s[i][nt][2 * r + 1]));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      mx[i][r] = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      grow |= (mx[i][r] - m[i][r]) * sl2 > RESCALE;  // the first tile: m = −inf
+    }
+  if (__any_sync(0xffffffffu, grow)) {  // warp-uniform
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // key k0 < T lies in every tile, so the new max is finite; the first
+        // tile's rescale is ex2(−inf) = 0 of l = acc = 0
+        const float mn = fmaxf(m[i][r], mx[i][r]), c = ex2((m[i][r] - mn) * sl2);
+        m[i][r] = mn;
+        l[i][r] *= c;
+#pragma unroll
+        for (int nd = 0; nd < P::KD; ++nd) {
+          acc[i][nd][2 * r] *= c;
+          acc[i][nd][2 * r + 1] *= c;
+        }
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const float n0 = -m[i][0] * sl2, n1 = -m[i][1] * sl2;
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        s[i][nt][j] = ex2(fmaf(s[i][nt][j], sl2, n0));
+        s[i][nt][2 + j] = ex2(fmaf(s[i][nt][2 + j], sl2, n1));
+        l[i][0] += s[i][nt][j];
+        l[i][1] += s[i][nt][2 + j];
+      }
+  }
+}
+
+template <int DT>
+__global__ void __launch_bounds__(F32Tile<DT>::THREADS, F32Tile<DT>::CTAS)
     gctorch_attn_fwd_b3_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                             float* __restrict__ o, float* __restrict__ lse, int H, int S, int T, int D,
-                            Strides qs, Strides ks, Strides vs, Strides os, float scale_log2) {
-  __shared__ float Ks[BKF][MAX_D];
-  __shared__ float Vs[BKF][MAX_D];
+                            Strides qs, Strides ks, Strides vs, Strides os, float sl2) {
+  using P = F32Tile<DT>;
+  constexpr int MT = P::MT, BN = P::BN, PITCH = P::PITCH, KD = P::KD, NB = P::NB;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                // the CTA's Q rows [ROWS][PITCH] (hi, then lo)
+  float* ring = fsm + P::FIXED;  // a stage: K, V [BN][PITCH] (hi, then lo)
 
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int row = blockIdx.x * BQ + threadIdx.x / QUAD;
-  const int dch = D / QUAD, d0 = (threadIdx.x % QUAD) * dch;  // this thread's dims
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int row0 = blockIdx.x * P::ROWS;
+  const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
 
-  float qr[MAXC], acc[MAXC];
-  const float* qrow = q + b * qs.b + h * qs.h + (long long)row * qs.s + d0;
-#pragma unroll
-  for (int i = 0; i < MAXC; ++i) {
-    qr[i] = (i < dch && row < S) ? qrow[i] : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
+  stage_f32<P, P::ROWS>(Qs, qb, qs.s, row0, S, D);
+  const int n_k = (T + BN - 1) / BN;
+  auto load_tile = [&](int t) {  // one commit group a tile, empty past the last
+    if (t < n_k) {
+      float* st = ring + (t & 1) * P::STAGE;
+      stage_f32<P, BN>(st, kb, ks.s, t * BN, T, D);
+      stage_f32<P, BN>(st + BN * PITCH, vb, vs.s, t * BN, T, D);
+    }
+    cp_commit();
+  };
+  load_tile(0);  // Q lands with the first tile
 
-  for (int k0 = 0; k0 < T; k0 += BKF) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < BKF * D; e += BQ * QUAD) {
-      const int r = e / D, c = e % D, key = k0 + r;
-      Ks[r][c] = key < T ? kb[(long long)key * ks.s + c] : 0.f;
-      Vs[r][c] = key < T ? vb[(long long)key * vs.s + c] : 0.f;
-    }
-    __syncthreads();
-
-    float s[BKF];
-    float mx = -INFINITY;
+  // this warp's query rows: block i covers rows r0 + 16·i (fragment row g)
+  // and r0 + 16·i + 8 of the CTA's; rows past S run on zeros and store nothing
+  const int r0 = warp * 16 * MT + g;
+  F32Acc<P> acc;
+  float m[MT][2], l[MT][2];  // running max (raw scores) and this thread's share of the sums
 #pragma unroll
-    for (int j = 0; j < BKF; ++j) {
-      float p = 0.f;
+  for (int i = 0; i < MT; ++i) {
 #pragma unroll
-      for (int i = 0; i < MAXC; ++i)
-        if (i < dch) p = fmaf(qr[i], Ks[j][d0 + i], p);
-      // the four threads of a row are neighbouring lanes
-      p += __shfl_xor_sync(0xffffffffu, p, 1);
-      p += __shfl_xor_sync(0xffffffffu, p, 2);
-      s[j] = k0 + j < T ? p * scale_log2 : -INFINITY;
-      mx = fmaxf(mx, s[j]);
-    }
-    const float mn = fmaxf(m, mx), c = exp2f(m - mn);
-    m = mn;
-    l *= c;
-#pragma unroll
-    for (int i = 0; i < MAXC; ++i) acc[i] *= c;
-#pragma unroll
-    for (int j = 0; j < BKF; ++j) {
-      const float p = exp2f(s[j] - mn);
-      l += p;
-#pragma unroll
-      for (int i = 0; i < MAXC; ++i)
-        if (i < dch) acc[i] = fmaf(p, Vs[j][d0 + i], acc[i]);
-    }
+    for (int nd = 0; nd < KD; ++nd) acc[i][nd][0] = acc[i][nd][1] = acc[i][nd][2] = acc[i][nd][3] = 0.f;
+    m[i][0] = m[i][1] = -INFINITY;
+    l[i][0] = l[i][1] = 0.f;
   }
 
-  if (row >= S) return;
-  if (lse != nullptr && threadIdx.x % QUAD == 0) lse[(long long)blockIdx.y * S + row] = (m + log2f(l)) * LN2;
-  float* orow = o + b * os.b + h * os.h + (long long)row * os.s + d0;
-  const float inv = 1.f / l;
+  // Tile t + 1's copy is in flight while tile t is computed. Each thread
+  // splits the chunks it copied itself (visible to it after its wait), so
+  // one barrier a tile makes the split tile visible to all and frees the
+  // other stage.
+  for (int t = 0; t < n_k; ++t) {
+    cp_wait_all();
+    float* Kt = ring + (t & 1) * P::STAGE;
+    split_own<P, BN>(Kt, P::LO);
+    split_own<P, BN>(Kt + BN * PITCH, P::LO);
+    if (t == 0) split_own<P, P::ROWS>(Qs, P::OWN_LO);
+    __syncthreads();  // tile t is split for all; every warp is done with tile t − 1
+    load_tile(t + 1);
+    const float* Vt = Kt + BN * PITCH;
+
+    // S = Q·Kᵀ for the warp's MT·16 queries × BN keys: each K fragment read
+    // feeds MT products
+    F32Scores<P> s;
 #pragma unroll
-  for (int i = 0; i < MAXC; ++i)
-    if (i < dch) orow[i] = acc[i] * inv;
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int nt = 0; nt < NB; ++nt) s[i][nt][0] = s[i][nt][1] = s[i][nt][2] = s[i][nt][3] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      const int c = kd * 8 + tq;
+      FragA qa[MT];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) load_a<P>(qa[i], Qs, r0 + 16 * i, c);
+#pragma unroll
+      for (int nt = 0; nt < NB; ++nt) {
+        const FragB kf = load_b(Kt + (nt * 8 + g) * PITCH + c, 4, P::LO);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) mma3(s[i][nt], qa[i], kf);
+      }
+    }
+    if (t * BN + BN > T)
+      softmax_f32<P, true>(s, t * BN, T, tq, sl2, acc, m, l);
+    else
+      softmax_f32<P, false>(s, t * BN, T, tq, sl2, acc, m, l);
+
+    // acc += P·V over the tile's keys, 8 at a time, with B5's relabelled
+    // k-slots (slot tq is key 2·tq, slot tq + 4 key 2·tq + 1): V row-major,
+    // each V fragment read feeding MT products, each n-tile of D summed over
+    // the tile in a fresh accumulator and added on the FP32 pipe
+    FragA pa[MT][NB];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int kq = 0; kq < NB; ++kq) split_a(pa[i][kq], s[i][kq][0], s[i][kq][2], s[i][kq][1], s[i][kq][3]);
+    const float* vrow = Vt + 2 * tq * PITCH + g;
+#pragma unroll
+    for (int nd = 0; nd < KD; ++nd) {
+      float u[MT][4] = {};
+#pragma unroll
+      for (int kq = 0; kq < NB; ++kq) {
+        const FragB vf = load_b(vrow + kq * 8 * PITCH + nd * 8, PITCH, P::LO);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) mma3(u[i], pa[i][kq], vf);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][nd][j] += u[i][j];
+    }
+  }
+
+  float* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    float l0 = l[i][0], l1 = l[i][1];
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    const int ra = row0 + r0 + 16 * i, rb = ra + 8;
+    if (lse != nullptr && tq == 0) {  // m·scale + ln l = (m·scale·log2 e + log2 l)·ln 2
+      if (ra < S) lse[(long long)blockIdx.y * S + ra] = (m[i][0] * sl2 + log2f(l0)) * LN2;
+      if (rb < S) lse[(long long)blockIdx.y * S + rb] = (m[i][1] * sl2 + log2f(l1)) * LN2;
+    }
+#pragma unroll
+    for (int nd = 0; nd < KD; ++nd) {
+      const int c = nd * 8 + tq * 2;
+      if (c >= D) continue;
+      if (ra < S)
+        *reinterpret_cast<float2*>(ob + (long long)ra * os.s + c) =
+            make_float2(acc[i][nd][0] * inv0, acc[i][nd][1] * inv0);
+      if (rb < S)
+        *reinterpret_cast<float2*>(ob + (long long)rb * os.s + c) =
+            make_float2(acc[i][nd][2] * inv1, acc[i][nd][3] * inv1);
+    }
+  }
 }
 
 template <int DT>
@@ -557,14 +768,19 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
   return cudaGetLastError();
 }
 
-template <int MAXC>
-void launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-                int S, int T, int D, Strides qs, Strides ks, Strides vs, Strides os, float sl2,
-                cudaStream_t st) {
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  gctorch_attn_fwd_b3_f32<MAXC><<<grid, BQ * QUAD, 0, st>>>(
+template <int DT>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                       int S, int T, int D, Strides qs, Strides ks, Strides vs, Strides os, float sl2,
+                       cudaStream_t st) {
+  using P = F32Tile<DT>;
+  const int bytes = static_cast<int>(P::BYTES);
+  const cudaError_t e =
+      cudaFuncSetAttribute(gctorch_attn_fwd_b3_f32<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  gctorch_attn_fwd_b3_f32<DT><<<dim3((S + P::ROWS - 1) / P::ROWS, B * H), P::THREADS, bytes, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), lse, H, S, T, D, qs, ks, vs, os, sl2);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -596,12 +812,20 @@ extern "C" int gctorch_flash_attn_fwd(const void* q, const void* k, const void* 
     if (D <= 96) return launch_bf16<96>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
     if (D <= 128) return launch_bf16<128>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
     return launch_bf16<160>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
-  } else {
-    const int dch = D / QUAD;
-    if (dch <= 8) launch_f32<8>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
-    else if (dch <= 16) launch_f32<16>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
-    else if (dch <= 24) launch_f32<24>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
-    else launch_f32<40>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t e;
+  switch (D <= 48 ? D / 8 : D <= 64 ? 7 : D <= 80 ? 8 : D <= 96 ? 9 : D <= 128 ? 10 : 11) {
+    case 1: e = launch_f32<8>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+    case 2: e = launch_f32<16>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+    case 3: e = launch_f32<24>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+    case 4: e = launch_f32<32>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+    case 5: e = launch_f32<40>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+    case 6: e = launch_f32<48>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+    case 7: e = launch_f32<64>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+    case 8: e = launch_f32<80>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+    case 9: e = launch_f32<96>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+    case 10: e = launch_f32<128>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+    default: e = launch_f32<160>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
+  }
+  return static_cast<int>(e);
 }

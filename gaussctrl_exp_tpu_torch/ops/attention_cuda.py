@@ -8,9 +8,9 @@ flash attention) and computes what ``sdpa_plain`` computes: the non-causal
 and values, with an fp32 softmax. B4 (dK, dV) and B5 (dQ), in
 ``csrc/flash_attn_bwd.cu``, replace the library's backward kernels and
 compute what autograd through ``sdpa_plain`` computes, from B3's per-row
-log-sum-exp. bf16 runs on the tensor cores (``mma.sync``); fp32 runs on
-scalar FMAs in B3 and on the tensor cores as 3×TF32 in B4 and B5; all
-accumulate in fp32 and return the input's type. The sources say
+log-sum-exp. bf16 runs on the tensor cores (``mma.sync``), fp32 on the
+tensor cores as 3×TF32 (``csrc/tf32_mma.cuh``); all accumulate in fp32 and
+return the input's type. The sources say
 what bounds each kernel and how its design meets that.
 
 ``diffusion/attention.py``'s ``_sdpa`` sends a CUDA call that autograd must
@@ -53,27 +53,24 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     return torch.matmul(probs, v)
 
 
-def reads_in_place(shape, strides, data_ptr: int, dtype: torch.dtype, vector: bool = False) -> bool:
+def reads_in_place(shape, strides, data_ptr: int, dtype: torch.dtype) -> bool:
     """Whether the kernels read a tensor of this shape, strides (elements)
-    and address as it lies: D contiguous, and every row start on a 16-byte
-    boundary where a kernel copies rows 16 bytes at a time (``cp.async``):
-    B3 in bf16, and with ``vector`` B4 and B5 in fp32 too. That is the
-    address a multiple of 16 bytes and the stride of every dimension longer
-    than 1 a multiple of 16 bytes' elements."""
-    if strides[-1] != 1:
-        return False
-    if dtype == torch.bfloat16 or vector:
-        per_16 = 16 // (2 if dtype == torch.bfloat16 else 4)
-        return data_ptr % 16 == 0 and all(st % per_16 == 0 for n, st in zip(shape[:-1], strides[:-1]) if n > 1)
-    return True
+    and address as it lies: B3, B4 and B5 copy rows 16 bytes at a time
+    (``cp.async``), bf16 and fp32 alike, so D must be contiguous and every
+    row start on a 16-byte boundary. That is the address a multiple of 16
+    bytes and the stride of every dimension longer than 1 a multiple of 16
+    bytes' elements."""
+    per_16 = 16 // (2 if dtype == torch.bfloat16 else 4)
+    return (strides[-1] == 1 and data_ptr % 16 == 0
+            and all(st % per_16 == 0 for n, st in zip(shape[:-1], strides[:-1]) if n > 1))
 
 
-def _strided(name: str, t: torch.Tensor, vector: bool = False) -> torch.Tensor:
+def _strided(name: str, t: torch.Tensor) -> torch.Tensor:
     """``t`` as the kernel reads it: ``t`` itself where ``reads_in_place``,
     else a contiguous copy in a fresh (aligned) allocation, counted in
     ``copies``."""
     global copies
-    if reads_in_place(t.shape, t.stride(), t.data_ptr(), t.dtype, vector):
+    if reads_in_place(t.shape, t.stride(), t.data_ptr(), t.dtype):
         return t
     warnings.warn(f"flash_attn: {name} with strides {t.stride()} at {t.data_ptr() % 16} bytes past a 16-byte "
                   "boundary is copied to a contiguous tensor", stacklevel=3)
@@ -195,9 +192,7 @@ def _bwd_inputs(fn, q, k, v, out, lse, dout, delta):
     if lse.shape != (B, H, S) or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"{fn}: lse {tuple(lse.shape)} {lse.dtype} is not fp32 (B, H, S) on {q.device}")
     delta = delta_of(out, dout) if delta is None else delta.float().contiguous()
-    vec = q.dtype == torch.float32  # B4 and B5 copy fp32 rows 16 bytes at a time
-    return (_strided("q", q, vec), _strided("k", k, vec), _strided("v", v, vec), _strided("dout", dout, vec),
-            lse.contiguous(), delta)
+    return (_strided("q", q), _strided("k", k), _strided("v", v), _strided("dout", dout), lse.contiguous(), delta)
 
 
 def delta_of(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (B1 to B5 and B1v).
 
 Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
-plain-C shared library, keyed by a hash of the source and its flags, under
-``gaussctrl_exp_tpu_torch/_build/``, and loaded with ``ctypes``. ``build()``
+plain-C shared library, keyed by a hash of the source, the headers it
+includes and its flags, under ``gaussctrl_exp_tpu_torch/_build/``, and
+loaded with ``ctypes``. ``build()``
 starts one ``nvcc`` per source that has no library yet, all together, and
 waits for them; nothing is built when a module is imported.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -55,10 +57,33 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def included(path: Path) -> list[Path]:
+    """``path`` and every file it includes as ``#include "..."`` (relative
+    to the including file), followed recursively, each once, in the order
+    they are first met."""
+    seen: list[Path] = []
+    todo = [path.resolve()]
+    while todo:
+        p = todo.pop(0)
+        if p in seen:
+            continue
+        seen.append(p)
+        todo += [(p.parent / m.decode()).resolve() for m in _INCLUDE.findall(p.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
-    key = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{key}.so"
+    """The library of source ``name``, keyed by the bytes of the source and of
+    every header it includes, and by its flags: an edited header gives
+    another library."""
+    h = hashlib.sha256()
+    for p in included(SOURCES[name]):
+        h.update(p.name.encode() + b"\0" + p.read_bytes())
+    h.update(" ".join(flags(name)).encode())
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
 def build() -> dict[str, Path]:

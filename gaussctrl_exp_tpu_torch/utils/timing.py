@@ -219,23 +219,31 @@ def attention_bound(shape: tuple[int, int, int, int, int], dtype: torch.dtype,
                     sm_clock_hz: float | None = None) -> dict:
     """What bounds non-causal attention of (B, H, S, T, D) in ``dtype`` on the
     card. ``ops_ms``: the two products, 4·B·H·S·T·D operations at the tensor
-    cores' bf16 peak (the fp32 peak for fp32); ``bytes_ms``: q, k, v read once
-    and o written once; ``exp_ms``: one exponential per score, B·H·S·T, on
-    the special-function unit (16 per SM per clock, 132 SMs). Every rate is
-    taken at the SM clock ``sm_clock_hz``, the operations' peak scaled from
-    the clock it is rated at; with no clock, at that rated clock (bf16 1.83
-    GHz, fp32 1.98 GHz), which gives the data sheet's peaks. The memory rate
-    does not follow the SM clock. ``bound_ms`` is the larger of operations
-    and bytes, ``bound_by`` which of the two."""
+    cores' bf16 peak (the fp32 FMA peak for fp32); ``tf32x3_ms``: the same
+    operations at a third of the TF32 tensor-core peak (fp32-accurate
+    products as 3×TF32, the design of B3 in fp32); ``bytes_ms``: q, k, v
+    read once and o written once; ``exp_ms``: one exponential per score,
+    B·H·S·T, on the special-function unit (16 per SM per clock, 132 SMs).
+    Every rate is taken at the SM clock ``sm_clock_hz``, each peak scaled
+    from the clock it is rated at; with no clock, each at its rated clock
+    (bf16 and TF32 1.83 GHz, fp32 1.98 GHz), which gives the data sheet's
+    peaks. The memory rate does not follow the SM clock. ``bound_ms`` is the
+    larger of the operations of the design the kernel runs (bf16 on the
+    tensor cores, fp32 as 3×TF32) and the bytes, ``bound_by`` which of the
+    two."""
     B, H, S, T, D = shape
     bf16 = dtype == torch.bfloat16
     peak, rated = (PEAK_BF16_OPS_S, BF16_RATED_HZ) if bf16 else (PEAK_F32_OPS_S, F32_RATED_HZ)
     clock = sm_clock_hz or rated
-    ops_ms = 4 * B * H * S * T * D / (peak * clock / rated) * 1e3
+    ops = 4 * B * H * S * T * D
+    ops_ms = ops / (peak * clock / rated) * 1e3
+    tf32x3_ms = ops / (PEAK_TF32_OPS_S / TF32_PASSES * (sm_clock_hz or TF32_RATED_HZ) / TF32_RATED_HZ) * 1e3
     bytes_ms = (2 if bf16 else 4) * B * H * D * (2 * S + 2 * T) / PEAK_BYTES_S * 1e3
     exp_ms = B * H * S * T / (EX2_PER_SM_CLOCK * SMS * clock) * 1e3
-    return dict(ops_ms=ops_ms, bytes_ms=bytes_ms, exp_ms=exp_ms, bound_ms=max(ops_ms, bytes_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes", clock_hz=clock)
+    design = ops_ms if bf16 else tf32x3_ms
+    return dict(ops_ms=ops_ms, tf32x3_ms=tf32x3_ms, bytes_ms=bytes_ms, exp_ms=exp_ms,
+                bound_ms=max(design, bytes_ms), bound_by="operations" if design >= bytes_ms else "bytes",
+                clock_hz=clock)
 
 
 def attention_bwd_bound(shape: tuple[int, int, int, int, int], dtype: torch.dtype, kernel: str,

@@ -151,3 +151,21 @@ def test_backward_bounds_follow_the_clock():
 def test_backward_bound_names_its_kernel():
     with pytest.raises(ValueError):
         attention_bwd_bound(GEN, torch.float32, "B3")
+
+
+def test_fp32_forward_is_bound_by_3xtf32():
+    """B3 runs its fp32 products as 3×TF32: at (4, 8, 4096, 4096, 40) the
+    4·B·H·S·T·D = 8.59e10 operations at a third of 494.7 TFLOP/s (1.83 GHz)
+    take 0.52092 ms, its ``bound_ms``; at 1980 MHz 0.52092 × 1.83 / 1.98.
+    ``ops_ms`` stays the fp32 FMA figure (67 TFLOP/s at 1.98 GHz)."""
+    rated = attention_bound(GEN, torch.float32)
+    assert rated["tf32x3_ms"] == pytest.approx(0.52092, abs=5e-6)
+    assert rated["ops_ms"] == pytest.approx(1.28208, abs=5e-6)
+    assert rated["bound_ms"] == rated["tf32x3_ms"] and rated["bound_by"] == "operations"
+    fast = attention_bound(GEN, torch.float32, 1.98e9)
+    assert fast["tf32x3_ms"] == pytest.approx(0.52092 * 1.83 / 1.98, abs=5e-6)
+    assert fast["bound_ms"] == fast["tf32x3_ms"] and fast["ops_ms"] == rated["ops_ms"]
+    short = attention_bound((4, 8, 4096, 1, 40), torch.float32)
+    assert short["bound_by"] == "bytes" and short["bound_ms"] == short["bytes_ms"]
+    bf16 = attention_bound(MAIN, torch.bfloat16)
+    assert bf16["bound_ms"] == bf16["ops_ms"]

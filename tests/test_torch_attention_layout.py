@@ -1,6 +1,6 @@
 """The attention wrapper's layout rule (``ops/attention_cuda.reads_in_place``
-and ``_strided``) on the CPU: B3 copies bf16 rows, and B4 and B5 fp32 rows,
-16 bytes at a time, so those kernels read a tensor in place only where D is
+and ``_strided``) on the CPU: B3, B4 and B5 copy bf16 and fp32 rows 16
+bytes at a time, so the kernels read a tensor in place only where D is
 contiguous and every row starts on a 16-byte boundary; anything else is
 copied and counted."""
 
@@ -64,7 +64,7 @@ def test_an_offset_view_is_copied_to_an_aligned_tensor():
     ((2, 3, 64, 36), (6912, 36, 108, 1), 0, torch.bfloat16, False),  # row stride 36: not a multiple of 8
     ((1, 1, 64, 40), (7, 5, 40, 1), 0, torch.bfloat16, True),  # strides of length-1 dimensions never used
     ((2, 8, 64, 40), (20480, 40, 1, 64), 0, torch.bfloat16, False),  # D not contiguous
-    ((2, 3, 50, 40), (6000, 2000, 40, 1), 4, torch.float32, True),  # fp32 loads single values
+    ((2, 3, 50, 40), (6000, 2000, 40, 1), 4, torch.float32, False),  # fp32 rows are copied 16 bytes at a time too
     ((2, 3, 50, 40), (6000, 2000, 1, 50), 0, torch.float32, False),
 ])
 def test_layout_rule(shape, strides, ptr, dtype, ok):
@@ -80,25 +80,22 @@ def test_layout_rule(shape, strides, ptr, dtype, ok):
     ((2, 3, 50, 40), (6000, 2000, 1, 50), 0, False),  # D not contiguous
 ])
 def test_layout_rule_fp32_copied_16_bytes_at_a_time(shape, strides, ptr, ok):
-    """B4 and B5 copy fp32 rows 16 bytes at a time (``vector``): rows must
-    start on 16-byte boundaries, as B3's bf16 rows must; B3 in fp32 does not
-    ask for it."""
-    assert reads_in_place(shape, strides, ptr, torch.float32, vector=True) is ok
-    assert reads_in_place(shape, strides, ptr, torch.float32) is (strides[-1] == 1)
+    """B3, B4 and B5 copy fp32 rows 16 bytes at a time: rows must start on
+    16-byte boundaries, as bf16 rows must."""
+    assert reads_in_place(shape, strides, ptr, torch.float32) is ok
 
 
 def test_fp32_backward_inputs_are_copied_where_misaligned():
-    """The backward's input check copies a misaligned fp32 tensor and leaves
-    an aligned one alone."""
+    """The wrappers' input check, in the forward and the backward alike,
+    copies a misaligned fp32 tensor and leaves an aligned one alone."""
     from gaussctrl_exp_tpu_torch.ops.attention_cuda import _strided
 
     base = torch.randn(2 * 3 * 50 * 40 + 4)
     t = base[1:-3].view(2, 3, 50, 40)
     assert t.data_ptr() % 16 == 4
     before = attention_cuda.copies
-    assert _strided("k", t) is t
     with pytest.warns(UserWarning, match="copied"):
-        c = _strided("k", t, vector=True)
+        c = _strided("k", t)
     assert attention_cuda.copies == before + 1 and c.data_ptr() % 16 == 0 and torch.equal(c, t)
     aligned = base[4:].view(2, 3, 50, 40)
-    assert _strided("k", aligned, vector=True) is aligned
+    assert _strided("k", aligned) is aligned

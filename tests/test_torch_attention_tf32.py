@@ -1,6 +1,9 @@
-"""The arithmetic of kernels B4 and B5 in fp32 (``csrc/flash_attn_bwd.cu``),
-emulated on the CPU: 3×TF32 products, and the m16n8k8 fragment relabelling
-that feeds the score products' C fragments to the gradient products.
+"""The arithmetic of kernels B3, B4 and B5 in fp32 (``csrc/flash_attn_fwd.cu``,
+``csrc/flash_attn_bwd.cu``, ``csrc/tf32_mma.cuh``), emulated on the CPU:
+3×TF32 products, B3's online softmax over ring tiles, and the m16n8k8
+fragment relabelling that feeds the score products' C fragments to the
+products over keys or queries (P·V in B3, the gradient products in B4 and
+B5: the same map).
 
 The emulation lives here, not in the package. ``cvt.rna.tf32.f32`` rounds
 an fp32 value to TF32 (10 mantissa bits) to nearest, ties away from zero:
@@ -12,13 +15,16 @@ through it, in fp32, at the depth generator's widths, and are held against
 float64 autograd through ``sdpa_plain``: 3×TF32 lands within 1e-6 relative
 L2, a tenth of the card's limit of 1e-5 (``chip_smoke.py``
 ``BWD_F32_REL_L2``); one pass (a_hi·b_hi) misses that limit, which is why the
-kernels take three. Torch runs on one thread.
+kernels take three. B3's forward, emulated tile by tile as the kernel runs
+it, is held the same way against float64 ``sdpa_plain`` and
+``torch.logsumexp``. Torch runs on one thread.
 
 These tests record why the kernels take three passes and how their fragments
 are relabelled; they do not run the kernels. The card tests
-(``tests/test_torch_kernels.py``, ``test_flash_backward_f32_*``) guard the
-kernels themselves, and only they see what the tensor cores do beyond this
-emulation (their truncated fp32 sums, for one).
+(``tests/test_torch_kernels.py``, ``test_flash_attn_f32_*`` and
+``test_flash_backward_f32_*``) guard the kernels themselves, and only they
+see what the tensor cores do beyond this emulation (their truncated fp32
+sums, for one).
 """
 
 import numpy as np
@@ -114,6 +120,103 @@ def test_one_pass_tf32_misses_the_fp32_limit(shape):
     want = _reference(q, k, v, dout)
     rels = [_rel(g, w) for g, w in zip(backward(q, k, v, dout, mm1), want)]
     assert min(rels) > REL_CARD, rels
+
+
+# ------------------------------------------------------------ B3 forward
+
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+RESCALE = 8.0  # log2 growth of a row's max that moves the running max
+WARP_ROWS = 16  # query rows a warp: the rescale decision is the warp's
+SHAPES = [(1, 2, 256, 256, 40), (1, 2, 256, 77, 40), (1, 2, 64, 64, 160), (1, 2, 100, 130, 80)]
+
+
+def ring_rows(d: int) -> int:
+    """Keys a ring tile (``f32_ring_rows`` in ``csrc/tf32_mma.cuh``)."""
+    return 32 if d <= 48 else 16 if d <= 96 else 8
+
+
+def forward(q, k, v, mm):
+    """(out, lse, rescales) as B3 computes them in fp32, one ring tile of
+    keys at a time: the raw scores Q·Kᵀ through ``mm``; the running max m of
+    each row in raw-score units, moved for all 16 rows of a warp where one
+    row's max grew by more than 2^8 (then l and the output are rescaled by
+    2^((m_old − m)·scale·log2 e)); p = 2^(fma(s, scale·log2 e, −m·scale·log2
+    e)); the tile's P·V through ``mm`` in a fresh accumulator, added to the
+    output; at the end out / l and lse = (m·scale·log2 e + log2 l)·ln 2.
+    Queries are padded to whole warps with zero rows, as the kernel runs
+    them. ``rescales``: the tiles on which a warp moved its max."""
+    B, H, S, D = q.shape
+    T = k.shape[2]
+    sp = -(-S // WARP_ROWS) * WARP_ROWS
+    q = torch.cat([q, q.new_zeros(B, H, sp - S, D)], 2)
+    sl2 = torch.tensor(D ** -0.5 * LOG2E, dtype=torch.float32)
+    m = torch.full((B, H, sp, 1), -torch.inf)
+    l, acc, rescales = torch.zeros(B, H, sp, 1), torch.zeros(B, H, sp, D), 0
+    bn = ring_rows(D)
+    for k0 in range(0, T, bn):
+        s = mm(q, k[:, :, k0:k0 + bn].transpose(-1, -2))  # keys past T: absent, p = 0
+        mx = s.amax(-1, keepdim=True)
+        grow = ((mx - m) * sl2 > RESCALE).view(B, H, sp // WARP_ROWS, WARP_ROWS).any(-1)
+        grow = grow.repeat_interleave(WARP_ROWS, -1)[..., None]
+        if grow.any():
+            mn = torch.maximum(m, mx)
+            c = torch.exp2((m - mn) * sl2)
+            m, l, acc = torch.where(grow, mn, m), torch.where(grow, l * c, l), torch.where(grow, acc * c, acc)
+            rescales += int(grow.any())
+        # one FFMA: the product and the sum rounded once
+        p = torch.exp2((s.double() * sl2.double() - (m * sl2).double()).float())
+        l = l + p.sum(-1, keepdim=True)
+        acc = acc + mm(p, v[:, :, k0:k0 + bn])
+    out = acc / l
+    lse = (m * sl2 + torch.log2(l)) * LN2
+    return out[:, :, :S], lse[:, :, :S, 0], rescales
+
+
+def _forward_reference(q, k, v):
+    q, k, v = q.double(), k.double(), v.double()
+    lse = torch.logsumexp(q @ k.transpose(-1, -2) * q.shape[-1] ** -0.5, dim=-1)
+    return sdpa_plain(q, k, v), lse
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_3xtf32_forward_is_fp32_accurate(shape):
+    """3×TF32 products, the ring-tile online softmax with the 2^8 lazy
+    rescale and a fresh P·V accumulator per tile: the output within 1e-6
+    relative L2 of float64 and the log-sum-exp within 1e-6, a tenth of the
+    card's limits (1e-5 for both). The shapes end on a ragged tile where T
+    is not a multiple of the ring's keys (77 at 32, 130 at 16)."""
+    q, k, v = _inputs(shape, sum(shape))[:3]
+    out, lse, _ = forward(q, k, v, mm3)
+    want, want_lse = _forward_reference(q, k, v)
+    assert out.dtype == torch.float32 and _rel(out, want) <= REL_3XTF32, _rel(out, want)
+    assert float((lse.double() - want_lse).abs().max()) <= REL_3XTF32
+    assert _rel(out, want) <= REL_CARD / 10
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_one_pass_tf32_forward_misses_the_fp32_limit(shape):
+    q, k, v = _inputs(shape, sum(shape))[:3]
+    out, lse, _ = forward(q, k, v, mm1)
+    want, want_lse = _forward_reference(q, k, v)
+    assert _rel(out, want) > REL_CARD, _rel(out, want)
+
+
+@pytest.mark.parametrize("growth, rescales", [(0.5, 1), (4.0, 2)])
+def test_lazy_rescale_moves_the_max_only_on_growth(growth, rescales):
+    """Keys whose scores grow along T (by up to 1.5 and 10 in log2 units):
+    with growth under 2^8 the first tile's max is kept to the end (one
+    rescale, the first tile's), a steeper one moves it once more. Either way
+    the output lands within 1e-6 relative L2 of float64 and the log-sum-exp
+    (here 7-11) within 1e-6 of its size."""
+    B, H, S, T, D = 1, 2, 48, 160, 40
+    q, k, v = _inputs((B, H, S, T, D), 7)[:3]
+    q = q.abs() / 4
+    k = (k.abs() * torch.linspace(1.0, 1.0 + growth, T)[:, None]).contiguous()
+    out, lse, n = forward(q, k, v, mm3)
+    want, want_lse = _forward_reference(q, k, v)
+    assert n == rescales
+    assert _rel(out, want) <= REL_3XTF32, _rel(out, want)
+    assert float(((lse.double() - want_lse) / want_lse).abs().max()) <= REL_3XTF32
 
 
 # m16n8k8 with TF32 operands, lane l = 4·g + tq (PTX ISA, "Matrix fragments

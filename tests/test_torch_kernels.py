@@ -329,6 +329,59 @@ def test_flash_attn_repeats_bit_for_bit(cuda_device):
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
+# B3's fp32 tiling (3×TF32 on the tensor cores): 128 query rows a CTA (32 a
+# warp) at D ≤ 48, 64 above; ring tiles of 32 keys (D ≤ 48), 16 (D ≤ 96) or
+# 8; widths rounded up to 8…48, 64, 80, 96, 128 or 160 with the columns past
+# D zero-filled
+F32_WIDTHS = [8, 16, 24, 32, 40, 48, 64, 80, 96, 128, 160]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", F32_WIDTHS)
+def test_flash_attn_f32_head_widths(cuda_device, D):
+    """Every fp32 width template against sdpa_plain (relative L2 ≤ 1e-5); the
+    log-sum-exp within 1e-5 of that of the fp32 scores; the output bits do
+    not depend on the log-sum-exp, and two runs give the same bits."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    q, k, v = _qkv(cuda_device, torch.float32, 2, 3, 200, 130, D, seed=D)
+    got = _check_flash(q, k, v)
+    out, lse = attention_cuda.flash_attn(q, k, v, return_lse=True)
+    again, lse_again = attention_cuda.flash_attn(q, k, v, return_lse=True)
+    assert torch.equal(out, got) and torch.equal(again, got) and torch.equal(lse_again, lse)
+    want = torch.logsumexp(torch.matmul(q, k.transpose(-1, -2)) * D ** -0.5, dim=-1)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 33, 63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize("T", [1, 7, 8, 9, 31, 32, 33, 77])
+def test_flash_attn_f32_tile_edges(cuda_device, S, T):
+    """Query counts on each side of an mma block's 16 rows, a warp's 32 and
+    a CTA's 64 or 128, key counts on each side of the ring tiles (32 keys at
+    D = 40, 16 at 80, 8 at 160)."""
+    for B, H, D, seed in ((2, 3, 40, S * 1000 + T), (1, 2, 80, S * 1000 + T + 1), (1, 2, 160, S * 1000 + T + 2)):
+        _check_flash(*_qkv(cuda_device, torch.float32, B, H, S, T, D, seed=seed))
+
+
+@pytest.mark.cuda
+def test_flash_attn_f32_misaligned_input_is_copied(cuda_device):
+    """A contiguous fp32 view 4 bytes past a 16-byte boundary is copied to an
+    aligned tensor and counted (B3 copies fp32 rows 16 bytes at a time)."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    q, k, v = _qkv(cuda_device, torch.float32, 2, 3, 100, 77, 40, seed=4)
+    flat = torch.zeros(v.numel() + 1, dtype=v.dtype, device=cuda_device)
+    v_off = flat[1:].view(v.shape)
+    v_off.copy_(v)
+    assert v_off.is_contiguous() and v_off.data_ptr() % 16 == 4
+    copies = attention_cuda.copies
+    with pytest.warns(UserWarning, match="copied"):
+        got = _check_flash(q, k, v_off)
+    assert attention_cuda.copies == copies + 1
+    torch.testing.assert_close(got, attention_cuda.flash_attn(q, k, v), rtol=0, atol=0)
+
+
 # ------------------------------------------------------- kernels B4 and B5
 
 # B4/B5 against autograd through sdpa_plain in fp32 on the upcast inputs and
