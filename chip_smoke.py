@@ -5,6 +5,7 @@ Run from the repository root, with one CUDA card visible:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --attention   # phase 9, then B3, B4, B5 alone (11, 15)
+    python3 chip_smoke.py --blend       # phases 3 and 6, then B1 and B2 alone
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN.
@@ -77,6 +78,18 @@ Phases (any failure exits non-zero):
      ``bench_bwd_micro`` scripts at their defaults, with the launches of
      B1v, B1 and B2 read around them.
 
+``--blend`` builds only B1 and B2 (ptxas registers and spills, and, where
+cuobjdump runs, the instructions by class of each loop of B1 at C = 4 and
+B2 at C = 3), runs phases 3 and 6, then times each alone by device time:
+B1 at bear C = 4 and garden, B2 at bear C = 3 and garden, against its
+bound, with the tile-work spread (evaluated pairs per tile, largest and
+mean: pairs up to each pixel's stop whose gaussian's footprint box meets
+the pixel's warp, as the bound counts them, beside all walked pairs) and
+the heaviest tile's one-SM floor. To compare two versions of the
+kernels on one card, run it from each tree in turns (parent, change,
+change, parent) within one call. ``--attention`` does the same for B3, B4
+and B5 (phase 9, then the kernel rows of phases 11 and 15).
+
 A busy share is the union of the device ops' intervals over the wall of
 the same profiled window, both from torch.profiler, so it cannot pass 1.
 Every device time is read from a profiled window whose records must match
@@ -94,6 +107,8 @@ import argparse
 import contextlib
 import copy
 import json
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -107,7 +122,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-# B1's fp32 operations: every evaluated (pixel, gaussian) pair computes dx, dy,
+# B1's fp32 operations: every evaluated (pixel, gaussian) pair (one up to the
+# pixel's stop whose gaussian's footprint box meets the pixel's warp,
+# ops/blend.tile_pairs; no other pair can pass the alpha test) computes dx, dy,
 # sigma (9), the sigma test, -sigma, exp (counted as one), ×opacity, the
 # clamp and the alpha test; a composited pair adds 1−α, T×, the stop test,
 # the weight and a multiply-add per channel
@@ -340,6 +357,73 @@ def check_backward(name, args, bins, H, W, seed=0):
     return err, got
 
 
+def blend_cases(dev, state, cam0, garden) -> dict:
+    """The inputs of phases 3 and 6, (args, bins) each: the bear-scale 512²
+    frame at C = 4 and C = 3, with every opacity 0, the 500×372 frame, and
+    the 300k-gaussian garden-scale frame."""
+    from gaussctrl_exp_tpu_torch.cameras import look_at, make_camera
+    from gaussctrl_exp_tpu_torch.models.gaussians import GaussianState, params_from_numpy
+
+    bear_args, bear_bins = blend_inputs(state, cam0, 4)
+    f0 = float(cam0.fx)
+    cam_odd = make_camera(orbit_c2w(0, FRAMES), f0, f0, 250.0, 186.0, 500, 372, device=dev)
+    gstate = GaussianState(params_from_numpy(garden, dev), torch.ones(N_GARDEN, dtype=torch.bool, device=dev))
+    gcam = make_camera(look_at([0.0, -4.0, 0.0], np.zeros(3)), S * 1.05, S * 1.05, S / 2, S / 2, S, S, device=dev)
+    return dict(bear=(bear_args, bear_bins), bear3=blend_inputs(state, cam0, 3),
+                zero=((*bear_args[:3], torch.zeros_like(bear_args[3])), bear_bins),
+                odd=blend_inputs(state, cam_odd, 4), garden=blend_inputs(gstate, gcam, 4))
+
+
+def phase3_blend(cases) -> float:
+    """Phase 3: B1 against its plain version on each case; returns max |d|."""
+    from gaussctrl_exp_tpu_torch.ops import blend_cuda
+
+    print("[3] blend kernel vs plain version")
+    errs = [check_kernel(f"bear {S}² C=4", *cases["bear"], S, S),
+            check_kernel(f"bear {S}² C=3", *cases["bear3"], S, S),
+            check_kernel(f"bear {S}² zero opacity", *cases["zero"], S, S)]
+    out0 = blend_cuda.rasterize_tiles(*cases["zero"][0], cases["zero"][1], S, S)
+    if not (bool((out0.img == 0).all()) and bool((out0.final_T == 1).all())):
+        raise SystemExit("FAIL: zero-opacity scene is not img 0, T 1")
+    errs.append(check_kernel("bear 500×372 C=4", *cases["odd"], 372, 500))
+    errs.append(check_kernel(f"garden {N_GARDEN} {S}² C=4", *cases["garden"], S, S))
+    return max(errs)
+
+
+def phase6_blend(dev, cases, state, cam0) -> float:
+    """Phase 6: B2 against the plain VJP on phase 3's cases, with opacity
+    0.9999 (alpha on the clamp) and with gaussians 0..9 culled; one launch
+    a case; returns max |d|."""
+    from gaussctrl_exp_tpu_torch.models.gaussians import GaussianState
+    from gaussctrl_exp_tpu_torch.ops import blend_cuda
+
+    print("[6] blend backward kernel vs plain VJP (stop-band pixels get a zero cotangent)")
+    blend_cuda.bwd_launches = 0
+    bear_args, bear_bins = cases["bear"]
+    bwd = [check_backward(f"bear {S}² C=4", bear_args, bear_bins, S, S),
+           check_backward(f"bear {S}² C=3", *cases["bear3"], S, S),
+           check_backward("bear 500×372 C=4", *cases["odd"], 372, 500),
+           check_backward(f"bear {S}² zero opacity", *cases["zero"], S, S)]
+    if any(bool(g.any()) for g in bwd[-1][1]):
+        raise SystemExit("FAIL: zero opacity gives a non-zero gradient")
+    clamped = (*bear_args[:3], torch.full_like(bear_args[3], 0.9999))
+    bwd.append(check_backward(f"bear {S}² opacity 0.9999 (alpha on the clamp)", clamped, bear_bins, S, S))
+    n_cut = 10
+    if not bool((bear_bins.gid < n_cut).any()):
+        raise SystemExit(f"FAIL: none of gaussians 0..{n_cut - 1} is visible, so culling them tests nothing")
+    keep = state.alive & (torch.arange(N_BEAR, device=dev) >= n_cut)
+    c_args, c_bins = blend_inputs(GaussianState(state.params, keep), cam0, 4)
+    bwd.append(check_backward(f"bear {S}² gaussians 0..{n_cut - 1} culled", c_args, c_bins, S, S))
+    first = int(c_bins.gid.min())
+    if any(bool(g[:n_cut].any()) for g in bwd[-1][1]) or not bool(bwd[-1][1][2][first].any()):
+        raise SystemExit("FAIL: culled gaussians got a gradient, or the first visible one none")
+    bwd.append(check_backward(f"garden {N_GARDEN} {S}² C=4", *cases["garden"], S, S))
+    print(f"    blend_bwd launches in phase 6: {blend_cuda.bwd_launches} for {len(bwd)} cases")
+    if blend_cuda.bwd_launches != len(bwd):
+        raise SystemExit("FAIL: blend_bwd did not launch once per case")
+    return max(e for e, _ in bwd)
+
+
 def time_ms(fn, iters=20, warmup=3) -> float:
     for _ in range(warmup):
         fn()
@@ -362,25 +446,54 @@ def roofline(n_bytes, n_ops) -> tuple[float, str]:
     return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def blend_ops(C, evaluated, composited, backward=False):
+    """B1's fp32 operations (B2's with ``backward``) for these counts of
+    evaluated and composited pairs (ints or tensors of them)."""
+    if backward:
+        return OPS_EVALUATED * evaluated + (OPS_BWD_COMPOSITED_BASE + OPS_BWD_PER_CHANNEL * C) * composited
+    return OPS_EVALUATED * evaluated + (OPS_COMPOSITED_BASE + 2 * C) * composited
+
+
 def blend_bound(args, bins, H, W, backward=False) -> tuple[float, str, dict]:
     """B1's bound, or B2's with ``backward``: each input read once, each
     output written once, and the fp32 operations of the pairs these inputs
-    evaluate up to each pixel's stop."""
+    evaluate up to each pixel's stop, where the gaussian's footprint box
+    meets the pixel's warp (``ops/blend.tile_pairs``). The walked pairs,
+    the box ignored, are reported beside them."""
     from gaussctrl_exp_tpu_torch.ops.blend import count_pairs
 
     xys, conics, chan, opacs = args
     N, C = chan.shape
     tiles = bins.tile_cnt.numel()
     with torch.no_grad():
-        evaluated, composited = count_pairs(xys, conics, opacs, bins, H, W)
+        walked, evaluated, composited = count_pairs(xys, conics, opacs, bins, H, W)
     n_bytes = 4 * (N * (2 + 3 + C + 1) + bins.n_isects + 2 * tiles + H * W * (C + 1))
     if backward:  # + residuals img, final_T (counted above as the outputs), cotangents, gradients
         n_bytes += 4 * (H * W * (C + 1) + N * (6 + C))
-        n_ops = OPS_EVALUATED * evaluated + (OPS_BWD_COMPOSITED_BASE + OPS_BWD_PER_CHANNEL * C) * composited
-    else:
-        n_ops = OPS_EVALUATED * evaluated + (OPS_COMPOSITED_BASE + 2 * C) * composited
+    n_ops = blend_ops(C, evaluated, composited, backward)
     bound, by = roofline(n_bytes, n_ops)
-    return bound, by, dict(bytes=n_bytes, ops=n_ops, evaluated_pairs=evaluated, composited_pairs=composited)
+    return bound, by, dict(bytes=n_bytes, ops=n_ops, walked_pairs=walked, evaluated_pairs=evaluated,
+                           composited_pairs=composited)
+
+
+def tile_spread(args, bins, H, W, backward=False) -> dict:
+    """How B1's (B2's) work spreads over the tiles, one CTA each: evaluated
+    pairs per tile, largest and mean; the list lengths; and the heaviest
+    tile's fp32 operations over one SM's share of the fp32 peak, the least
+    time its CTA could take on its SM (the one-SM floor)."""
+    from gaussctrl_exp_tpu_torch.ops.blend import tile_pairs
+    from gaussctrl_exp_tpu_torch.utils.timing import PEAK_F32_OPS_S, SMS
+
+    xys, conics, chan, opacs = args
+    with torch.no_grad():
+        _, evaluated, composited = tile_pairs(xys, conics, opacs, bins, H, W)
+    ops = blend_ops(chan.shape[1], evaluated, composited, backward)
+    heavy = int(ops.argmax())
+    return dict(tiles=ops.numel(), eval_max=int(evaluated.max()), eval_mean=float(evaluated.double().mean()),
+                list_max=int(bins.tile_cnt.max()), list_mean=float(bins.tile_cnt.double().mean()),
+                heaviest_tile=heavy, heaviest_list=int(bins.tile_cnt[heavy]), heaviest_eval=int(evaluated[heavy]),
+                heaviest_ops=int(ops[heavy]), ops_max_over_mean=float(ops.max() / ops.double().mean()),
+                one_sm_floor_ms=float(ops[heavy]) / (PEAK_F32_OPS_S / SMS) * 1e3)
 
 
 class ViewSet:
@@ -902,15 +1015,124 @@ def bwd_rows(dev) -> dict:
     return rows
 
 
-def print_ptxas() -> None:
-    """The attention kernels' registers and spills, per kernel and width, as
+ATTENTION_SOURCES = ("flash_attn_fwd", "flash_attn_bwd")
+BLEND_SOURCES = ("blend_fwd", "blend_bwd")
+# the instantiations whose SASS loops --blend counts: B1 as the eval frame
+# runs it (C = 4), B2 as the train step does (C = 3)
+SASS_KERNELS = (("blend_fwd", "blend_fwd_kernelILi4E"), ("blend_bwd", "blend_bwd_kernelILi3E"))
+BLEND_LAUNCHES = 20  # calls in each device-time window of --blend
+
+
+def print_ptxas(sources=ATTENTION_SOURCES + BLEND_SOURCES) -> None:
+    """The kernels' registers and spills, per kernel and instantiation, as
     ptxas -v reported them to the nvcc runs of this process."""
     from gaussctrl_exp_tpu_torch.ops import cuda_build
 
-    for src in ("flash_attn_fwd", "flash_attn_bwd"):
+    for src in sources:
         for line in cuda_build.logs.get(src, "").splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line and "0 bytes spill" not in line:
                 print(f"    ptxas {src}: " + line.split("ptxas info    :")[-1].strip())
+
+
+_SASS_FUNC = re.compile(r"Function : (\S+)")
+_SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)[.\w]*([^;]*);")
+_SASS_TARGET = re.compile(r"0x([0-9a-f]+)")
+SASS_CLASSES = ("FFMA", "FMUL", "FADD", "MUFU", "LDS", "STS", "SHFL", "ATOMS", "BRA")
+
+
+def sass_loops(text: str, match: str) -> list[dict]:
+    """The loops of the first function whose (mangled) name holds ``match``
+    in ``cuobjdump -sass`` output ``text``: one entry per backward branch,
+    innermost (shortest) first, with its byte range, its instruction count
+    and the count of each class of ``SASS_CLASSES`` (the opcode before its
+    first dot; a loop's count includes the loops nested in it)."""
+    instrs, found = [], False
+    for line in text.splitlines():
+        m = _SASS_FUNC.search(line)
+        if m:
+            if found:
+                break
+            found = match in m.group(1)
+            continue
+        m = _SASS_INSTR.search(line) if found else None
+        if m:
+            instrs.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    loops = []
+    for addr, op, rest in instrs:
+        t = _SASS_TARGET.search(rest)
+        if op == "BRA" and t and int(t.group(1), 16) <= addr:
+            lo = int(t.group(1), 16)
+            body = [o for a, o, _ in instrs if lo <= a <= addr]
+            loops.append(dict(start=lo, end=addr, instructions=len(body),
+                              **{c: body.count(c) for c in SASS_CLASSES}))
+    return sorted(loops, key=lambda d: d["instructions"])
+
+
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of kernel ``name``'s library (built if needed)."""
+    from gaussctrl_exp_tpu_torch.ops import cuda_build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(cuda_build.build([name])[name])], capture_output=True, text=True,
+                         check=True, timeout=300)
+    return out.stdout
+
+
+def print_sass() -> None:
+    """The loops of B1 (C = 4) and B2 (C = 3) in their SASS, innermost
+    first, with their instructions by class, where cuobjdump runs; where it
+    does not, says so."""
+    for src, match in SASS_KERNELS:
+        try:
+            text = sass(src)
+        except (OSError, subprocess.SubprocessError) as e:
+            print(f"    sass {src}: cuobjdump did not run: {e}")
+            continue
+        loops = sass_loops(text, match)
+        if not loops:
+            print(f"    sass {match}: no backward branch found in {len(text)} bytes of cuobjdump output")
+        for lp in loops:
+            counts = " ".join(f"{c} {lp[c]}" for c in SASS_CLASSES)
+            print(f"    sass {match} loop {lp['start']:#06x}-{lp['end']:#06x}: {lp['instructions']} instructions; {counts}")
+
+
+def blend_rows(dev, cases) -> dict:
+    """B1 at bear C = 4 and garden, B2 at bear C = 3 (seeded random
+    cotangents) and garden, each alone by device time (``kernel_time_ms``,
+    ``BLEND_LAUNCHES`` calls a window) with the SM clock read before and
+    after, against its bound, with the tile-work spread and the one-SM
+    floor (``tile_spread``)."""
+    from gaussctrl_exp_tpu_torch.ops import blend_cuda
+    from gaussctrl_exp_tpu_torch.utils.timing import gpu_clocks, kernel_time_ms
+
+    rows = {}
+    for kernel, case in (("B1", "bear"), ("B1", "garden"), ("B2", "bear3"), ("B2", "garden")):
+        args, bins = cases[case]
+        backward = kernel == "B2"
+        fwd = blend_cuda.blend_forward(*args, bins, S, S)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        g_img = torch.randn(fwd.img.shape, generator=gen, device=dev)
+        g_T = torch.randn(fwd.final_T.shape, generator=gen, device=dev)
+        if backward:
+            def fn():
+                return blend_cuda.blend_backward(*args, bins, fwd.img, fwd.final_T, g_img, g_T, S, S)
+        else:
+            def fn():
+                return blend_cuda.blend_forward(*args, bins, S, S)
+        before = gpu_clocks()
+        ms = kernel_time_ms(fn, "blend_bwd_kernel" if backward else "blend_fwd_kernel", BLEND_LAUNCHES)
+        after = gpu_clocks()
+        bound, by, work = blend_bound(args, bins, S, S, backward)
+        sp = tile_spread(args, bins, S, S, backward)
+        print(f"  {kernel} {'garden' if case == 'garden' else 'bear'} {S}² C={args[2].shape[1]}: {ms:.4f} ms device time per launch; bound {bound:.5f} ms "
+              f"({by}), time / bound {ms / bound:.2f}; n_isects {bins.n_isects}; work {work}; clock before "
+              f"{clock_text(before)}, after {clock_text(after)}")
+        print(f"    tiles {sp['tiles']}: evaluated pairs a tile max {sp['eval_max']} mean {sp['eval_mean']:.1f}; list "
+              f"max {sp['list_max']} mean {sp['list_mean']:.1f}; heaviest tile {sp['heaviest_tile']} (list "
+              f"{sp['heaviest_list']}, {sp['heaviest_eval']} pairs evaluated, {sp['heaviest_ops']} operations, "
+              f"{sp['ops_max_over_mean']:.2f}× the mean); one-SM floor {sp['one_sm_floor_ms']:.5f} ms")
+        rows[(kernel, case)] = dict(ms=ms, bound_ms=bound, bound_by=by, **sp)
+    return rows
 
 
 def attention_only(dev) -> int:
@@ -924,13 +1146,45 @@ def attention_only(dev) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"{smi_line()}; {ATTN_LAUNCHES} calls a window")
-    cuda_build.build()
-    print_ptxas()
+    cuda_build.build(ATTENTION_SOURCES)
+    print_ptxas(ATTENTION_SOURCES)
     _, flash_cases = phase9_flash(dev)
     print("[11] B3 alone, by device time")
     b3_rows(dev, flash_cases)
     print("[15] B4 and B5 alone, by device time")
     bwd_rows(dev)
+    print(f"spare launches a profiled cycle at the end {spare_launches()}")
+    return 0
+
+
+def blend_only(dev) -> int:
+    """``--blend``: kernels B1 and B2 built (their registers, spills and
+    SASS loops printed), checked as in phases 3 and 6, then timed alone by
+    device time (``blend_rows``), for a before/after comparison of the blend
+    kernels within one chip call. Prints no kernels line and no result."""
+    from gaussctrl_exp_tpu_torch.cli import render as cli
+    from gaussctrl_exp_tpu_torch.engine.checkpoint import import_splatfacto_checkpoint
+    from gaussctrl_exp_tpu_torch.ops import cuda_build
+    from gaussctrl_exp_tpu_torch.utils.timing import spare_launches
+
+    print(f"{smi_line()}; {BLEND_LAUNCHES} calls a window")
+    t0 = time.perf_counter()
+    cuda_build.build(BLEND_SOURCES)
+    print(f"built B1 and B2 in {time.perf_counter() - t0:.2f} s (per source "
+          f"{ {n: cuda_build.EXTRA_FLAGS[n] for n in BLEND_SOURCES} })")
+    print_ptxas(BLEND_SOURCES)
+    print_sass()
+    bear = synthetic_params(N_BEAR, 0, 0.8, -4.2, 0.5)
+    garden = synthetic_params(N_GARDEN, 7, 1.2, -5.3, 0.4)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        ckpt, path_json = write_inputs(Path(tmp), bear)
+        state, _ = import_splatfacto_checkpoint(ckpt, device=dev)
+        cam0 = cli.path_cameras(path_json, device=dev)[0]
+    cases = blend_cases(dev, state, cam0, garden)
+    phase3_blend(cases)
+    phase6_blend(dev, cases, state, cam0)
+    print("[5, 8] B1 and B2 alone, by device time")
+    blend_rows(dev, cases)
     print(f"spare launches a profiled cycle at the end {spare_launches()}")
     return 0
 
@@ -1622,8 +1876,11 @@ def phase16_variants(dev, odd, garden) -> dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--attention", action="store_true",
-                   help="build and time only the attention kernels (phase 9 and the kernel rows of 11 and 15)")
+    mode = p.add_mutually_exclusive_group()
+    mode.add_argument("--attention", action="store_true",
+                      help="build and time only the attention kernels (phase 9 and the kernel rows of 11 and 15)")
+    mode.add_argument("--blend", action="store_true",
+                      help="build, check and time only the blend kernels B1 and B2 (phases 3 and 6, then alone)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA card",
@@ -1631,7 +1888,9 @@ def main(argv=None) -> int:
         return 2
     if args.attention:
         return attention_only(torch.device("cuda"))
-    from gaussctrl_exp_tpu_torch.cameras import camera_matrices, look_at, make_camera
+    if args.blend:
+        return blend_only(torch.device("cuda"))
+    from gaussctrl_exp_tpu_torch.cameras import camera_matrices, make_camera
     from gaussctrl_exp_tpu_torch.cli import render as cli
     from gaussctrl_exp_tpu_torch.engine.checkpoint import import_splatfacto_checkpoint
     from gaussctrl_exp_tpu_torch.models.gaussians import GaussianState, params_from_numpy
@@ -1673,27 +1932,10 @@ def main(argv=None) -> int:
         cam0 = cams[0]
 
         # ---- phase 3: the kernel against its plain version
-        print("[3] blend kernel vs plain version")
-        errs = []
-        bear_args, bear_bins = blend_inputs(state, cam0, 4)
-        errs.append(check_kernel(f"bear {S}² C=4", bear_args, bear_bins, S, S))
-        args3, bins3 = blend_inputs(state, cam0, 3)
-        errs.append(check_kernel(f"bear {S}² C=3", args3, bins3, S, S))
-        zero = (bear_args[0], bear_args[1], bear_args[2], torch.zeros_like(bear_args[3]))
-        errs.append(check_kernel(f"bear {S}² zero opacity", zero, bear_bins, S, S))
-        out0 = blend_cuda.rasterize_tiles(*zero, bear_bins, S, S)
-        if not (bool((out0.img == 0).all()) and bool((out0.final_T == 1).all())):
-            raise SystemExit("FAIL: zero-opacity scene is not img 0, T 1")
+        cases = blend_cases(dev, state, cam0, garden)
+        max_abs_err = phase3_blend(cases)
+        (bear_args, bear_bins), (args_odd, bins_odd), (g_args, g_bins) = cases["bear"], cases["odd"], cases["garden"]
         c2w0 = orbit_c2w(0, FRAMES)
-        f0 = float(cam0.fx)
-        cam_odd = make_camera(c2w0, f0, f0, 250.0, 186.0, 500, 372, device=dev)
-        args_odd, bins_odd = blend_inputs(state, cam_odd, 4)
-        errs.append(check_kernel("bear 500×372 C=4", args_odd, bins_odd, 372, 500))
-        gstate = GaussianState(params_from_numpy(garden, dev), torch.ones(N_GARDEN, dtype=torch.bool, device=dev))
-        gcam = make_camera(look_at([0.0, -4.0, 0.0], np.zeros(3)), S * 1.05, S * 1.05, S / 2, S / 2, S, S, device=dev)
-        g_args, g_bins = blend_inputs(gstate, gcam, 4)
-        errs.append(check_kernel(f"garden {N_GARDEN} {S}² C=4", g_args, g_bins, S, S))
-        max_abs_err = max(errs)
 
         # ---- phase 4: the main path through the CLI entry point
         out_dir = tmp / "frames"
@@ -1784,31 +2026,7 @@ def main(argv=None) -> int:
               f"work {g_work}")
 
         # ---- phase 6: B2 against the plain VJP
-        print("[6] blend backward kernel vs plain VJP (stop-band pixels get a zero cotangent)")
-        blend_cuda.bwd_launches = 0
-        bwd = [check_backward(f"bear {S}² C=4", bear_args, bear_bins, S, S),
-               check_backward(f"bear {S}² C=3", args3, bins3, S, S),
-               check_backward("bear 500×372 C=4", args_odd, bins_odd, 372, 500),
-               check_backward(f"bear {S}² zero opacity", zero, bear_bins, S, S)]
-        if any(bool(g.any()) for g in bwd[-1][1]):
-            raise SystemExit("FAIL: zero opacity gives a non-zero gradient")
-        clamped = (bear_args[0], bear_args[1], bear_args[2], torch.full_like(bear_args[3], 0.9999))
-        bwd.append(check_backward(f"bear {S}² opacity 0.9999 (alpha on the clamp)", clamped, bear_bins, S, S))
-        n_cut = 10
-        if not bool((bear_bins.gid < n_cut).any()):
-            raise SystemExit(f"FAIL: none of gaussians 0..{n_cut - 1} is visible, so culling them tests nothing")
-        keep = state.alive & (torch.arange(N_BEAR, device=dev) >= n_cut)
-        c_args, c_bins = blend_inputs(GaussianState(state.params, keep), cam0, 4)
-        bwd.append(check_backward(f"bear {S}² gaussians 0..{n_cut - 1} culled", c_args, c_bins, S, S))
-        first = int(c_bins.gid.min())
-        if any(bool(g[:n_cut].any()) for g in bwd[-1][1]) or not bool(bwd[-1][1][2][first].any()):
-            raise SystemExit("FAIL: culled gaussians got a gradient, or the first visible one none")
-        bwd.append(check_backward(f"garden {N_GARDEN} {S}² C=4", g_args, g_bins, S, S))
-        bwd_max_abs_err = max(e for e, _ in bwd)
-        print(f"    blend_bwd launches in phase 6: {blend_cuda.bwd_launches} for {len(bwd)} cases")
-        if blend_cuda.bwd_launches != len(bwd):
-            raise SystemExit("FAIL: blend_bwd did not launch once per case")
-        del bwd
+        bwd_max_abs_err = phase6_blend(dev, cases, state, cam0)
 
         # ---- phase 7: the training path through Trainer
         train_cfg = TrainConfig(

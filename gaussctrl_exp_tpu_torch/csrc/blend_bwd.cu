@@ -29,41 +29,87 @@
 // (fields, residuals, cotangents in, (N, 6 + C) gradients out) are few, so on
 // this card it is bound by operations.
 //
-// Design (simple and right, the shape of B1): one CTA per 16x16 tile, one
-// thread per pixel carrying T, prefix and done, as the TPU kernel's state
-// scratch did; the tile's gaussians are staged through shared memory 256 at a
-// time. The TPU grid ran in order and wrote race-free per-slot outputs; here
-// the tiles run in parallel, so the CTA reduces across its pixels itself:
-// for each gaussian of the batch the 6 + C values are summed over the warp
-// with __shfl_down_sync (skipped when __any_sync says no lane composited
-// it), lane 0 adds the warp's sums into a (6 + C, 256) shared buffer with
-// shared atomics, and after the batch one thread per gaussian adds the
-// buffer's non-zero entries into the global output with atomicAdd. Summing by
-// gaussian id, not by list position, keeps the TPU path's lost first slot
-// when gaussian 0 is culled (ROADMAP C1) out of the port. The atomics make
-// the order of the sum, and so the last bits, change from run to run.
+// Design: one CTA per 16x16 tile, one thread per pixel carrying T, prefix
+// and done, as the TPU kernel's state scratch did; the tile's gaussians are
+// staged through shared memory 256 at a time and a warp walks only the
+// gaussians whose footprint's box meets its two rows, as B1 does
+// (blend_common.cuh), with the same sigma, alpha and T roundings, so B1, B2
+// and the plain version take exactly the same pairs. The TPU grid ran in
+// order and wrote race-free per-slot outputs; here the tiles run in
+// parallel, so each warp sums over its pixels itself. For each gaussian that
+// a lane of the warp composited, the F = 6 + C values are summed over the
+// warp by a transposed butterfly (reduce-scatter): each shuffle step halves
+// both the lanes a sum spans and the values a lane holds, so F values cost
+// ceil(F/2) + ceil(F/4) + ... shuffles (12 at F = 9 or 10) where a tree per
+// value costs 5F, and the F lanes that end up holding one field's total each
+// add it into the global output in the same atomicAdd instruction, which the
+// warp does not wait for. Summing by gaussian id, not by list position, keeps
+// the TPU path's lost first slot when gaussian 0 is culled (ROADMAP C1) out
+// of the port. The atomics make the order of the sum, and so the last bits,
+// change from run to run.
 //
 // suffix_j = img . g - prefix_j is the TPU kernel's form; it loses digits
 // against the plain version's reverse cumulative sum when the two terms are
 // close, and 1/(1 - alpha) scales that loss by up to 1000 at the clamp.
-//
-// Compiled with -fmad=false like B1, so sigma and alpha round as in B1 and the
-// plain PyTorch version, and all three keep exactly the same pairs.
 
-#include <cuda_runtime.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kBlock = 16;
-constexpr int kPix = kBlock * kBlock;  // threads per CTA, one per pixel
-constexpr int kBatch = kPix;           // gaussians staged per batch, one per thread
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kAlphaClamp = 0.999f;
-constexpr float kMinAlpha = 1.0f / 255.0f;
-constexpr float kTEps = 1e-4f;
+using namespace gctorch_blend;
+
+// 1 / x to about 1 ulp, one MUFU.RCP; x = 1 - alpha lies in [0.001, 1]
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// The butterfly: while a lane holds N > 1 partial sums, the step over lane
+// bit M sends the half it drops to the partner lane (lane ^ M) and adds the
+// half it keeps to what the partner sent: the lanes with bit M clear keep
+// values [0, H), the others [H, N), H = ceil(N/2). Once one value is left the
+// remaining steps add the partners' values whole.
+template <int N, int M>
+__device__ __forceinline__ void scatter_sum(float (&v)[kLanes], int lane) {
+  if constexpr (M > 0) {
+    if constexpr (N == 1) {
+      v[0] += __shfl_xor_sync(kFull, v[0], M);
+      scatter_sum<1, M / 2>(v, lane);
+    } else {
+      constexpr int H = (N + 1) / 2;
+      const bool upper = lane & M;
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        const float lo = v[i];
+        const float hi = i + H < N ? v[i + H] : 0.0f;
+        v[i] = (upper ? hi : lo) + __shfl_xor_sync(kFull, upper ? lo : hi, M);
+      }
+      scatter_sum<H, M / 2>(v, lane);
+    }
+  }
+}
+
+// The value whose total scatter_sum<N, M> leaves on this lane, or -1 where
+// the lane holds none or a copy another lane adds.
+template <int N, int M>
+__device__ __forceinline__ int scatter_field(int lane) {
+  if constexpr (M == 0) {
+    return N == 1 ? 0 : -1;
+  } else if constexpr (N == 1) {
+    return (lane & M) ? -1 : scatter_field<1, M / 2>(lane);
+  } else {
+    constexpr int H = (N + 1) / 2;
+    if (lane & M) {
+      const int f = scatter_field<H, M / 2>(lane);
+      return f < 0 || H + f >= N ? -1 : H + f;
+    }
+    return scatter_field<H, M / 2>(lane);
+  }
+}
 
 template <int C>
-__global__ void __launch_bounds__(kPix)
+__global__ void __launch_bounds__(kTilePix, kMinBlocks<C>)
 blend_bwd_kernel(const float* __restrict__ xys,      // (N, 2)
                  const float* __restrict__ conics,   // (N, 3)
                  const float* __restrict__ colors,   // (N, C)
@@ -78,126 +124,92 @@ blend_bwd_kernel(const float* __restrict__ xys,      // (N, 2)
                  float* __restrict__ grads,          // (N, 6 + C), zeroed by the caller
                  int H, int W, int tiles_x) {
   constexpr int F = 6 + C;
+  static_assert(F <= kLanes, "the butterfly leaves at most one value a lane");
+  __shared__ Staged<C> s;
   __shared__ int s_g[kBatch];
-  __shared__ float s_x[kBatch], s_y[kBatch];
-  __shared__ float s_a[kBatch], s_b[kBatch], s_c[kBatch], s_o[kBatch];
-  __shared__ float s_col[C][kBatch];
-  __shared__ float s_grad[F][kBatch];
 
   const int tile = blockIdx.x;
   const int t = threadIdx.x;
-  const int lane = t & 31;
+  const int lane = t & (kLanes - 1);
+  int field = scatter_field<F, kLanes / 2>(lane);  // the sum this lane adds, or -1
+  asm volatile("" : "+r"(field));  // kept in a register: not recomputed in the pair loop
   const int px = (tile % tiles_x) * kBlock + t % kBlock;
   const int py = (tile / tiles_x) * kBlock + t / kBlock;
   const float fpx = static_cast<float>(px);
   const float fpy = static_cast<float>(py);
   const int start = tile_start[tile];
   const int cnt = tile_cnt[tile];
+  const Strip strip{static_cast<float>(px - t % kBlock),  // the warp's two rows of the tile
+                    static_cast<float>(py - t / kBlock % 2), static_cast<float>(py - t / kBlock % 2 + 1)};
 
-  // per-pixel cotangents and residuals; zero past the image edge
-  float gi[C];
-  float img_dot_g = 0.0f, gT_Tf = 0.0f;
-  const bool inside = px < W && py < H;
-  if (inside) {
+  // the pixel's cotangents (zero past the image edge) and
+  // K = img . g_img + g_T * final_T
+  float gi[C], K = 0.0f;
+  bool done = !(px < W && py < H);
+#pragma unroll
+  for (int c = 0; c < C; ++c) gi[c] = 0.0f;
+  if (!done) {
     const int p = py * W + px;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       gi[c] = g_img[p * C + c];
-      img_dot_g += img[p * C + c] * gi[c];
+      K += img[p * C + c] * gi[c];
     }
-    gT_Tf = g_T[p] * final_T[p];
-  } else {
-#pragma unroll
-    for (int c = 0; c < C; ++c) gi[c] = 0.0f;
+    K += g_T[p] * final_T[p];
   }
-
-  float T = 1.0f;
-  float prefix = 0.0f;
-  int done = inside ? 0 : 1;
+  float T = 1.0f, prefix = 0.0f;
 
   for (int b0 = 0; b0 < cnt; b0 += kBatch) {
     // Barrier: the previous batch is consumed before it is overwritten.
-    if (__syncthreads_count(done) == kPix) break;
+    if (__syncthreads_count(done) == kTilePix) break;
     const int j = b0 + t;
-    if (j < cnt) {
-      const int g = gid[start + j];
-      s_g[t] = g;
-      s_x[t] = xys[2 * g];
-      s_y[t] = xys[2 * g + 1];
-      s_a[t] = conics[3 * g];
-      s_b[t] = conics[3 * g + 1];
-      s_c[t] = conics[3 * g + 2];
-      s_o[t] = opacs[g];
-#pragma unroll
-      for (int c = 0; c < C; ++c) s_col[c][t] = colors[g * C + c];
-    }
-#pragma unroll
-    for (int f = 0; f < F; ++f) s_grad[f][t] = 0.0f;
+    s_g[t] = j < cnt ? gid[start + j] : -1;
+    stage<C>(s, t, s_g[t], xys, conics, colors, opacs);
     __syncthreads();
 
+    // slots past the list hold gaussians whose box is empty
     const int nb = min(kBatch, cnt - b0);
-    // a warp whose 32 pixels have all stopped adds nothing to this batch
-    if (!__all_sync(kFull, done)) {
-      for (int k = 0; k < nb; ++k) {
-        float v[F];
-#pragma unroll
-        for (int f = 0; f < F; ++f) v[f] = 0.0f;
+    for (int k32 = 0; k32 < nb && !__all_sync(kFull, done); k32 += kLanes) {
+      unsigned cand = candidates<C>(s, k32, lane, strip);
+      while (cand && !__all_sync(kFull, done)) {
+        const int k = take_first(cand, k32);
+        const float4 p0 = s[0][k], p1 = s[1][k];
+        // a composited pair's dsigma, exp(-sigma) * dalpha and weight; 0 elsewhere
+        float ds = 0.0f, de = 0.0f, w = 0.0f, dx = 0.0f, dy = 0.0f;
         bool hit = false;
-        if (!done) {
-          const float dx = s_x[k] - fpx;
-          const float dy = s_y[k] - fpy;
-          const float sigma = 0.5f * (s_a[k] * dx * dx + s_c[k] * dy * dy) + s_b[k] * dx * dy;
-          if (sigma >= 0.0f) {
-            const float e = expf(-sigma);
-            const float alpha = fminf(kAlphaClamp, s_o[k] * e);
-            if (alpha >= kMinAlpha) {
-              const float one_m = 1.0f - alpha;
-              const float next_T = T * one_m;
-              if (next_T <= kTEps) {
-                done = 1;
-              } else {
-                const float w = alpha * T;
-                float cg = 0.0f;
+        const Pair pr = pair_alpha(p0, p1, fpx, fpy);
+        if (!done && pr.alpha >= kMinAlpha) {
+          const float next_T = next_transmittance(T, pr.alpha);
+          if (next_T <= kTEps) {
+            done = true;
+          } else {
+            float col[C];
+            colours<C>(s, k, p1, col);
+            float cg = 0.0f;
 #pragma unroll
-                for (int c = 0; c < C; ++c) cg += gi[c] * s_col[c][k];
-                prefix += w * cg;
-                const float suffix = img_dot_g - prefix;
-                const float dalpha = T * cg - (suffix + gT_Tf) / one_m;
-                const float dsigma = -s_o[k] * e * dalpha;
-                v[0] = dsigma * (s_a[k] * dx + s_b[k] * dy);
-                v[1] = dsigma * (s_b[k] * dx + s_c[k] * dy);
-                v[2] = dsigma * 0.5f * dx * dx;
-                v[3] = dsigma * dx * dy;
-                v[4] = dsigma * 0.5f * dy * dy;
-                v[5] = e * dalpha;
-#pragma unroll
-                for (int c = 0; c < C; ++c) v[6 + c] = w * gi[c];
-                T = next_T;
-                hit = true;
-              }
-            }
+            for (int c = 0; c < C; ++c) cg += gi[c] * col[c];
+            w = pr.alpha * T;
+            prefix += w * cg;
+            // dalpha = T cg - (suffix + g_T final_T) / (1 - alpha), suffix = img . g_img - prefix
+            const float dalpha = T * cg - (K - prefix) * rcp_approx(1.0f - pr.alpha);
+            ds = -pr.oe * dalpha;
+            de = pr.e * dalpha;
+            dx = pr.dx;
+            dy = pr.dy;
+            T = next_T;
+            hit = true;
           }
         }
         if (__any_sync(kFull, hit)) {
+          // [dx, dy, da, db, dc, dopacity, dcolor] of the pair, 0 where not composited
+          const float sx = ds * dx, sy = ds * dy;
+          float v[kLanes] = {p0.z * sx + p0.w * sy, p0.w * sx + p1.x * sy, 0.5f * sx * dx, sx * dy,
+                             0.5f * sy * dy, de};
 #pragma unroll
-          for (int f = 0; f < F; ++f) {
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) v[f] += __shfl_down_sync(kFull, v[f], off);
-          }
-          if (lane == 0) {
-#pragma unroll
-            for (int f = 0; f < F; ++f) atomicAdd(&s_grad[f][k], v[f]);
-          }
+          for (int c = 0; c < C; ++c) v[6 + c] = w * gi[c];
+          scatter_sum<F, kLanes / 2>(v, lane);
+          if (field >= 0 && v[0] != 0.0f) atomicAdd(grads + static_cast<long long>(s_g[k]) * F + field, v[0]);
         }
-      }
-    }
-    __syncthreads();
-    if (j < cnt) {
-      float* out = grads + static_cast<long long>(s_g[t]) * F;
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        const float val = s_grad[f][t];
-        if (val != 0.0f) atomicAdd(out + f, val);
       }
     }
   }
@@ -208,7 +220,7 @@ void launch(const float* xys, const float* conics, const float* colors, const fl
             const int* gid, const int* tile_start, const int* tile_cnt, const float* img,
             const float* final_T, const float* g_img, const float* g_T, float* grads, int H,
             int W, int tiles_x, int tiles_y, cudaStream_t stream) {
-  blend_bwd_kernel<C><<<tiles_x * tiles_y, kPix, 0, stream>>>(
+  blend_bwd_kernel<C><<<tiles_x * tiles_y, kTilePix, 0, stream>>>(
       xys, conics, colors, opacs, gid, tile_start, tile_cnt, img, final_T, g_img, g_T, grads, H,
       W, tiles_x);
 }

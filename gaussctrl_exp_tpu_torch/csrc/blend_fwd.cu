@@ -20,32 +20,28 @@
 // not bytes. The TPU kernel re-expressed the serial loop as matrix products;
 // here the loop stays serial per pixel, which is what the card is good at.
 //
-// Design (simple and right): one CTA per tile, 256 threads, one thread per
-// pixel. The tile's gaussians are staged through shared memory in batches of
-// 256: each thread loads one gaussian's xy, conic, opacity and C <= 8
-// channels by its id from the original-order arrays (14 floats, ~14 KB per
-// batch), then every pixel walks the batch serially. The CTA leaves the tile
-// as soon as all 256 pixels have stopped (__syncthreads_count).
-//
-// The file is compiled with -fmad=false, so sigma and alpha round exactly as
-// the plain PyTorch version's separate elementwise operations do and the two
-// agree bit for bit on which gaussians pass the alpha test. The remaining
-// difference is the transmittance product: a serial product here, a cumprod
-// there.
+// Design: one CTA per tile, 256 threads, one thread per pixel. The tile's
+// gaussians are staged through shared memory 256 at a time as packed float4s
+// (blend_common.cuh), so a pair costs two 16-byte broadcast loads to be
+// evaluated and one or two more to be composited. A warp (two rows of the
+// tile) takes 32 gaussians at a time: each lane tests one gaussian's
+// footprint box against the warp's pixels, and a ballot leaves the ones that
+// some pixel of the warp may take. A pair far outside a gaussian
+// (sigma past log(255 * opacity) plus a margin) skips its exponential. A
+// warp leaves the batch when its 32 pixels have stopped, the CTA the tile
+// when all 256 have (__syncthreads_count). sigma, alpha and T round as in
+// the plain PyTorch version (blend_common.cuh), so the two take the same
+// pairs; the transmittance differs only as a serial product against a
+// cumprod.
 
-#include <cuda_runtime.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kBlock = 16;
-constexpr int kPix = kBlock * kBlock;  // threads per CTA, one per pixel
-constexpr int kBatch = kPix;           // gaussians staged per batch, one per thread
-constexpr float kAlphaClamp = 0.999f;
-constexpr float kMinAlpha = 1.0f / 255.0f;
-constexpr float kTEps = 1e-4f;
+using namespace gctorch_blend;
 
 template <int C>
-__global__ void __launch_bounds__(kPix)
+__global__ void __launch_bounds__(kTilePix, kMinBlocks<C>)
 blend_fwd_kernel(const float* __restrict__ xys,     // (N, 2)
                  const float* __restrict__ conics,  // (N, 3)
                  const float* __restrict__ colors,  // (N, C)
@@ -56,9 +52,7 @@ blend_fwd_kernel(const float* __restrict__ xys,     // (N, 2)
                  float* __restrict__ img,      // (H, W, C)
                  float* __restrict__ final_T,  // (H, W)
                  int H, int W, int tiles_x) {
-  __shared__ float s_x[kBatch], s_y[kBatch];
-  __shared__ float s_a[kBatch], s_b[kBatch], s_c[kBatch], s_o[kBatch];
-  __shared__ float s_col[C][kBatch];
+  __shared__ Staged<C> s;
 
   const int tile = blockIdx.x;
   const int t = threadIdx.x;
@@ -66,8 +60,11 @@ blend_fwd_kernel(const float* __restrict__ xys,     // (N, 2)
   const int py = (tile / tiles_x) * kBlock + t / kBlock;
   const float fpx = static_cast<float>(px);
   const float fpy = static_cast<float>(py);
+  const int lane = t & (kLanes - 1);
   const int start = tile_start[tile];
   const int cnt = tile_cnt[tile];
+  const Strip strip{static_cast<float>(px - t % kBlock),  // the warp's two rows of the tile
+                    static_cast<float>(py - t / kBlock % 2), static_cast<float>(py - t / kBlock % 2 + 1)};
 
   float T = 1.0f;
   float acc[C];
@@ -77,38 +74,31 @@ blend_fwd_kernel(const float* __restrict__ xys,     // (N, 2)
 
   for (int b0 = 0; b0 < cnt; b0 += kBatch) {
     // Barrier: the previous batch is consumed before it is overwritten.
-    if (__syncthreads_count(done) == kPix) break;
+    if (__syncthreads_count(done) == kTilePix) break;
     const int j = b0 + t;
-    if (j < cnt) {
-      const int g = gid[start + j];
-      s_x[t] = xys[2 * g];
-      s_y[t] = xys[2 * g + 1];
-      s_a[t] = conics[3 * g];
-      s_b[t] = conics[3 * g + 1];
-      s_c[t] = conics[3 * g + 2];
-      s_o[t] = opacs[g];
-#pragma unroll
-      for (int c = 0; c < C; ++c) s_col[c][t] = colors[g * C + c];
-    }
+    stage<C>(s, t, j < cnt ? gid[start + j] : -1, xys, conics, colors, opacs);
     __syncthreads();
-    if (done) continue;
+    // slots past the list hold gaussians whose box is empty
     const int nb = min(kBatch, cnt - b0);
-    for (int k = 0; k < nb; ++k) {
-      const float dx = s_x[k] - fpx;
-      const float dy = s_y[k] - fpy;
-      const float sigma = 0.5f * (s_a[k] * dx * dx + s_c[k] * dy * dy) + s_b[k] * dx * dy;
-      if (sigma < 0.0f) continue;
-      const float alpha = fminf(kAlphaClamp, s_o[k] * expf(-sigma));
-      if (alpha < kMinAlpha) continue;
-      const float next_T = T * (1.0f - alpha);
-      if (next_T <= kTEps) {
-        done = 1;
-        break;
-      }
-      const float w = alpha * T;
+    for (int k32 = 0; k32 < nb && !__all_sync(kFull, done); k32 += kLanes) {
+      unsigned cand = candidates<C>(s, k32, lane, strip);
+      while (cand) {
+        const int k = take_first(cand, k32);
+        const float4 p1 = s[1][k];
+        const float alpha = pair_alpha(s[0][k], p1, fpx, fpy).alpha;
+        if (done || alpha < kMinAlpha) continue;
+        const float next_T = next_transmittance(T, alpha);
+        if (next_T <= kTEps) {
+          done = 1;
+          continue;
+        }
+        float col[C];
+        colours<C>(s, k, p1, col);
+        const float w = alpha * T;
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] += w * s_col[c][k];
-      T = next_T;
+        for (int c = 0; c < C; ++c) acc[c] += w * col[c];
+        T = next_T;
+      }
     }
   }
 
@@ -124,7 +114,7 @@ template <int C>
 void launch(const float* xys, const float* conics, const float* colors, const float* opacs,
             const int* gid, const int* tile_start, const int* tile_cnt, float* img,
             float* final_T, int H, int W, int tiles_x, int tiles_y, cudaStream_t stream) {
-  blend_fwd_kernel<C><<<tiles_x * tiles_y, kPix, 0, stream>>>(
+  blend_fwd_kernel<C><<<tiles_x * tiles_y, kTilePix, 0, stream>>>(
       xys, conics, colors, opacs, gid, tile_start, tile_cnt, img, final_T, H, W, tiles_x);
 }
 

@@ -31,6 +31,17 @@ MIN_ALPHA = 1.0 / 255.0
 T_EPS = 1e-4
 P = BLOCK * BLOCK  # pixels per tile
 
+# The box of a gaussian's footprint outside which no pixel takes it, as the
+# CUDA kernels draw it (csrc/blend_common.cuh, which names these constants
+# kSkipMargin, kBoxDet, kBoxLevelScale, kBoxLevelPad, kBoxWiden, kBoxPad): a
+# warp of B1 or B2 (two rows of a tile) evaluates only the gaussians whose box
+# meets its pixels
+SKIP_MARGIN = 1e-2
+BOX_DET = 1e-3
+BOX_LEVEL_SCALE, BOX_LEVEL_PAD = 1.01, 1e-2
+BOX_WIDEN, BOX_PAD = 1.001, 1e-3
+WARP_ROWS = 2  # rows of a tile a warp of 32 pixels holds
+
 # tiles per batch are chosen so that batch × pixels × longest list stays at
 # or under this many elements (each intermediate is one such f32 tensor)
 _BATCH_ELEMS = 1 << 22
@@ -188,24 +199,57 @@ def blend_vjp_plain(
     return tuple(torch.zeros_like(t) if g is None else g for t, g in zip(ins, grads))
 
 
-def count_pairs(
+def footprint_box(xys: torch.Tensor, conics: torch.Tensor, opacs: torch.Tensor) -> torch.Tensor:
+    """(N, 4) boxes (x0, x1, y0, y1) of the gaussians' footprints, in float32
+    as ``csrc/blend_common.cuh``'s ``footprint_box`` draws them: no pixel
+    outside a box has sigma <= log(255 * opacity) + SKIP_MARGIN, so none
+    takes the gaussian. Where det = ac - b² < BOX_DET·ac (or a, c ≤ 0) the
+    box is everything; where opacity < 1/255 (every pair skipped) it is
+    nothing. The kernel may fuse a product into a sum where this rounds it
+    apart, so an edge may differ by an ulp or so."""
+    x, y = xys.float().unbind(-1)
+    a, b, c = conics.float().unbind(-1)
+    skip = torch.log(255.0 * opacs.float().reshape(-1)) + SKIP_MARGIN
+    det = a * c - b * b
+    level = 2.0 * (BOX_LEVEL_SCALE * skip + BOX_LEVEL_PAD)
+    ex = torch.sqrt(level * c / det) * BOX_WIDEN + BOX_PAD
+    ey = torch.sqrt(level * a / det) * BOX_WIDEN + BOX_PAD
+    box = torch.stack([x - ex, x + ex, y - ey, y + ey], -1)
+    inf = torch.inf
+    everything = box.new_tensor([-inf, inf, -inf, inf])
+    nothing = box.new_tensor([inf, -inf, inf, -inf])
+    drawn = (a > 0) & (c > 0) & (det >= BOX_DET * a * c)
+    box = torch.where(drawn[:, None], box, everything)
+    box = torch.where((skip < 0)[:, None], nothing, box)
+    return torch.where(torch.isnan(skip)[:, None], everything, box)
+
+
+def tile_pairs(
     xys: torch.Tensor,
     conics: torch.Tensor,
     opacs: torch.Tensor,
     bins: TileBins,
     img_height: int,
     img_width: int,
-) -> tuple[int, int]:
-    """(evaluated, composited) (pixel, gaussian) pairs of a serial blend.
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(walked, evaluated, composited) (pixel, gaussian) pairs of a serial
+    blend, per tile: three (tiles,) int64 tensors.
 
     Each pixel of a tile walks its tile's list up to and including the
-    gaussian that stops it, or to the end: those pairs are evaluated; the
-    ones that pass the alpha tests before the stop are composited. Pixels past
-    the image edge count too, since the kernel computes them. This is the work
-    a roofline bound of the blend counts."""
+    gaussian that stops it, or to the end: those pairs are walked. Of them,
+    the ones whose gaussian's ``footprint_box`` meets the pixel's warp (its
+    two rows of the tile) are evaluated: no other can pass the alpha test,
+    and B1 and B2 pass over them. The evaluated pairs that pass the alpha
+    tests before the stop are composited. Pixels past the image edge count
+    too, since the kernels compute them. The evaluated and composited pairs
+    are the work a roofline bound of the blend counts, and their spread
+    over the tiles."""
     tiles_x = (img_width + BLOCK - 1) // BLOCK
+    tiles_y = (img_height + BLOCK - 1) // BLOCK
     opacs = opacs.reshape(-1)
-    evaluated = composited = 0
+    box = footprint_box(xys, conics, opacs)
+    walked = torch.zeros(tiles_x * tiles_y, dtype=torch.int64, device=xys.device)
+    evaluated, composited = torch.zeros_like(walked), torch.zeros_like(walked)
     for t0, t1, K in _tile_batches(bins.tile_cnt.tolist()):
         if K == 0:
             continue
@@ -216,11 +260,32 @@ def count_pairs(
         T_after = torch.cumprod(1.0 - aeff, dim=-1)
         stopped = (T_after <= T_EPS) & (aeff > 0.0)
         # first stop index + 1, else the list length
-        first = torch.where(stopped, torch.arange(K, device=g.device), K).amin(dim=-1)
-        n = torch.minimum(first + 1, bins.tile_cnt[t0:t1].long()[:, None])
-        evaluated += int(n.sum())
-        composited += int((w > 0).sum())
-    return evaluated, composited
+        ks = torch.arange(K, device=g.device)
+        first = torch.where(stopped, ks, K).amin(dim=-1)
+        n = torch.minimum(first + 1, bins.tile_cnt[t0:t1].long()[:, None])  # (B, P)
+        # the warp's pixels: columns [x0, x0 + BLOCK - 1], rows [y0, y0 + WARP_ROWS - 1]
+        x0 = px[:, :1, None]  # (B, 1, 1): the tile's first column
+        y0 = (py - (torch.arange(P, device=g.device) // BLOCK) % WARP_ROWS)[..., None]  # (B, P, 1)
+        bx = box[g][:, None]  # (B, 1, K, 4)
+        meets = ~((bx[..., 1] < x0) | (bx[..., 0] > x0 + (BLOCK - 1))
+                  | (bx[..., 3] < y0) | (bx[..., 2] > y0 + (WARP_ROWS - 1)))
+        walked[t0:t1] = n.sum(-1)
+        evaluated[t0:t1] = (meets & (ks < n[..., None])).sum((-2, -1))
+        composited[t0:t1] = (w > 0).sum((-2, -1))
+    return walked, evaluated, composited
+
+
+def count_pairs(
+    xys: torch.Tensor,
+    conics: torch.Tensor,
+    opacs: torch.Tensor,
+    bins: TileBins,
+    img_height: int,
+    img_width: int,
+) -> tuple[int, int, int]:
+    """(walked, evaluated, composited) (pixel, gaussian) pairs of a serial
+    blend over every tile (``tile_pairs`` summed)."""
+    return tuple(int(t.sum()) for t in tile_pairs(xys, conics, opacs, bins, img_height, img_width))
 
 
 def rasterize_naive(

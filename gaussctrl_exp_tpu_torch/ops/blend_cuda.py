@@ -8,8 +8,10 @@ reduction of ``_blend_core_bwd`` and computes what autograd through the plain
 version computes (``blend_vjp_plain``). Both are bound by fp32 operations per
 evaluated pixel–gaussian pair, not by bytes; both are one CTA per 16×16 tile,
 one thread per pixel, with the tile's gaussians staged through shared memory
-256 at a time. B2 sums each gaussian's gradient over the warp, then the CTA
-(shared atomics), then the tiles (one global atomic per gaussian and field).
+256 at a time, and a warp evaluates only the gaussians whose footprint's box
+meets its two rows (``csrc/blend_common.cuh``). B2 sums each gaussian's
+gradient over the warp with a butterfly, then over the warps and tiles with
+one global atomic per warp, gaussian and field.
 
 ``BlendFunction`` puts them behind autograd: forward B1, backward B2. The
 sources are compiled by ``cuda_build`` at first use, with the port's other

@@ -31,14 +31,17 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-# the blend kernels (B1, B2 and the variants B1v) keep the plain version's
-# roundings (no fused multiply-add); the attention kernels' builds print
-# their registers and spills (ptxas -v) into their logs
+# the blend variants (B1v) keep the plain version's roundings by forbidding
+# fused multiply-adds in the whole file; B1 and B2 write the roundings that
+# must match (sigma, alpha, T) with intrinsics that never fuse
+# (csrc/blend_common.cuh) and let the rest fuse. The builds of B1 to B5
+# print their registers and spills (ptxas -v) into their logs
+PTXAS_VERBOSE = "-Xptxas=-v"
 EXTRA_FLAGS = {
-    "blend_fwd": ["-fmad=false"],
-    "blend_bwd": ["-fmad=false"],
-    "flash_attn_fwd": ["-Xptxas=-v"],
-    "flash_attn_bwd": ["-Xptxas=-v"],
+    "blend_fwd": [PTXAS_VERBOSE],
+    "blend_bwd": [PTXAS_VERBOSE],
+    "flash_attn_fwd": [PTXAS_VERBOSE],
+    "flash_attn_bwd": [PTXAS_VERBOSE],
     "blend_variants": ["-fmad=false"],
 }
 
@@ -86,12 +89,14 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> dict[str, Path]:
-    """Compile every kernel source that has no library for its hash yet,
-    one ``nvcc`` per source, all started together; returns the libraries."""
+def build(names=None) -> dict[str, Path]:
+    """Compile every kernel source (or those of ``names``) that has no
+    library for its hash yet, one ``nvcc`` per source, all started together;
+    returns their libraries."""
+    names = list(SOURCES) if names is None else list(names)
     jobs = []
-    for name, source in SOURCES.items():
-        lib = library_path(name)
+    for name in names:
+        source, lib = SOURCES[name], library_path(name)
         if lib.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -112,14 +117,14 @@ def build() -> dict[str, Path]:
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {name: library_path(name) for name in SOURCES}
+    return {name: library_path(name) for name in names}
 
 
 def load(name: str, argtypes: list) -> ctypes.CDLL:
     """The library of kernel ``name`` (built if needed), with its entry
     point ``gctorch_<name>`` typed by ``argtypes`` and returning an int."""
     if name not in _libs:
-        lib = ctypes.CDLL(str(build()[name]))
+        lib = ctypes.CDLL(str(build([name])[name]))
         fn = getattr(lib, f"gctorch_{name}")
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -15,8 +15,9 @@ import torch
 from gaussctrl_exp_tpu_torch.cameras import camera_matrices, look_at, make_camera
 from gaussctrl_exp_tpu_torch.ops import blend_cuda
 from gaussctrl_exp_tpu_torch.ops.binning import bin_gaussians
-from gaussctrl_exp_tpu_torch.ops.blend import T_EPS, blend_vjp_plain, rasterize_tiles_plain
+from gaussctrl_exp_tpu_torch.ops.blend import T_EPS, blend_vjp_plain, rasterize_tiles_plain, tile_pairs
 from gaussctrl_exp_tpu_torch.ops.projection import BLOCK, project_gaussians
+from torch_blend_scenes import screen_scene
 
 
 @pytest.fixture
@@ -175,6 +176,107 @@ def test_backward_kernel_refuses_what_it_does_not_take(cuda_device):
     xys, conics, chan, opacs = args
     with pytest.raises(TypeError):
         blend_cuda.blend_backward(xys.double(), conics, chan, opacs, bins, *res, H, W)
+
+
+# --------------------------------------- B1 and B2 at the edges of their design
+
+
+def _check_forward(args, bins, H, W):
+    """B1 against the plain version, as chip_smoke.py's phase 3 holds it: off
+    the stop band (final T within 0.1% of 1e-4 in either) elementwise within
+    1e-5 + 1e-4 of the plain value (1e-6 + 1e-4 for T); on it within one
+    gaussian's weight at the stop."""
+    got = blend_cuda.blend_forward(*args, bins, H, W)
+    torch.cuda.synchronize()
+    want = rasterize_tiles_plain(*args, bins, H, W)
+    band = 1e-3 * T_EPS
+    flip = ((got.final_T - T_EPS).abs() <= band) | ((want.final_T - T_EPS).abs() <= band)
+    a_max = min(0.999, float(args[3].max()))
+    w_max = T_EPS * (1 + 1e-3) * a_max / (1 - a_max) * max(float(args[2].abs().max()), 1.0)
+    d_img, d_T = (got.img - want.img).abs(), (got.final_T - want.final_T).abs()
+    assert bool(torch.where(flip[..., None], d_img <= w_max, d_img <= 1e-5 + 1e-4 * want.img.abs()).all())
+    assert bool(torch.where(flip, d_T <= w_max, d_T <= 1e-6 + 1e-4 * want.final_T.abs()).all())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chan", range(1, 9))
+def test_blend_kernels_over_several_batches_to_the_list_end(cuda_device, n_chan):
+    """Tiles of 929-1983 gaussians at opacities 0.005-0.03: every pixel walks
+    its whole list, over 4 to 8 batches of 256, in both kernels."""
+    args, bins, H, W = screen_scene(cuda_device, n=2500, H=48, W=48, n_chan=n_chan, opacity=(0.005, 0.03))
+    assert int(bins.tile_cnt.min()) > 3 * 256
+    out = _check_forward(args, bins, H, W)
+    assert float(out.final_T.min()) > 1e-2  # no pixel stops
+    got = _check_backward(args, bins, H, W)
+    assert all(bool(g.abs().max() > 0) for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chan", [3, 4])
+def test_blend_kernels_with_one_tile_far_heavier_than_the_rest(cuda_device, n_chan):
+    """2,000 small gaussians within 2 px of one point: one tile's list is
+    over 2,000 long, the median under 100."""
+    args, bins, H, W = screen_scene(cuda_device, n=2400, H=64, W=96, n_chan=n_chan, cluster=(2000, 40.0, 24.0),
+                                    sd=(1.0, 3.0))
+    cnt = bins.tile_cnt.float()
+    assert float(cnt.max()) > 2000 and float(cnt.median()) < 100
+    _check_forward(args, bins, H, W)
+    _check_backward(args, bins, H, W)
+
+
+@pytest.mark.cuda
+def test_blend_kernels_when_every_pixel_stops_in_the_first_batch(cuda_device):
+    """Six 200-px-wide gaussians at opacity 0.995 in front of lists of
+    420-916: every pixel stops within them (alpha > 0.9 each, so T < 1e-4
+    after four), the CTAs leave after the first of several batches, and no
+    gaussian behind them gets a gradient."""
+    args, bins, H, W = screen_scene(cuda_device, n=1500, H=48, W=64, front=(6, 0.995), opacity=(0.5, 0.9))
+    assert int(bins.tile_cnt.min()) > 256
+    walked, _, _ = tile_pairs(args[0], args[1], args[3], bins, H, W)
+    assert int(walked.max()) <= 6 * BLOCK * BLOCK
+    _check_forward(args, bins, H, W)
+    got = _check_backward(args, bins, H, W)
+    assert all(not g[6:].any() for g in got) and bool(got[3][:6].abs().max() > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chan", [3, 4])
+def test_blend_kernels_with_thin_gaussians(cuda_device, n_chan):
+    """Correlations up to |rho| = 0.99975 (1 - rho² down to 5e-4): the
+    footprint boxes of thin gaussians, where sigma's rounding is widest, and
+    past the box's cutoff (1 - rho² < 1e-3, the box is everything)."""
+    args, bins, H, W = screen_scene(cuda_device, n=1500, H=64, W=64, n_chan=n_chan, sd=(0.6, 5.0),
+                                    rho=(-0.99975, 0.99975), seed=5)
+    _check_forward(args, bins, H, W)
+    _check_backward(args, bins, H, W)
+
+
+def _repeat_scene(device):
+    return screen_scene(device, n=2500, H=64, W=64, opacity=(0.05, 0.6), seed=3)
+
+
+@pytest.mark.cuda
+def test_blend_forward_repeats_bit_for_bit(cuda_device):
+    args, bins, H, W = _repeat_scene(cuda_device)
+    a = blend_cuda.blend_forward(*args, bins, H, W)
+    b = blend_cuda.blend_forward(*args, bins, H, W)
+    assert torch.equal(a.img, b.img) and torch.equal(a.final_T, b.final_T)
+
+
+@pytest.mark.cuda
+def test_blend_backward_repeats_within_its_atomics_tolerance(cuda_device):
+    """Only the order of B2's atomic sums changes between two runs: each
+    field within 1e-4 of its largest entry, as against the plain VJP."""
+    args, bins, H, W = _repeat_scene(cuda_device)
+    fwd = blend_cuda.blend_forward(*args, bins, H, W)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    g_img = torch.randn(fwd.img.shape, generator=gen, device=cuda_device)
+    g_T = torch.randn(fwd.final_T.shape, generator=gen, device=cuda_device)
+    first = blend_cuda.blend_backward(*args, bins, fwd.img, fwd.final_T, g_img, g_T, H, W)
+    second = blend_cuda.blend_backward(*args, bins, fwd.img, fwd.final_T, g_img, g_T, H, W)
+    for name, a, b in zip(("xys", "conics", "colors", "opacs"), first, second):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * max(float(a.abs().max()), 1e-6), msg=name)
 
 
 # ---------------------------------------------------------------- kernel B3
