@@ -6,6 +6,7 @@ Run from the repository root, with one CUDA card visible:
     python3 chip_smoke.py
     python3 chip_smoke.py --attention   # phase 9, then B3, B4, B5 alone (11, 15)
     python3 chip_smoke.py --blend       # phases 3 and 6, then B1 and B2 alone
+    python3 chip_smoke.py --generator   # phase 17 alone, on seeded latents
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN.
@@ -52,8 +53,9 @@ Phases (any failure exits non-zero):
      autograd through ``sdpa_plain`` in fp32 on the same CUDA tensors, bf16
      and fp32, at the depth generator's training shapes (4 views, 64²
      latents), a ragged shape and strided head-split views; two runs bit for
-     bit; B3's output with and without its log-sum-exp; the gradient through
-     ``diffusion.attention._sdpa`` on the card.
+     bit, B4's query split among them; B3's output with and without its
+     log-sum-exp; the gradient through ``diffusion.attention._sdpa`` on the
+     card.
  13. the depth generator at full SD1.x width (859,523,844 parameters, fp32,
      random weights) on 4 rendered views: one step's gradient through
      B3/B4/B5 against the same step through ``sdpa_plain``; 3 Adam steps of
@@ -64,11 +66,11 @@ Phases (any failure exits non-zero):
      (5 steps instead of 20), ``SDInpaintPipeline.inpaint_images`` on one
      view, ``render_noise_mask`` on one view's depth (B1 counted).
  15. timings: the generator's train step by stage, its busy share and B4 +
-     B5's share of the backward (torch.profiler); B4 and B5 at every
-     phase-12 shape against their bounds and the backward of
-     ``scaled_dot_product_attention``, by device time with the SM clock
-     read around each; a sampling step and the
-     correspondence processor's share of it.
+     B5's share of the backward (torch.profiler); B4 and B5, bf16 and fp32,
+     at every phase-12 shape against their bounds, the exponentials' floor
+     beside them, and the backward of ``scaled_dot_product_attention``, by
+     device time with the SM clock read around each, with B4's query splits;
+     a sampling step and the correspondence processor's share of it.
  16. kernel B1v (csrc/blend_variants.cu, the six blend-forward ablations)
      against its plain version per mode on the variant script's scene
      (35,000 gaussians, 512²), a sparse one with empty tiles, the 500×372
@@ -77,6 +79,14 @@ Phases (any failure exits non-zero):
      path of this slice: the ported ``bench_blend_variants`` and
      ``bench_bwd_micro`` scripts at their defaults, with the launches of
      B1v, B1 and B2 read around them.
+ 17. the depth generator trained in bf16 at full width, as the JAX
+     package's ``init_depth_generator(dtype=jnp.bfloat16)`` trains it (float32
+     parameters and Adam state, the UNet computing in bf16), on phase 13's
+     views and latents: one step's gradient through B3/B4/B5 in bf16 against
+     the same step through ``sdpa_plain``; 3 Adam steps with B3, B4 and B5
+     launches read around them, the parameters and the Adam state checked
+     float32, the peak memory; the step by stage and by device time with B4
+     + B5's share of the backward, as phase 15.
 
 ``--blend`` builds only B1 and B2 (ptxas registers and spills, and, where
 cuobjdump runs, the instructions by class of each loop of B1 at C = 4 and
@@ -88,7 +98,9 @@ the pixel's warp, as the bound counts them, beside all walked pairs) and
 the heaviest tile's one-SM floor. To compare two versions of the
 kernels on one card, run it from each tree in turns (parent, change,
 change, parent) within one call. ``--attention`` does the same for B3, B4
-and B5 (phase 9, then the kernel rows of phases 11 and 15).
+and B5 (phase 9, then the kernel rows of phases 11 and 15), and
+``--generator`` for the bf16 generator's step (phase 17, on the bear-scale
+scene's views with seeded latents and text states).
 
 A busy share is the union of the device ops' intervals over the wall of
 the same profiled window, both from torch.profiler, so it cannot pass 1.
@@ -982,20 +994,22 @@ def b3_rows(dev, flash_cases) -> dict:
 def bound_text(kernel: str, ms: float, rated: dict, at_clock: dict) -> str:
     """A backward kernel's bounds (``timing.attention_bwd_bound``) at the
     data sheet's peaks and at the clock read after it, beside its time."""
-    return (f"{kernel} bound {rated['bound_ms']:.5f} ms ({rated['bound_by']}, {rated['bound_ms'] / ms:.3f} of it): "
-            f"operations at the fp32 FMA peak {rated['fp32_ms']:.5f}, as 3×TF32 {rated['tf32x3_ms']:.5f}, bf16 "
-            f"{rated['bf16_ms']:.5f}, bytes {rated['bytes_ms']:.5f}, exponentials {rated['exp_ms']:.5f} at 1830 "
-            f"MHz; at {at_clock['clock_hz'] / 1e6:.0f} MHz fp32 FMA {at_clock['fp32_ms']:.5f}, 3×TF32 "
-            f"{at_clock['tf32x3_ms']:.5f}, bf16 {at_clock['bf16_ms']:.5f}, exponentials {at_clock['exp_ms']:.5f}")
+    return (f"{kernel} bound {rated['bound_ms']:.5f} ms ({rated['bound_by']}, {rated['bound_ms'] / ms:.3f} of it), "
+            f"beside it the exponentials' floor {rated['exp_ms']:.5f} ms at 1830 MHz ({rated['exp_ms'] / ms:.3f} of "
+            f"it): operations at the fp32 FMA peak {rated['fp32_ms']:.5f}, as 3×TF32 {rated['tf32x3_ms']:.5f}, bf16 "
+            f"{rated['bf16_ms']:.5f}, bytes {rated['bytes_ms']:.5f}; at {at_clock['clock_hz'] / 1e6:.0f} MHz fp32 FMA "
+            f"{at_clock['fp32_ms']:.5f}, 3×TF32 {at_clock['tf32x3_ms']:.5f}, bf16 {at_clock['bf16_ms']:.5f}, "
+            f"exponentials {at_clock['exp_ms']:.5f}")
 
 
 def bwd_rows(dev) -> dict:
     """B4 and B5 alone against SDPA's backward at phase 12's shapes, fp32
-    and bf16, with their bounds (``attention_bwd_bound``: the rated one,
-    and at the clock read after each kernel), printed; the rows by (name,
-    dtype)."""
+    and bf16, with their bounds and the exponentials' floor beside them
+    (``attention_bwd_bound``: the rated one, and at the clock read after
+    each kernel) and B4's query splits (where the rule splits, B4 unsplit
+    too), printed; the rows by (name, dtype)."""
     from gaussctrl_exp_tpu_torch.ops import attention_cuda
-    from gaussctrl_exp_tpu_torch.utils.timing import attention_bwd_bound
+    from gaussctrl_exp_tpu_torch.utils.timing import attention_bwd_bound, kernel_time_ms
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = {}
@@ -1007,9 +1021,17 @@ def bwd_rows(dev) -> dict:
             for kern, c in (("B4", r["clocks"][1]), ("B5", r["clocks"][2])):
                 r[kern.lower() + "_rated"] = attention_bwd_bound(shape, dtype, kern)
                 r[kern.lower() + "_at_clock"] = attention_bwd_bound(shape, dtype, kern, c["sm_mhz"] * 1e6)
-            splits = attention_cuda.dkv_splits(*shape, sms) if dtype == torch.float32 else 1
+            splits = attention_cuda.dkv_splits(*shape, sms, bf16=dtype == torch.bfloat16)
+            unsplit = ""
+            if splits > 1:
+                out, lse = attention_cuda.flash_attn(q, k, v, return_lse=True)
+                delta = attention_cuda.delta_of(out, dout)
+                r["b4_unsplit"] = kernel_time_ms(
+                    lambda: attention_cuda.flash_attn_bwd_dkv(q, k, v, out, lse, dout, delta, _splits=1),
+                    attention_cuda.B4_KERNEL, ATTN_LAUNCHES)
+                unsplit = f" (unsplit {r['b4_unsplit']:.4f} ms)"
             rows[(name, dtype)] = r
-            print(f"    {backward_text(name, shape, dtype, r)}; B4 query splits {splits}; "
+            print(f"    {backward_text(name, shape, dtype, r)}; B4 query splits {splits}{unsplit}; "
                   f"{bound_text('B4', r['b4'], r['b4_rated'], r['b4_at_clock'])}; "
                   f"{bound_text('B5', r['b5'], r['b5_rated'], r['b5_at_clock'])}", flush=True)
     return rows
@@ -1319,21 +1341,23 @@ def phase12_flash_bwd(dev) -> dict:
               f"fp32 scores (batch 0) {lse_err:.3e}")
         if not (same and torch.equal(out, out_plain) and lse_err <= 1e-3):
             raise SystemExit("FAIL: the backward is not deterministic, or the log-sum-exp changed B3's output")
-    # fp32 B4 with its queries split over several CTAs (cross 64²): the
-    # partials are summed in a fixed order, by a second pass that each of
-    # the two backward runs launches once
+    # B4 with its queries split over several CTAs (cross 64²): the partials
+    # are summed in a fixed order, by a second pass that each of the two
+    # backward runs launches once
     shape = dict(MV_SHAPES)["cross 64²"]
-    q, k, v = flash_inputs(shape, torch.float32, 10, dev)
-    dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(11), device=dev)
-    sums = attention_cuda.dkv_sum_launches()
-    first, second = flash_grads(q, k, v, dout)[1], flash_grads(q, k, v, dout)[1]
-    sums = attention_cuda.dkv_sum_launches() - sums
-    splits = attention_cuda.dkv_splits(*shape, torch.cuda.get_device_properties(dev).multi_processor_count)
-    same = all(torch.equal(x, y) for x, y in zip(first, second))
-    print(f"  float32 {shape}: B4's queries split {splits} ways; the partials' sum launched {sums} times in two "
-          f"backward runs; the two runs bit-identical {same}")
-    if splits < 2 or sums != 2 or not same:
-        raise SystemExit("FAIL: the split fp32 backward did not split, or is not deterministic")
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = flash_inputs(shape, dtype, 10, dev)
+        dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(11), device=dev).to(dtype)
+        sums = attention_cuda.dkv_sum_launches()
+        first, second = flash_grads(q, k, v, dout)[1], flash_grads(q, k, v, dout)[1]
+        sums = attention_cuda.dkv_sum_launches() - sums
+        splits = attention_cuda.dkv_splits(*shape, torch.cuda.get_device_properties(dev).multi_processor_count,
+                                           bf16=dtype == torch.bfloat16)
+        same = all(torch.equal(x, y) for x, y in zip(first, second))
+        print(f"  {str(dtype).split('.')[-1]} {shape}: B4's queries split {splits} ways; the partials' sum launched "
+              f"{sums} times in two backward runs; the two runs bit-identical {same}")
+        if splits < 2 or sums != 2 or not same:
+            raise SystemExit("FAIL: the split backward did not split, or is not deterministic")
     for dtype in (torch.bfloat16, torch.float32):  # _sdpa keeps the gradient on the card
         q, k, v = (t.requires_grad_() for t in flash_inputs((2, 8, 1024, 1024, 80), dtype, 9, dev))
         out = _sdpa(q, k, v)
@@ -1547,7 +1571,8 @@ def phase13_mv(dev, state, edit) -> dict:
     if max(loss_rel, tiny_rel) > MV_TINY_REL:
         raise SystemExit("FAIL: the tiny train step on the card disagrees with the CPU")
     return dict(gen=gen, opt=opt, proc=proc, dl=dl, ctx=ctx, unc=unc, x0=x0, t=t_fix, noise=noise_fix,
-                launches=launches, train_wall=train_wall, sample_wall=sample_wall, peak_gb=peak_gb)
+                launches=launches, train_wall=train_wall, sample_wall=sample_wall, peak_gb=peak_gb, cams=cams,
+                depths=depths)
 
 
 def phase14_experimental(dev, state, cams, targets, edit) -> None:
@@ -1627,20 +1652,16 @@ def phase14_experimental(dev, state, cams, targets, edit) -> None:
             raise SystemExit("FAIL: the noise mask is not finite in [0, 1] or skipped B1")
 
 
-def phase15_timings(dev, mv) -> dict:
-    """The train step by stage, its busy share and B4 + B5's share of the
-    backward; B4 and B5 at every phase-12 shape against their bounds, the
-    plain version and SDPA's backward; a sampling step and the
-    correspondence processor's share of it."""
-    from gaussctrl_exp_tpu_torch.diffusion.attention import default_processor
+def step_timings(gen, opt, args, iters=2) -> dict:
+    """A generator train step on ``args`` (``gen.loss``'s) by stage, in CUDA
+    events (the mean of ``iters`` steps): forward, backward, optimizer; and
+    by device time (torch.profiler): the whole step with its busy share, the
+    forward with B3's part, the backward with B4 + B5's."""
     from gaussctrl_exp_tpu_torch.ops import attention_cuda
     from gaussctrl_exp_tpu_torch.utils.timing import device_window
 
-    gen, opt, proc = mv["gen"], mv["opt"], mv["proc"]
-    args = (mv["x0"], mv["dl"], mv["ctx"], mv["t"], mv["noise"], proc)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     split = np.zeros(3)
-    iters = 2
     for _ in range(iters):
         torch.cuda.synchronize()
         ev[0].record()
@@ -1666,27 +1687,63 @@ def phase15_timings(dev, mv) -> dict:
     step_win = device_window(full_step, attention_cuda.ATTN_KERNELS)
     fwd_win = device_window(fresh_loss, attention_cuda.B3_KERNEL)
     bwd_win = device_window(lambda loss: loss.backward(), attention_cuda.BWD_KERNELS, prepare=fresh_loss)
-    bwd_dev, bwd_kernels = bwd_win["device_ms"], bwd_win["part_ms"]
     opt.zero_grad(set_to_none=True)
-    step_ms = float(split.sum())
-    print(f"[15] timings (CUDA events, warm). Depth generator train step, fp32, {MV_V} views at 64²: {step_ms:.2f} ms "
-          f"= forward {split[0]:.2f} + backward {split[1]:.2f} + optimizer {split[2]:.2f}; device time "
-          f"{step_win['device_ms']:.2f} ms in {step_win['ops']:.0f} device ops (torch.profiler, one step): "
-          f"{busy_text(step_win)}; forward device time {fwd_win['device_ms']:.2f} ms, of which B3 "
-          f"{fwd_win['part_ms']:.2f} ms = {fwd_win['part_ms'] / fwd_win['device_ms']:.3f}; backward device time "
-          f"{bwd_dev:.2f} ms, of which B4 + B5 {bwd_kernels:.2f} ms = {bwd_kernels / bwd_dev:.3f}")
+    return dict(split=split, step_ms=float(split.sum()), step_win=step_win, fwd_win=fwd_win, bwd_win=bwd_win)
+
+
+def step_text(r: dict) -> str:
+    split, step_win, fwd_win, bwd_win = r["split"], r["step_win"], r["fwd_win"], r["bwd_win"]
+    bwd_dev, bwd_kernels = bwd_win["device_ms"], bwd_win["part_ms"]
+    return (f"{r['step_ms']:.2f} ms = forward {split[0]:.2f} + backward {split[1]:.2f} + optimizer {split[2]:.2f}; "
+            f"device time {step_win['device_ms']:.2f} ms in {step_win['ops']:.0f} device ops (torch.profiler, one "
+            f"step): {busy_text(step_win)}; forward device time {fwd_win['device_ms']:.2f} ms, of which B3 "
+            f"{fwd_win['part_ms']:.2f} ms = {fwd_win['part_ms'] / fwd_win['device_ms']:.3f}; backward device time "
+            f"{bwd_dev:.2f} ms, of which B4 + B5 {bwd_kernels:.2f} ms = {bwd_kernels / bwd_dev:.3f}")
+
+
+def bwd_entry(kernel: str, launches: int, errs: dict, mains: dict, dtype) -> dict:
+    """The numbers of B4 or B5 in ``dtype`` for the kernels line: launches
+    on the main path, phase 12's largest |d| and the relative L2 limit it was
+    held to, and phase 15's times and bounds at the main shape with the
+    exponentials' floor beside the bound."""
+    m, key = mains[dtype], kernel.lower()
+    return {"launches": launches, "max_abs_err": errs[dtype][kernel],
+            "rel_l2_limit": BWD_BF16_REL_L2 if dtype == torch.bfloat16 else BWD_F32_REL_L2,
+            "ms": m[key], "plain_ms": m["plain_ms"], "bound_ms": m[key + "_bound"]["bound_ms"],
+            "bound_by": m[key + "_bound"]["bound_by"], "exp_ms": m[key + "_bound"]["exp_ms"],
+            "library_ms": m["library_ms"]}
+
+
+def phase15_timings(dev, mv) -> dict:
+    """The train step by stage, its busy share and B4 + B5's share of the
+    backward; B4 and B5 at every phase-12 shape against their bounds, the
+    plain version and SDPA's backward; a sampling step and the
+    correspondence processor's share of it."""
+    from gaussctrl_exp_tpu_torch.diffusion.attention import default_processor
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+    from gaussctrl_exp_tpu_torch.utils.timing import device_window
+
+    gen, opt, proc = mv["gen"], mv["opt"], mv["proc"]
+    step = step_timings(gen, opt, (mv["x0"], mv["dl"], mv["ctx"], mv["t"], mv["noise"], proc))
+    print(f"[15] timings (CUDA events, warm). Depth generator train step, fp32, {MV_V} views at 64²: "
+          + step_text(step))
 
     rows = bwd_rows(dev)
-    main = rows[(MV_SHAPES[0][0], torch.float32)]
-    q, k, v = flash_inputs(MV_MAIN, torch.float32, 400, dev)
-    dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    fwd = time_ms(lambda: attention_cuda.sdpa_plain(*leaves), iters=3, warmup=1)
-    plain_bwd = time_ms(lambda: torch.autograd.grad(attention_cuda.sdpa_plain(*leaves), leaves, dout), iters=3,
-                        warmup=1) - fwd
-    print(f"    main shape {MV_MAIN} fp32: B4 {main['b4']:.4f} + B5 {main['b5']:.4f} ms device time; autograd through "
-          f"sdpa_plain backward {plain_bwd:.4f} ms (forward + backward − forward, CUDA events); "
-          f"scaled_dot_product_attention backward {main['sdpa_bwd_ms']:.4f} ms device time")
+    mains = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        main = rows[(MV_SHAPES[0][0], dtype)]
+        q, k, v = flash_inputs(MV_MAIN, dtype, 400, dev)
+        dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(0), device=dev).to(dtype)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        fwd = time_ms(lambda: attention_cuda.sdpa_plain(*leaves), iters=3, warmup=1)
+        plain_bwd = time_ms(lambda: torch.autograd.grad(attention_cuda.sdpa_plain(*leaves), leaves, dout), iters=3,
+                            warmup=1) - fwd
+        print(f"    main shape {MV_MAIN} {str(dtype).split('.')[-1]}: B4 {main['b4']:.4f} + B5 {main['b5']:.4f} ms "
+              f"device time; autograd through sdpa_plain backward {plain_bwd:.4f} ms (forward + backward − forward, "
+              f"CUDA events); scaled_dot_product_attention backward {main['sdpa_bwd_ms']:.4f} ms device time")
+        mains[dtype] = dict(b4=main["b4"], b5=main["b5"], plain_ms=plain_bwd, library_ms=main["sdpa_bwd_ms"],
+                            b4_bound=main["b4_rated"], b5_bound=main["b5_rated"])
+        del q, k, v, dout, leaves
 
     # a sampling step at CFG batch 8, and the correspondence processor's share of it
     lat = torch.randn((2 * MV_V, S // 8, S // 8, 4), generator=torch.Generator(device=dev).manual_seed(15), device=dev)
@@ -1703,8 +1760,7 @@ def phase15_timings(dev, mv) -> dict:
           f"{sample_win['part_ms'] / sample_win['device_ms']:.3f}; {busy_text(sample_win)}; "
           f"phase 13's sample {mv['sample_wall'] / MV_SAMPLE_STEPS * 1e3:.1f} ms per step host wall (prepare "
           f"included)")
-    return dict(b4=main["b4"], b5=main["b5"], plain_ms=plain_bwd, library_ms=main["sdpa_bwd_ms"],
-                b4_bound=main["b4_rated"], b5_bound=main["b5_rated"])
+    return mains
 
 
 # ---------------------------------------------------------------- phase 16
@@ -1874,6 +1930,149 @@ def phase16_variants(dev, odd, garden) -> dict:
     return dict(rows=rows, errs=errs, launches=counts, b2c_launches=b2)
 
 
+# ---------------------------------------------------------------- phase 17
+
+# the full-width bf16 gradient through B3/B4/B5 against the same step through
+# sdpa_plain: both run the whole UNet in bf16, and the two attentions round
+# differently (sdpa_plain rounds its scores to bf16, the kernels keep them in
+# fp32). On the tests' tiny generator on the CPU, moving only the attention's
+# roundings (sdpa_plain in bf16 against fp32 attention rounded to bf16) moved
+# the gradient by 2.0-2.2e-2 relative L2 and the loss by 4e-5 relative; the
+# limits leave 5× for the full width's depth
+MV_BF16_GRAD_REL_L2 = 1e-1
+MV_BF16_LOSS_REL = 1e-3
+MV_BF16_SEED = 17  # the fixed step's timesteps and noise, and (18) the 3 steps' draws
+
+
+def phase17_mv_bf16(dev, cams, depths, x0, ctx) -> dict:
+    """The depth generator at full SD1.x width trained in bf16, as the JAX
+    package's ``init_depth_generator(dtype=jnp.bfloat16)`` trains it: float32
+    parameters and Adam state, the UNet computing in bf16. One step's
+    gradient through B3/B4/B5 against the same step through sdpa_plain; 3
+    Adam steps of ``train_step`` with B3, B4 and B5 launches read around
+    them and the peak memory; the step by stage and by device time with B4 +
+    B5's share of the backward (phase 15's way)."""
+    from gaussctrl_exp_tpu_torch.diffusion.mv_generator import MVGeneratorConfig, init_depth_generator
+
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    gen = init_depth_generator(SD_SEED, cfg=MVGeneratorConfig(latent_size=S // 8), dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in gen.unet.parameters())
+    dtypes = {p.dtype for p in gen.unet.parameters()}
+    proc, dl, pair_mask = gen.prepare(depths, cams)
+    print(f"[17] depth generator trained in bf16 (init_depth_generator(dtype=torch.bfloat16)): {n_params:,} "
+          f"parameters (expected {MV_PARAMS:,}) of {sorted(str(d) for d in dtypes)}, the UNet computing in "
+          f"{gen.unet.compute_dtype}; made in {made_s:.2f} s on {base_gb:.2f} GB already allocated; pair mask "
+          f"{pair_mask.tolist()}")
+    if n_params != MV_PARAMS or dtypes != {torch.float32} or gen.unet.compute_dtype != torch.bfloat16:
+        raise SystemExit("FAIL: the bf16 depth generator has the wrong size, or parameters that are not float32")
+
+    # one step's gradient through the kernels against the same step through sdpa_plain
+    g = torch.Generator(device=dev).manual_seed(MV_BF16_SEED)
+    t_fix = torch.randint(0, 1000, (MV_V,), generator=g, device=dev)
+    noise_fix = torch.randn(x0.shape, generator=g, device=dev)
+    zero_counts()
+    loss_k = gen.loss(x0, dl, ctx, t_fix, noise_fix, proc)
+    loss_k.backward()
+    torch.cuda.synchronize()
+    grad_launches = counts()
+    g_kernel = {n: p.grad.detach().clone() for n, p in gen.unet.named_parameters()}
+    grad_dtypes = {p.grad.dtype for p in gen.unet.parameters()}
+    gen.unet.zero_grad(set_to_none=True)
+    zero_counts()
+    with attention_through_plain() as plain_calls:
+        loss_p = gen.loss(x0, dl, ctx, t_fix, noise_fix, proc)
+        loss_p.backward()
+    torch.cuda.synchronize()
+    total_rel, groups = grad_groups(g_kernel, {n: p.grad for n, p in gen.unet.named_parameters()})
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    print(f"    one step at t = {t_fix.tolist()}: loss through B3/B4/B5 {loss_k.item():.7f}, through sdpa_plain "
+          f"{loss_p.item():.7f} (relative {loss_rel:.2e}, limit {MV_BF16_LOSS_REL}); launches (B3, B4, B5) "
+          f"{grad_launches} vs {counts()} and {plain_calls[0]} sdpa_plain calls; gradients {sorted(map(str, grad_dtypes))}, "
+          f"relative L2 {total_rel:.3e} (limit {MV_BF16_GRAD_REL_L2}); per block "
+          + ", ".join(f"{k} {v:.2e}" for k, v in groups.items()))
+    if total_rel > MV_BF16_GRAD_REL_L2 or loss_rel > MV_BF16_LOSS_REL or counts() != (0, 0, 0) \
+            or min(grad_launches) == 0 or grad_dtypes != {torch.float32}:
+        raise SystemExit("FAIL: the full-width bf16 gradient through the kernels disagrees with sdpa_plain's")
+    del g_kernel
+    gen.unet.zero_grad(set_to_none=True)
+
+    # the main path: 3 Adam steps, launches counted; the start kept on the host
+    opt = torch.optim.Adam(gen.unet.parameters(), lr=MV_LR)
+    step = gen.make_train_step(opt, proc)
+    before = {n: p.detach().to("cpu", copy=True) for n, p in gen.unet.named_parameters()}
+    n_attn = 2 * count_transformers(gen.unet)
+    draws = torch.Generator(device=dev).manual_seed(MV_BF16_SEED + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = [float(step(x0, dl, ctx, draws)) for _ in range(MV_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state = [v for st in opt.state.values() for v in st.values() if torch.is_tensor(v) and v.dim() > 0]
+    state_dtypes = {v.dtype for v in state}
+    n_moved, moved = 0, {}
+    for n, p in gen.unet.named_parameters():
+        d = p.detach().cpu() - before[n]
+        n_moved += int((d != 0).sum())
+        key = "_".join(n.split(".")[0].split("_")[:2]) if n.startswith(("down", "up")) else n.split("_")[0]
+        moved[key] = max(moved.get(key, 0.0), float(d.abs().max()))
+    del before
+    print(f"    {MV_TRAIN_STEPS} Adam({MV_LR}) steps of train_step ({MV_V} views, 64² latents): losses "
+          f"{[round(x, 6) for x in losses]} in {train_wall:.3f} s host wall (first step included); launches "
+          f"B3 {launches[0]}, B4 {launches[1]}, B5 {launches[2]} (expected {MV_TRAIN_STEPS * n_attn} each); "
+          f"parameters {sorted(str(d) for d in {p.dtype for p in gen.unet.parameters()})}, "
+          f"Adam state {len(state)} tensors of {sorted(map(str, state_dtypes))}; entries moved {n_moved:,} of "
+          f"{n_params:,}; peak device memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated, {base_gb:.2f} GB "
+          f"allocated before the generator was made); largest |Δ| per block "
+          + ", ".join(f"{k} {v:.1e}" for k, v in moved.items()))
+    if launches != (MV_TRAIN_STEPS * n_attn,) * 3 or not all(np.isfinite(losses)) or min(moved.values()) <= 0 \
+            or state_dtypes != {torch.float32} or len(state) != 2 * len(list(gen.unet.parameters())) \
+            or {p.dtype for p in gen.unet.parameters()} != {torch.float32}:
+        raise SystemExit("FAIL: the bf16 train steps skipped a kernel, gave a non-finite loss, left a block "
+                         "unmoved or kept parameters or Adam state in another type than float32")
+
+    timed = step_timings(gen, opt, (x0, dl, ctx, t_fix, noise_fix, proc))
+    print(f"    timings (CUDA events, warm). Depth generator train step, bf16 UNet, fp32 parameters, {MV_V} views "
+          f"at 64²: " + step_text(timed))
+    return dict(launches=launches, peak_gb=peak_gb, step=timed, train_wall=train_wall)
+
+
+def generator_only(dev) -> int:
+    """``--generator``: phase 17 alone, on 4 views of the bear-scale scene
+    rendered through B1 and seeded random clean latents and text states in
+    place of the VAE's and the text encoder's, for a before/after
+    comparison of the bf16 generator step within one chip call. Prints no
+    kernels line and no result."""
+    from gaussctrl_exp_tpu_torch.engine.checkpoint import import_splatfacto_checkpoint
+    from gaussctrl_exp_tpu_torch.ops import cuda_build
+    from gaussctrl_exp_tpu_torch.utils.timing import spare_launches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi_line())
+    t0 = time.perf_counter()
+    cuda_build.build()
+    print(f"built in {time.perf_counter() - t0:.2f} s")
+    print_ptxas(("flash_attn_bwd",))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        ckpt, _ = write_inputs(Path(tmp), synthetic_params(N_BEAR, 0, 0.8, -4.2, 0.5))
+        state, _ = import_splatfacto_checkpoint(ckpt, device=dev)
+    cams, _, depths = mv_views(state, dev)
+    g = torch.Generator(device=dev).manual_seed(MV_BF16_SEED + 2)
+    x0 = torch.randn((MV_V, S // 8, S // 8, 4), generator=g, device=dev)
+    ctx = torch.randn((MV_V, 77, 768), generator=g, device=dev)
+    phase17_mv_bf16(dev, cams, depths, x0, ctx)
+    print(f"spare launches a profiled cycle at the end {spare_launches()}")
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = p.add_mutually_exclusive_group()
@@ -1881,6 +2080,8 @@ def main(argv=None) -> int:
                       help="build and time only the attention kernels (phase 9 and the kernel rows of 11 and 15)")
     mode.add_argument("--blend", action="store_true",
                       help="build, check and time only the blend kernels B1 and B2 (phases 3 and 6, then alone)")
+    mode.add_argument("--generator", action="store_true",
+                      help="only the bf16 depth generator's step (phase 17) on seeded latents")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA card",
@@ -1890,6 +2091,8 @@ def main(argv=None) -> int:
         return attention_only(torch.device("cuda"))
     if args.blend:
         return blend_only(torch.device("cuda"))
+    if args.generator:
+        return generator_only(torch.device("cuda"))
     from gaussctrl_exp_tpu_torch.cameras import camera_matrices, make_camera
     from gaussctrl_exp_tpu_torch.cli import render as cli
     from gaussctrl_exp_tpu_torch.engine.checkpoint import import_splatfacto_checkpoint
@@ -2182,6 +2385,10 @@ def main(argv=None) -> int:
         phase14_experimental(dev, state, cams, targets, edit)
         bwd = phase15_timings(dev, mv)
         variants = phase16_variants(dev, (args_odd, bins_odd), (g_args, g_bins))
+        for name in ("gen", "opt", "proc"):  # the fp32 generator and its Adam state make room for the bf16 one
+            mv.pop(name)
+        torch.cuda.empty_cache()
+        mvb = phase17_mv_bf16(dev, mv["cams"], mv["depths"], mv["x0"], mv["ctx"])
         print(f"    total chip_smoke wall {time.perf_counter() - t_start:.1f} s; spare launches a profiled cycle at the end "
               f"{spare_launches()}")
 
@@ -2242,13 +2449,7 @@ def main(argv=None) -> int:
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941 (_flash_attention_bwd_dkv, pallas_call "
                     ":1121), the backward of gaussctrl_exp_tpu/diffusion/attention.py:37 _flash_sdpa reached from "
                     "diffusion/mv_generator.py:198",
-        "launches": mv["launches"][1],
-        "max_abs_err": bwd_errs[torch.float32]["B4"],
-        "ms": bwd["b4"],
-        "plain_ms": bwd["plain_ms"],
-        "bound_ms": bwd["b4_bound"]["bound_ms"],
-        "bound_by": bwd["b4_bound"]["bound_by"],
-        "library_ms": bwd["library_ms"],
+        **bwd_entry("B4", mv["launches"][1], bwd_errs, bwd, torch.float32),
     }, {
         "name": "flash_attn_bwd_dq",
         "route": "cuda",
@@ -2256,13 +2457,23 @@ def main(argv=None) -> int:
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 (_flash_attention_bwd_dq, pallas_call "
                     ":1456), the backward of gaussctrl_exp_tpu/diffusion/attention.py:37 _flash_sdpa reached from "
                     "diffusion/mv_generator.py:198",
-        "launches": mv["launches"][2],
-        "max_abs_err": bwd_errs[torch.float32]["B5"],
-        "ms": bwd["b5"],
-        "plain_ms": bwd["plain_ms"],
-        "bound_ms": bwd["b5_bound"]["bound_ms"],
-        "bound_by": bwd["b5_bound"]["bound_by"],
-        "library_ms": bwd["library_ms"],
+        **bwd_entry("B5", mv["launches"][2], bwd_errs, bwd, torch.float32),
+    }, {
+        "name": "flash_attn_bwd_dkv_bf16",
+        "route": "cuda",
+        "source": "gaussctrl_exp_tpu_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941 (_flash_attention_bwd_dkv, pallas_call "
+                    ":1121) in bf16, the backward of gaussctrl_exp_tpu/diffusion/attention.py:37 _flash_sdpa reached "
+                    "from diffusion/mv_generator.py:198 with init_depth_generator(dtype=jnp.bfloat16)",
+        **bwd_entry("B4", mvb["launches"][1], bwd_errs, bwd, torch.bfloat16),
+    }, {
+        "name": "flash_attn_bwd_dq_bf16",
+        "route": "cuda",
+        "source": "gaussctrl_exp_tpu_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 (_flash_attention_bwd_dq, pallas_call "
+                    ":1456) in bf16, the backward of gaussctrl_exp_tpu/diffusion/attention.py:37 _flash_sdpa reached "
+                    "from diffusion/mv_generator.py:198 with init_depth_generator(dtype=jnp.bfloat16)",
+        **bwd_entry("B5", mvb["launches"][2], bwd_errs, bwd, torch.bfloat16),
     }]}
     for mode, row in variants["rows"].items():
         kernels["kernels"].append({

@@ -32,6 +32,7 @@ from torch import nn
 
 from ..ops import attention_cuda
 from ..ops.attention_cuda import sdpa_plain
+from .layers import GroupNorm, LayerNorm, Linear
 
 Processor = Callable[..., torch.Tensor]
 
@@ -87,10 +88,10 @@ class Attention(nn.Module):
         inner = heads * dim_head
         kv_dim = cross_attention_dim or query_dim
         self.heads, self.dim_head = heads, dim_head
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(kv_dim, inner, bias=False)
-        self.to_v = nn.Linear(kv_dim, inner, bias=False)
-        self.to_out_0 = nn.Linear(inner, query_dim)
+        self.to_q = Linear(query_dim, inner, bias=False)
+        self.to_k = Linear(kv_dim, inner, bias=False)
+        self.to_v = Linear(kv_dim, inner, bias=False)
+        self.to_out_0 = Linear(inner, query_dim)
 
     def forward(self, hidden_states, context=None, processor: Optional[Processor] = None):
         is_cross = context is not None
@@ -116,8 +117,8 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         inner = dim * mult
-        self.proj = nn.Linear(dim, inner * 2)
-        self.out = nn.Linear(inner, dim)
+        self.proj = Linear(dim, inner * 2)
+        self.out = Linear(inner, dim)
 
     def forward(self, x):
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -129,11 +130,11 @@ class BasicTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim: int = 768):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn1 = Attention(dim, heads, dim_head)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = LayerNorm(dim, eps=1e-6)
         self.attn2 = Attention(dim, heads, dim_head, cross_attention_dim)
-        self.norm3 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm3 = LayerNorm(dim, eps=1e-6)
         self.ff = FeedForward(dim)
 
     def forward(self, x, context, processor=None):
@@ -149,12 +150,12 @@ class Transformer2D(nn.Module):
                  cross_attention_dim: int = 768):
         super().__init__()
         self.depth = depth
-        self.norm = nn.GroupNorm(32, channels, eps=1e-6)
-        self.proj_in = nn.Linear(channels, channels)
+        self.norm = GroupNorm(32, channels, eps=1e-6)
+        self.proj_in = Linear(channels, channels)
         for i in range(depth):
             self.add_module(f"transformer_blocks_{i}",
                             BasicTransformerBlock(channels, heads, dim_head, cross_attention_dim))
-        self.proj_out = nn.Linear(channels, channels)
+        self.proj_out = Linear(channels, channels)
 
     def forward(self, x, context, processor=None):
         B, C, H, W = x.shape

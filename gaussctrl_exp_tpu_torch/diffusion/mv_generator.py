@@ -16,6 +16,9 @@ reference's MVDiffusion-style experiment:
     self- and cross-attention's backward runs kernels B4 and B5
     (``ops/attention_cuda.FlashAttnFunction``), as the JAX package's
     ``jax.value_and_grad`` runs the library TPU flash attention's backward.
+    ``init_depth_generator(dtype=torch.bfloat16)`` trains with float32
+    parameters and a bf16 UNet, as Flax's ``dtype``: that step runs B3, B4
+    and B5 in bf16.
 
 Public shapes are the JAX package's NHWC: latents (B, L, L, 4), depth
 latents (V, L, L, 1); the UNet runs NCHW inside. ``jax.random`` has no
@@ -197,13 +200,18 @@ def init_depth_generator(
 ) -> DepthGenerator:
     """Random-weight DepthGenerator (5-channel ``conv_in``) with Flax's
     initialisers, drawn from a generator seeded with ``seed``; SD1.x widths
-    by default, tiny ones for tests. Its parameters require grad."""
+    by default, tiny ones for tests. Its parameters are float32 and require
+    grad; the UNet computes in ``dtype``, as the JAX package's
+    ``init_depth_generator(dtype=...)`` builds it with Flax's ``dtype``
+    (``param_dtype`` float32): with bf16 every weight is cast at its use,
+    its gradient reaches the float32 parameter through the cast, and an
+    optimizer over ``unet.parameters()`` keeps float32 state."""
     from .unet import BLOCK_OUT, CROSS_DIM, HEADS, LAYERS_PER_BLOCK
 
     device = resolve_device(device)
     block_out = tuple(block_out or BLOCK_OUT)
     kw = dict(in_channels=5, block_out=block_out, layers_per_block=layers_per_block or LAYERS_PER_BLOCK,
-              heads=heads or HEADS, cross_dim=cross_dim or CROSS_DIM, temb_dim=block_out[-1])
+              heads=heads or HEADS, cross_dim=cross_dim or CROSS_DIM, temb_dim=block_out[-1], compute_dtype=dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
-    unet = _random_module(lambda: UNet2DCondition(**kw), device, gen).to(dtype).requires_grad_(True)
+    unet = _random_module(lambda: UNet2DCondition(**kw), device, gen).requires_grad_(True)
     return DepthGenerator(unet, cfg or MVGeneratorConfig(latent_size=latent))

@@ -5,7 +5,11 @@ Each function takes a tree of nested dicts of arrays (``unet_params``,
 ``DepthGenerator``'s ``unet_params``, or ``FlaxCLIPTextModel.params``) and
 returns the state dict that the matching port module loads with
 ``load_state_dict(strict=True)``; the depth generator's 5-channel
-``conv_in`` needs nothing more than the UNet's rename. The module names of
+``conv_in`` needs nothing more than the UNet's rename. The JAX package's
+bf16 depth generator (``init_depth_generator(dtype=jnp.bfloat16)``) keeps
+float32 parameters, Flax's ``param_dtype``, so they carry across unchanged
+into the port's generator, whose parameters are float32 too and whose UNet
+computes in bf16 (``UNet2DCondition(compute_dtype=...)``). The module names of
 the port mirror the Flax ones, so the mapping is mechanical:
 
   * conv ``kernel`` (kh, kw, I, O) → ``weight`` (O, I, kh, kw)

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .attention import Transformer2D
+from .layers import Conv2d, GroupNorm, Linear
 
 BLOCK_OUT = (320, 640, 1280, 1280)  # SD1.x defaults
 LAYERS_PER_BLOCK = 2
@@ -39,12 +40,12 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int = 320) -> torch.Tensor:
 class ResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, temb_dim: int):
         super().__init__()
-        self.norm1 = nn.GroupNorm(32, in_channels, eps=1e-5)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
-        self.time_emb_proj = nn.Linear(temb_dim, out_channels)
-        self.norm2 = nn.GroupNorm(32, out_channels, eps=1e-5)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
-        self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
+        self.norm1 = GroupNorm(32, in_channels, eps=1e-5)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
+        self.time_emb_proj = Linear(temb_dim, out_channels)
+        self.norm2 = GroupNorm(32, out_channels, eps=1e-5)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = Conv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
 
     def forward(self, x, temb):
         h = self.conv1(F.silu(self.norm1(x)))
@@ -58,7 +59,7 @@ class ResnetBlock(nn.Module):
 class Downsample(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=1)
 
     def forward(self, x):
         return self.conv(x)
@@ -70,7 +71,7 @@ class Upsample(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
@@ -81,18 +82,25 @@ def _attn(ch: int, heads: int, cross_dim: int) -> Transformer2D:
 
 
 class UNet2DCondition(nn.Module):
-    """SD1.x UNet (dims configurable so tests can use a tiny instance)."""
+    """SD1.x UNet (dims configurable so tests can use a tiny instance).
+
+    ``compute_dtype`` is Flax's ``dtype``: the type the UNet computes in,
+    whatever its parameters' type (``layers.py`` casts each weight at its
+    use). ``None`` computes in the parameters' type, so a UNet cast to bf16
+    as a whole (the edit path) computes in bf16."""
 
     def __init__(self, in_channels: int = 4, out_channels: int = 4, block_out: tuple = BLOCK_OUT,
                  layers_per_block: int = LAYERS_PER_BLOCK, heads: int = HEADS,
-                 cross_dim: int = CROSS_DIM, temb_dim: int = 1280):
+                 cross_dim: int = CROSS_DIM, temb_dim: int = 1280,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.block_out, self.layers_per_block = tuple(block_out), layers_per_block
         n = len(self.block_out)
         c0 = self.block_out[0]
-        self.time_embedding_linear_1 = nn.Linear(c0, temb_dim)
-        self.time_embedding_linear_2 = nn.Linear(temb_dim, temb_dim)
-        self.conv_in = nn.Conv2d(in_channels, c0, 3, padding=1)
+        self.time_embedding_linear_1 = Linear(c0, temb_dim)
+        self.time_embedding_linear_2 = Linear(temb_dim, temb_dim)
+        self.conv_in = Conv2d(in_channels, c0, 3, padding=1)
 
         res_ch, ch = [c0], c0  # channels of the skip stack
         for bi, cout in enumerate(self.block_out):
@@ -119,8 +127,8 @@ class UNet2DCondition(nn.Module):
             if bi < n - 1:
                 self.add_module(f"up_{bi}_upsample", Upsample(ch))
 
-        self.conv_norm_out = nn.GroupNorm(32, ch, eps=1e-5)
-        self.conv_out = nn.Conv2d(ch, out_channels, 3, padding=1)
+        self.conv_norm_out = GroupNorm(32, ch, eps=1e-5)
+        self.conv_out = Conv2d(ch, out_channels, 3, padding=1)
 
     def forward(
         self,
@@ -130,7 +138,7 @@ class UNet2DCondition(nn.Module):
         processor=None,
         controlnet_residuals: Optional[Tuple[Sequence[torch.Tensor], torch.Tensor]] = None,
     ) -> torch.Tensor:
-        dtype = self.conv_in.weight.dtype
+        dtype = self.compute_dtype or self.conv_in.weight.dtype
         n = len(self.block_out)
         ctx = encoder_hidden_states.to(dtype)
         temb = timestep_embedding(timesteps, self.block_out[0]).to(dtype)

@@ -146,16 +146,16 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def dkv_splits(B: int, H: int, S: int, T: int, D: int, sms: int) -> int:
-    """Over how many CTAs fp32 B4 splits each key block's queries on a card
-    of ``sms`` SMs, by the rule of ``csrc/flash_attn_bwd.cu``
+def dkv_splits(B: int, H: int, S: int, T: int, D: int, sms: int, bf16: bool = False) -> int:
+    """Over how many CTAs B4 (bf16 or fp32) splits each key block's queries
+    on a card of ``sms`` SMs, by the rule of ``csrc/flash_attn_bwd.cu``
     (``gctorch_flash_attn_bwd_dkv_splits``)."""
-    return _bwd_lib().gctorch_flash_attn_bwd_dkv_splits(B, H, S, T, D, 0, sms)
+    return _bwd_lib().gctorch_flash_attn_bwd_dkv_splits(B, H, S, T, D, int(bf16), sms)
 
 
 def dkv_sum_launches() -> int:
-    """Launches of fp32 B4's second pass, which sums the partials of its
-    query splits, since the kernel library was loaded."""
+    """Launches of B4's second pass, which sums the partials of its query
+    splits, since the kernel library was loaded."""
     return _bwd_lib().gctorch_flash_attn_bwd_sum_launches()
 
 
@@ -206,15 +206,15 @@ def flash_attn_bwd_dkv(q, k, v, out, lse, dout, delta=None, _splits=None) -> tup
     """Launch kernel B4: dK and dV (B, H, T, D), laid out (B, T, H, D), of the
     attention B3 computed as ``out`` with log-sum-exp ``lse``, for the output
     cotangent ``dout``; ``delta`` is ``delta_of(out, dout)``, computed here
-    when not given. In fp32 each key block's queries are split over
-    ``dkv_splits`` CTAs (``_splits`` sets the count, for the tests)."""
+    when not given. Each key block's queries are split over ``dkv_splits``
+    CTAs (``_splits`` sets the count, for the tests)."""
     global dkv_launches
     q, k, v, dout, lse, delta = _bwd_inputs("flash_attn_bwd_dkv", q, k, v, out, lse, dout, delta)
     B, H, S, D = q.shape
     T = k.shape[2]
     if _splits is None:
-        _splits = 1 if q.dtype == torch.bfloat16 else dkv_splits(
-            B, H, S, T, D, torch.cuda.get_device_properties(q.device).multi_processor_count)
+        _splits = dkv_splits(B, H, S, T, D, torch.cuda.get_device_properties(q.device).multi_processor_count,
+                             q.dtype == torch.bfloat16)
     dk, dv = _heads_last(B, T, H, D, k), _heads_last(B, T, H, D, k)
     _launch_bwd(0, q, k, v, dout, lse, delta, None, dk, dv, _splits)
     dkv_launches += 1

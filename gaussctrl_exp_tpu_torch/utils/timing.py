@@ -129,7 +129,7 @@ def record_mismatch(first: Counter, second: Counter, calls: int) -> dict[str, tu
             if first[n] != second[n] or first[n] % calls}
 
 
-def checked_window(fn: Callable, calls: int = 1, prepare: Callable | None = None, attempts: int = 8):
+def checked_window(fn: Callable, calls: int = 1, prepare: Callable | None = None, attempts: int = 12):
     """``profile_window`` held to a count: two windows of ``calls`` calls
     are profiled; each must keep at least one of its spare launches, and
     each device op must have the same records in both, a whole number per
@@ -139,12 +139,14 @@ def checked_window(fn: Callable, calls: int = 1, prepare: Callable | None = None
     that fails is profiled again, with the spares doubled if one of its
     windows kept none, up to ``attempts`` pairs in all; then this raises.
     Returns the second window's events and interval. Needs a card."""
+    tried = []  # (spares opening each window, kept in the first, in the second, ops that betray a drop)
     for _ in range(attempts):
         first, _, spares_1 = profile_window(fn, calls, prepare)
         dev, win, spares_2 = profile_window(fn, calls, prepare)
         bad = record_mismatch(Counter(e.name for e in first), Counter(e.name for e in dev), calls)
         if spares_1 and spares_2 and not bad:
             return dev, win
+        tried.append((_spares[0], spares_1, spares_2, len(bad)))
         if not (spares_1 and spares_2):
             _spares[0] *= 2
     kept = {n: [f"{(e.time_range.start - win[0]) / 1e3:.3f}-{(e.time_range.end - win[0]) / 1e3:.3f}"
@@ -152,7 +154,8 @@ def checked_window(fn: Callable, calls: int = 1, prepare: Callable | None = None
     raise RuntimeError(f"torch.profiler dropped device records of {calls} calls in {attempts} pairs of windows "
                        f"(spares kept in the last pair: {spares_1}, {spares_2} of {_spares[0]}; name: records in "
                        f"the first window, in the second): {bad}; the second window's records of these, ms from "
-                       f"its opening (it lasted {(win[1] - win[0]) / 1e3:.3f} ms): {kept}")
+                       f"its opening (it lasted {(win[1] - win[0]) / 1e3:.3f} ms): {kept}; every pair (spares, kept "
+                       f"in the first, in the second, ops betraying a drop): {tried}")
 
 
 def spare_launches() -> int:

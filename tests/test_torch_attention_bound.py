@@ -169,3 +169,18 @@ def test_fp32_forward_is_bound_by_3xtf32():
     assert short["bound_by"] == "bytes" and short["bound_ms"] == short["bytes_ms"]
     bf16 = attention_bound(MAIN, torch.bfloat16)
     assert bf16["bound_ms"] == bf16["ops_ms"]
+
+
+def test_bf16_dq_is_held_by_its_exponentials_more_than_its_products():
+    """bf16 B5 at (4, 8, 4096, 4096, 40): its 6·B·H·S·T·D = 1.288e11
+    operations take 0.13028 ms at 989 TFLOP/s, under the 0.13891 ms its one
+    exponential a score takes on the special-function unit (16 per SM per
+    clock, 132 SMs, 1.83 GHz). ``bound_ms`` stays the operations (the
+    exponentials are reported apart: a polynomial exponential on the FMA
+    pipe could go under them); B4's 8 products stay above its exponentials."""
+    b5 = attention_bwd_bound(GEN, torch.bfloat16, "B5")
+    assert b5["exp_ms"] > b5["bf16_ms"]
+    assert b5["exp_ms"] == pytest.approx(0.13891, abs=5e-6) and b5["bf16_ms"] == pytest.approx(0.13028, abs=5e-6)
+    assert b5["bound_ms"] == b5["bf16_ms"] and b5["bound_by"] == "operations"
+    b4 = attention_bwd_bound(GEN, torch.bfloat16, "B4")
+    assert b4["bf16_ms"] > b4["exp_ms"] and b4["bound_ms"] == b4["bf16_ms"]

@@ -726,27 +726,30 @@ def test_flash_backward_f32_query_split_matches_unsplit(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,splits", [
-    ((4, 8, 4096, 4096, 40), 1),  # self 64²: 64 · 32 = 2,048 CTAs
-    ((4, 8, 1024, 1024, 80), 1),  # self 32²: 512
-    ((4, 8, 256, 256, 160), 3),  # self 16²: 128 CTAs → 3 splits (384)
-    ((4, 8, 64, 64, 40), 1),  # self 8²: 32 CTAs, but 64 queries
-    ((4, 8, 4096, 77, 40), 5),  # cross 64²: 64 CTAs → 5 splits (320)
-    ((4, 8, 1024, 77, 80), 5),
-    ((4, 8, 256, 77, 160), 4),  # at most one split per 64 queries
-    ((2, 3, 100, 77, 40), 2),
-    ((5, 7, 288, 77, 40), 3),  # 70 CTAs want 4 splits; 9 ring tiles of 32 go 3 a split
-    ((33, 8, 100, 64, 40), 1),  # 264 CTAs: two an SM already
-    ((32, 8, 100, 64, 40), 2),  # 256: one short
+@pytest.mark.parametrize("shape,splits,bf16_splits", [
+    ((4, 8, 4096, 4096, 40), 1, 1),  # self 64²: 64 · 32 = 2,048 CTAs (bf16: 32 · 32 = 1,024)
+    ((4, 8, 1024, 1024, 80), 1, 1),  # self 32²: 512
+    ((4, 8, 256, 256, 160), 3, 1),  # self 16²: 128 CTAs → 3 splits (384); bf16 at most one per 256 queries
+    ((4, 8, 64, 64, 40), 1, 1),  # self 8²: 32 CTAs, but 64 queries
+    ((4, 8, 64, 64, 160), 1, 1),
+    ((4, 8, 4096, 77, 40), 5, 8),  # cross 64²: 64 CTAs → 5 splits (320); bf16 32 → 9, 64 tiles go 8 a split
+    ((4, 8, 1024, 77, 80), 5, 4),  # bf16: 64 CTAs want 5; 16 ring tiles of 64 go 4 a split
+    ((4, 8, 256, 77, 160), 4, 1),  # at most one split per 64 queries (bf16: 256)
+    ((2, 3, 100, 77, 40), 2, 1),
+    ((5, 7, 288, 77, 40), 3, 2),  # 70 CTAs want 4 splits; 9 ring tiles of 32 go 3 a split (bf16: 35 CTAs, 2)
+    ((33, 8, 100, 64, 40), 1, 1),  # 264 CTAs: two an SM already
+    ((32, 8, 100, 64, 40), 2, 1),  # 256: one short
 ])
-def test_dkv_query_splits(cuda_device, shape, splits):
-    """fp32 B4 splits each key block's queries over more CTAs where its
-    ceil(T / 64) · B · H CTAs give fewer than two for each of 132 SMs, at
-    most one split per 64 queries; bf16 never splits."""
+def test_dkv_query_splits(cuda_device, shape, splits, bf16_splits):
+    """B4 splits each key block's queries over more CTAs where its
+    ceil(T / rows) · B · H CTAs give fewer than two for each of 132 SMs, at
+    most one split per 64 queries in fp32 and per 256 in bf16. rows: 64 keys
+    a CTA in fp32; in bf16 128 at D ≤ 48, else 64."""
     from gaussctrl_exp_tpu_torch.ops import attention_cuda
 
     assert attention_cuda.dkv_splits(*shape, sms=132) == splits
-    assert attention_cuda._bwd_lib().gctorch_flash_attn_bwd_dkv_splits(*shape, 1, 132) == 1
+    assert attention_cuda.dkv_splits(*shape, sms=132, bf16=True) == bf16_splits
+    assert attention_cuda._bwd_lib().gctorch_flash_attn_bwd_dkv_splits(*shape, 1, 132) == bf16_splits
 
 
 @pytest.mark.cuda
@@ -840,3 +843,109 @@ def test_variant_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError):  # a chunk table of other bins
         other = V.chunk_table(bins.tile_cnt[:8], 2, 4, V.aligned_capacity(1 << 12, 8))
         V.blend_variant("pair", xys, conics, chan, opacs, bins, H, W, table=other)
+
+
+# bf16 B4/B5 (mma.sync m16n8k16): 128 own rows a CTA (keys for B4, queries
+# for B5) at D ≤ 48, 64 above; ring tiles of 64 rows (D ≤ 80) or 32, walked 16
+# rows at a time; widths rounded up to 16, 32, 40, 48, 64, 80, 96, 128 or 160
+# with the columns past D zero-filled; B4 splits its queries over several
+# CTAs where its key blocks are too few for the card, as in fp32
+BF16_WIDTHS = [8, 16, 24, 32, 40, 48, 64, 80, 96, 128, 160]
+
+
+def _assert_bf16_grads(got, want, names=("dq", "dk", "dv")):
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all()), name
+        rel = float((g.float() - w).norm() / w.norm())
+        assert rel <= BWD_BF16_REL_L2, (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", BF16_WIDTHS)
+def test_flash_backward_bf16_head_widths(cuda_device, D):
+    """Every bf16 width template against autograd through sdpa_plain, with
+    and without the query split; each repeats bit for bit."""
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 2, 3, 200, 130, D, seed=D)
+    _check_grads(q, k, v, seed=D)
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cpu").manual_seed(D)).to(cuda_device, q.dtype)
+    want = _plain_grads(q, k, v, dout)
+    for splits in (1, 3):
+        got = _direct_grads(q, k, v, dout, splits)
+        _assert_bf16_grads(got, want)
+        assert all(torch.equal(x, y) for x, y in zip(got, _direct_grads(q, k, v, dout, splits)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 63, 64, 65, 129])
+def test_flash_backward_bf16_tile_edges(cuda_device, S, T):
+    """Ragged S and T: counts on each side of a 16-row slice, a ring tile
+    (64 rows at D ≤ 80, 32 above) and a CTA's own rows (128 at D = 40, 64 at
+    D = 80 and 160). With one key, P = 1 and dP = dO·V = delta, so dQ and dK
+    vanish but for rounding on both sides: there they are held to the limit
+    of dV's norm instead of their own."""
+    for B, H, D, seed in ((2, 3, 40, S * 1000 + T), (1, 2, 80, S * 1000 + T + 1), (1, 2, 160, S * 1000 + T + 2)):
+        q, k, v = _qkv(cuda_device, torch.bfloat16, B, H, S, T, D, seed=seed)
+        if T > 1:
+            _check_grads(q, k, v, seed=seed)
+            continue
+        dout = torch.randn(q.shape, generator=torch.Generator(device="cpu").manual_seed(seed)).to(cuda_device, q.dtype)
+        got, want = _direct_grads(q, k, v, dout), _plain_grads(q, k, v, dout)
+        for g, w in zip(got[:2], want[:2]):
+            assert float((g.float() - w).norm()) <= BWD_BF16_REL_L2 * float(want[2].norm())
+        _assert_bf16_grads(got[2:], want[2:], ("dv",))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,forced", [
+    ((4, 8, 256, 256, 160), 2),  # self 16²: the rule keeps 1 (one split per 256 queries); forced to 2
+    ((4, 8, 64, 64, 160), 2),  # self 8²: likewise
+    ((4, 8, 4096, 77, 40), 3),  # cross 64²: 8
+    ((4, 8, 1024, 77, 80), 7),  # cross 32²: 4
+    ((2, 3, 300, 200, 24), 5),  # the rule: 2
+])
+def test_flash_backward_bf16_query_split_matches_unsplit(cuda_device, shape, forced):
+    """bf16 B4 with its queries split (by the rule, and a forced count)
+    against the unsplit kernel and the plain gradients; the split sums its
+    fp32 partials in a fixed order, so each count repeats bit for bit, and
+    dQ (B5) does not split."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    B, H, S, T, D = shape
+    q, k, v = _qkv(cuda_device, torch.bfloat16, B, H, S, T, D, seed=S + T)
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cpu").manual_seed(T)).to(cuda_device, q.dtype)
+    want = _plain_grads(q, k, v, dout)
+    rule = attention_cuda.dkv_splits(B, H, S, T, D, torch.cuda.get_device_properties(cuda_device).multi_processor_count,
+                                     bf16=True)
+    one = _direct_grads(q, k, v, dout, 1)
+    _assert_bf16_grads(one, want)
+    for splits in sorted({rule, forced}):
+        got = _direct_grads(q, k, v, dout, splits)
+        _assert_bf16_grads(got, want)
+        assert torch.equal(got[0], one[0])
+        for g, u in zip(got[1:], one[1:]):
+            assert float((g.float() - u.float()).norm() / u.float().norm()) <= BWD_BF16_REL_L2
+        assert all(torch.equal(x, y) for x, y in zip(got, _direct_grads(q, k, v, dout, splits)))
+    sums = attention_cuda.dkv_sum_launches()
+    auto = _direct_grads(q, k, v, dout)
+    assert attention_cuda.dkv_sum_launches() == sums + (rule > 1)
+    assert all(torch.equal(x, y) for x, y in zip(auto, _direct_grads(q, k, v, dout, rule)))
+
+
+@pytest.mark.cuda
+def test_flash_backward_bf16_misaligned_input_is_copied(cuda_device):
+    """A contiguous bf16 key tensor 8 bytes past a 16-byte boundary is copied
+    to an aligned tensor by B3, B4 and B5 alike, counted, and gives the
+    gradients of the aligned input bit for bit."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 2, 3, 100, 77, 40, seed=4)
+    flat = torch.zeros(k.numel() + 4, dtype=k.dtype, device=cuda_device)
+    k_off = flat[4:].view(k.shape)
+    k_off.copy_(k)
+    assert k_off.is_contiguous() and k_off.data_ptr() % 16 == 8
+    copies = attention_cuda.copies
+    with pytest.warns(UserWarning, match="copied"):
+        got = _check_grads(q, k_off, v, seed=5)
+    assert attention_cuda.copies == copies + 3  # B3's forward, then B4 and B5
+    assert all(torch.equal(x, y) for x, y in zip(got, _check_grads(q, k, v, seed=5)))
