@@ -7,6 +7,8 @@ Run from the repository root, with one CUDA card visible:
     python3 chip_smoke.py --attention   # phase 9, then B3, B4, B5 alone (11, 15)
     python3 chip_smoke.py --blend       # phases 3 and 6, then B1 and B2 alone
     python3 chip_smoke.py --generator   # phase 17 alone, on seeded latents
+    python3 chip_smoke.py --variants    # phase 16's checks, then B1 and B1v alone
+    python3 chip_smoke.py --edit        # phases 9 to 11 alone: the edit path
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN.
@@ -75,7 +77,7 @@ Phases (any failure exits non-zero):
      against its plain version per mode on the variant script's scene
      (35,000 gaussians, 512²), a sparse one with empty tiles, the 500×372
      frame and (base, nomatmul) the garden frame, and ``base`` against B1;
-     B1v per mode against its bound and the plain version; then the main
+     B1v per mode against both its bounds and the plain version; then the main
      path of this slice: the ported ``bench_blend_variants`` and
      ``bench_bwd_micro`` scripts at their defaults, with the launches of
      B1v, B1 and B2 read around them.
@@ -100,7 +102,14 @@ kernels on one card, run it from each tree in turns (parent, change,
 change, parent) within one call. ``--attention`` does the same for B3, B4
 and B5 (phase 9, then the kernel rows of phases 11 and 15), and
 ``--generator`` for the bf16 generator's step (phase 17, on the bear-scale
-scene's views with seeded latents and text states).
+scene's views with seeded latents and text states). ``--variants`` builds
+only B1 and B1v (registers and spills per mode), runs phase 16's checks,
+then times B1 and each mode of B1v alone by device time at the variant
+script's scene and (base, nomatmul) the garden frame, against both of B1v's
+bounds (the pairs each pixel's warp must evaluate and the live ones among
+them, and every walked pair), with each mode's difference from base as a
+share of base. ``--edit`` runs phases 9 to 11 alone (the edit path at full
+width and its timings).
 
 A busy share is the union of the device ops' intervals over the wall of
 the same profiled window, both from torch.profiler, so it cannot pass 1.
@@ -1045,7 +1054,7 @@ SASS_KERNELS = (("blend_fwd", "blend_fwd_kernelILi4E"), ("blend_bwd", "blend_bwd
 BLEND_LAUNCHES = 20  # calls in each device-time window of --blend
 
 
-def print_ptxas(sources=ATTENTION_SOURCES + BLEND_SOURCES) -> None:
+def print_ptxas(sources=ATTENTION_SOURCES + BLEND_SOURCES + ("blend_variants",)) -> None:
     """The kernels' registers and spills, per kernel and instantiation, as
     ptxas -v reported them to the nvcc runs of this process."""
     from gaussctrl_exp_tpu_torch.ops import cuda_build
@@ -1192,8 +1201,8 @@ def blend_only(dev) -> int:
     print(f"{smi_line()}; {BLEND_LAUNCHES} calls a window")
     t0 = time.perf_counter()
     cuda_build.build(BLEND_SOURCES)
-    print(f"built B1 and B2 in {time.perf_counter() - t0:.2f} s (per source "
-          f"{ {n: cuda_build.EXTRA_FLAGS[n] for n in BLEND_SOURCES} })")
+    print(f"built B1 and B2 in {time.perf_counter() - t0:.2f} s (nvcc "
+          f"{' '.join(cuda_build.NVCC_FLAGS)})")
     print_ptxas(BLEND_SOURCES)
     print_sass()
     bear = synthetic_params(N_BEAR, 0, 0.8, -4.2, 0.5)
@@ -1765,15 +1774,16 @@ def phase15_timings(dev, mv) -> dict:
 
 # ---------------------------------------------------------------- phase 16
 
-# B1v's fp32 operations per evaluated (pixel, slot) pair, from
-# csrc/blend_variants.cu: dx, dy, σ (9), the visibility (2), α and its clamp
-# (2), the two tests (2), aeff (1) and 1 − aeff (1), 19 in every mode; T_excl
-# (an exp and a multiply, 2; scan a multiply, 1; nomatmul none), T_after
-# with its two tests and the done test (4), the cumulation (log1p of −aeff
-# and the add, 3; notrans the add, 1; scan the multiply, 1; nomatmul none).
-# A composited pair adds the weight, the running minimum and a multiply-add
-# per channel
-OPS_VARIANT = {"base": 28, "notrans": 26, "nomatmul": 23, "scan": 25, "pair": 28}
+# B1v's fp32 operations, from csrc/blend_variants.cu: a pair it evaluates
+# (a pixel not done at the chunk's start, a gaussian whose footprint box at
+# the mode's skip level meets the pixel's warp) runs B1's pair_alpha and the
+# alpha test (OPS_EVALUATED); a live pair (aeff > 0) then adds 1 − aeff,
+# T_excl (an exp and a multiply, 2; scan a multiply, 1; nomatmul none),
+# T_after and its stop test (2) and the cumulation (negate, log1p and add, 3;
+# notrans the subtraction, 1; scan the multiply, 1; nomatmul none). A
+# composited pair adds the weight, the running minimum and a multiply-add per
+# channel
+OPS_VARIANT_LIVE = {"base": 8, "notrans": 6, "nomatmul": 3, "scan": 5, "pair": 8}
 OPS_VARIANT_COMPOSITED_BASE = 2
 # pixels left out of B1v's comparison (a stop decision within the band around
 # T_EPS, where the kernel's serial sums and the plain version's cumsums may
@@ -1782,21 +1792,34 @@ VARIANT_BAND_MAX = 5e-3
 N_SPARSE = 500  # the script's scene with 500 gaussians: tiles with no intersection
 
 
-def variant_bound(mode, run, args, bins, table) -> tuple[float, str, dict]:
-    """B1v's bound for mode ``mode``: the fp32 operations of the pairs this
-    run evaluates (``run`` is the plain version's count of them), each input
-    read once and the output written once; ``empty`` only writes."""
-    _, _, colors, _ = args
+def variant_bound(mode, run, args, bins, table, H, W) -> tuple[float, str, dict]:
+    """B1v's bound for mode ``mode``: each input read once, the output
+    written once, and the fp32 operations of the pairs it must evaluate and
+    of the live ones among them (``blend_variants.variant_pairs`` on the
+    plain run ``run``: up to the chunk at which each pixel is done, where the
+    gaussian's footprint box at the mode's skip level meets the pixel's
+    warp, as B1's bound counts them); ``empty`` only writes. Beside it in the
+    work, ``walked_bound_ms``: the bound with every walked pair
+    (``run.pairs``, the boxes ignored) evaluated and live."""
+    from gaussctrl_exp_tpu_torch.ops import blend_variants as V
+
+    xys, conics, colors, opacs = args
     N, C = colors.shape
     n_bytes = run.out.numel() * 4
-    n_ops = 0
+    evaluated, live = V.variant_pairs(mode, run, xys, conics, opacs, bins, H, W, table)
+    n_ops = walked_ops = 0
     if mode != "empty":
         n_bytes += 4 * (N * (6 + C) + bins.n_isects + 2 * table.num_tiles)
         if mode == "pair":  # the chunk table and the pair ranges
             n_bytes += 4 * (3 * table.chunk_tile.numel() + 2 * table.num_tiles)
-        n_ops = OPS_VARIANT[mode] * run.pairs + (OPS_VARIANT_COMPOSITED_BASE + 2 * C) * run.composited
+        composited_ops = (OPS_VARIANT_COMPOSITED_BASE + 2 * C) * run.composited
+        n_ops = OPS_EVALUATED * evaluated + OPS_VARIANT_LIVE[mode] * live + composited_ops
+        walked_ops = (OPS_EVALUATED + OPS_VARIANT_LIVE[mode]) * run.pairs + composited_ops
     bound, by = roofline(n_bytes, n_ops)
-    return bound, by, dict(bytes=n_bytes, ops=n_ops, pairs=run.pairs, composited=run.composited, chunks=run.chunks)
+    walked, walked_by = roofline(n_bytes, walked_ops)
+    return bound, by, dict(bytes=n_bytes, ops=n_ops, evaluated_pairs=evaluated, live_pairs=live,
+                           walked_pairs=run.pairs, composited=run.composited, chunks=run.chunks,
+                           walked_ops=walked_ops, walked_bound_ms=walked, walked_bound_by=walked_by)
 
 
 def check_variant(name, mode, args, bins, H, W, capacity):
@@ -1847,17 +1870,12 @@ def check_base_against_b1(name, got, run, args, bins, H, W) -> float:
     return err
 
 
-def phase16_variants(dev, odd, garden) -> dict:
+def variant_checks(dev, odd, garden) -> tuple[dict, tuple]:
     """B1v against its plain version per mode at four scenes and ``base``
-    against B1; the main path: both ported benchmark scripts at their
-    defaults, with the launches of B1v, B1 and B2 read around them; then B1v
-    per mode at the script's scene (its time from the script) against its
-    bound and the plain version."""
-    from gaussctrl_exp_tpu_torch.ops import blend_cuda
+    against B1; returns the largest max |d| per mode and the script's scene
+    (name, inputs, bins)."""
     from gaussctrl_exp_tpu_torch.ops import blend_variants as V
     from gaussctrl_exp_tpu_torch.scripts import bench_blend_variants as bbv
-    from gaussctrl_exp_tpu_torch.scripts import bench_bwd_micro as micro
-    from gaussctrl_exp_tpu_torch.utils import timing
 
     print("[16] kernel B1v (the blend-forward ablations) vs its plain version, every tile (both write the init "
           "where the TPU kernel leaves a tile undefined), pixels in the stop band left out")
@@ -1885,6 +1903,22 @@ def phase16_variants(dev, odd, garden) -> dict:
             errs[mode] = max(errs[mode], err)
             if mode == "base":
                 check_base_against_b1(name, got, run, args, bins, H, W)
+    return errs, (main_name, main_args, main_bins)
+
+
+def phase16_variants(dev, odd, garden) -> dict:
+    """B1v against its plain version per mode at four scenes and ``base``
+    against B1 (``variant_checks``); the main path: both ported benchmark
+    scripts at their defaults, with the launches of B1v, B1 and B2 read
+    around them; then B1v per mode at the script's scene (its time from the
+    script) against both its bounds and the plain version."""
+    from gaussctrl_exp_tpu_torch.ops import blend_cuda
+    from gaussctrl_exp_tpu_torch.ops import blend_variants as V
+    from gaussctrl_exp_tpu_torch.scripts import bench_blend_variants as bbv
+    from gaussctrl_exp_tpu_torch.scripts import bench_bwd_micro as micro
+    from gaussctrl_exp_tpu_torch.utils import timing
+
+    errs, (main_name, main_args, main_bins) = variant_checks(dev, odd, garden)
 
     # the main path: both ported scripts, as a user runs them
     for mode in V.MODES:
@@ -1923,11 +1957,123 @@ def phase16_variants(dev, odd, garden) -> dict:
         run = V.variant_plain_run(mode, *main_args, main_bins, Sv, Sv, table=table)
         plain_ms = time_ms(lambda: V.variant_plain_run(mode, *main_args, main_bins, Sv, Sv, table=table),
                            iters=3, warmup=1)
-        bound, by, work = variant_bound(mode, run, main_args, main_bins, table)
+        bound, by, work = variant_bound(mode, run, main_args, main_bins, table, Sv, Sv)
         rows[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
-        print(f"    {mode}: {ms:.4f} ms; bound {bound:.5f} ms ({by}), {bound / ms:.3f} of it; plain {plain_ms:.4f} ms; "
-              f"work {work}")
+        print(f"    {mode}: {ms:.4f} ms; bound {bound:.5f} ms ({by}), {bound / ms:.3f} of it; every walked pair's "
+              f"bound {work['walked_bound_ms']:.5f} ms ({work['walked_bound_by']}); plain {plain_ms:.4f} ms; work {work}")
     return dict(rows=rows, errs=errs, launches=counts, b2c_launches=b2)
+
+
+VARIANT_SOURCES = ("blend_fwd", "blend_variants")
+VARIANT_LAUNCHES = 20  # calls in each device-time window of --variants
+
+
+def variant_rows(scenes) -> dict:
+    """B1 and B1v per mode, each alone by device time (``kernel_time_ms``,
+    ``VARIANT_LAUNCHES`` calls a window) with the SM clock read before and
+    after, at each of ``scenes`` ((name, inputs, bins, modes) at S²), against
+    its bound (B1v: both, ``variant_bound``); then each mode's difference
+    from ``base`` as a share of ``base``, and ``base`` over B1."""
+    from gaussctrl_exp_tpu_torch.ops import blend_cuda
+    from gaussctrl_exp_tpu_torch.ops import blend_variants as V
+    from gaussctrl_exp_tpu_torch.scripts.bench_blend_variants import B1_KERNEL, variant_kernel_name
+    from gaussctrl_exp_tpu_torch.utils.timing import gpu_clocks, kernel_time_ms
+
+    rows = {}
+    for scene, args, bins, modes in scenes:
+        table = V.bins_chunk_table(bins, S, S, max(V.CAPACITY, bins.n_isects))
+        ms = {}
+        for mode in ("B1", *modes):
+            if mode == "B1":
+                def fn():
+                    return blend_cuda.blend_forward(*args, bins, S, S)
+                match = B1_KERNEL
+            else:
+                def fn():
+                    return V.blend_variant(mode, *args, bins, S, S, table=table)
+                match = variant_kernel_name(mode)
+            before = gpu_clocks()
+            ms[mode] = kernel_time_ms(fn, match, VARIANT_LAUNCHES)
+            after = gpu_clocks()
+            if mode == "B1":
+                bound, by, work = blend_bound(args, bins, S, S)
+                walked = ""
+            else:
+                run = V.variant_plain_run(mode, *args, bins, S, S, table=table)
+                bound, by, work = variant_bound(mode, run, args, bins, table, S, S)
+                walked = (f"; every walked pair's bound {work['walked_bound_ms']:.5f} ms ({work['walked_bound_by']}), "
+                          f"time / bound {ms[mode] / work['walked_bound_ms']:.2f}")
+            print(f"  {scene} {mode}: {ms[mode]:.4f} ms device time per launch; bound {bound:.5f} ms ({by}), time / "
+                  f"bound {ms[mode] / bound:.2f}{walked}; work {work}; clock before {clock_text(before)}, after "
+                  f"{clock_text(after)}")
+            rows[(scene, mode)] = dict(ms=ms[mode], bound_ms=bound, bound_by=by, **work)
+        shares = ", ".join(f"{m} {(ms[m] - ms['base']) / ms['base']:+.3f}" for m in modes if m != "base")
+        print(f"    {scene}: each mode's difference from base as a share of base: {shares}; base / B1 "
+              f"{ms['base'] / ms['B1']:.3f}")
+    return rows
+
+
+def variants_only(dev) -> int:
+    """``--variants``: kernels B1 and B1v built (their registers and spills
+    per mode), checked as in phase 16 (``variant_checks``), then B1 and B1v
+    per mode timed alone (``variant_rows``) at the variant script's scene and,
+    base and nomatmul, the garden frame, for a before/after comparison of
+    B1v within one chip call. Prints no kernels line and no result."""
+    from gaussctrl_exp_tpu_torch.cli import render as cli
+    from gaussctrl_exp_tpu_torch.engine.checkpoint import import_splatfacto_checkpoint
+    from gaussctrl_exp_tpu_torch.ops import blend_variants as V
+    from gaussctrl_exp_tpu_torch.ops import cuda_build
+    from gaussctrl_exp_tpu_torch.utils.timing import spare_launches
+
+    print(f"{smi_line()}; {VARIANT_LAUNCHES} calls a window")
+    t0 = time.perf_counter()
+    cuda_build.build(VARIANT_SOURCES)
+    print(f"built B1 and B1v in {time.perf_counter() - t0:.2f} s (nvcc "
+          f"{' '.join(cuda_build.NVCC_FLAGS)})")
+    print_ptxas(VARIANT_SOURCES)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        ckpt, path_json = write_inputs(Path(tmp), synthetic_params(N_BEAR, 0, 0.8, -4.2, 0.5))
+        state, _ = import_splatfacto_checkpoint(ckpt, device=dev)
+        cam0 = cli.path_cameras(path_json, device=dev)[0]
+    cases = blend_cases(dev, state, cam0, synthetic_params(N_GARDEN, 7, 1.2, -5.3, 0.4))
+    _, (main_name, main_args, main_bins) = variant_checks(dev, cases["odd"], cases["garden"])
+    print("[16] B1 and B1v alone, by device time")
+    variant_rows([(main_name, main_args, main_bins, V.MODES),
+                  (f"garden {N_GARDEN} {S}²", *cases["garden"], ("base", "nomatmul"))])
+    print(f"spare launches a profiled cycle at the end {spare_launches()}")
+    return 0
+
+
+def edit_only(dev) -> int:
+    """``--edit``: phases 9 to 11 alone: B3 checked, the edit path at full
+    width in bf16 on the bear-scale scene's 6 views (with its checks), then
+    its stages, a generation step's device time and B3's share, and B3 alone,
+    for a before/after comparison of the edit path within one chip call.
+    Prints no kernels line and no result."""
+    from gaussctrl_exp_tpu_torch.cli import render as cli
+    from gaussctrl_exp_tpu_torch.engine.checkpoint import import_splatfacto_checkpoint
+    from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig, render_model
+    from gaussctrl_exp_tpu_torch.ops import cuda_build
+    from gaussctrl_exp_tpu_torch.utils.timing import spare_launches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi_line())
+    t0 = time.perf_counter()
+    cuda_build.build(BLEND_SOURCES + ATTENTION_SOURCES)
+    print(f"built B1 to B5 in {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        ckpt, path_json = write_inputs(Path(tmp), synthetic_params(N_BEAR, 0, 0.8, -4.2, 0.5))
+        state, _ = import_splatfacto_checkpoint(ckpt, device=dev)
+        cams = cli.path_cameras(path_json, device=dev)
+    model = SplatModelConfig(sh_degree=3, sh_degree_interval=10, background_color="white")  # phase 7's
+    with torch.no_grad():
+        targets = [render_model(state, c, cli.EVAL_STEP, model).rgb.contiguous() for c in cams]
+    _, flash_cases = phase9_flash(dev)
+    edit = phase10_edit(dev, state, cams, targets)
+    phase11_timings(dev, state, cams, edit, flash_cases)
+    print(f"spare launches a profiled cycle at the end {spare_launches()}")
+    return 0
 
 
 # ---------------------------------------------------------------- phase 17
@@ -2082,6 +2228,10 @@ def main(argv=None) -> int:
                       help="build, check and time only the blend kernels B1 and B2 (phases 3 and 6, then alone)")
     mode.add_argument("--generator", action="store_true",
                       help="only the bf16 depth generator's step (phase 17) on seeded latents")
+    mode.add_argument("--variants", action="store_true",
+                      help="build, check and time only B1 and B1v, the blend ablations (phase 16's checks, then alone)")
+    mode.add_argument("--edit", action="store_true",
+                      help="only the edit path at full width (phases 9 to 11)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA card",
@@ -2093,6 +2243,10 @@ def main(argv=None) -> int:
         return blend_only(torch.device("cuda"))
     if args.generator:
         return generator_only(torch.device("cuda"))
+    if args.variants:
+        return variants_only(torch.device("cuda"))
+    if args.edit:
+        return edit_only(torch.device("cuda"))
     from gaussctrl_exp_tpu_torch.cameras import camera_matrices, make_camera
     from gaussctrl_exp_tpu_torch.cli import render as cli
     from gaussctrl_exp_tpu_torch.engine.checkpoint import import_splatfacto_checkpoint
@@ -2122,7 +2276,7 @@ def main(argv=None) -> int:
     libs = cuda_build.build()
     built = ", ".join(f"{lib.name} from {cuda_build.SOURCES[n].relative_to(ROOT)}" for n, lib in libs.items())
     print(f"[2] built {built} in {time.perf_counter() - t0:.2f} s, one nvcc per source in parallel "
-          f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)}; per source {cuda_build.EXTRA_FLAGS})")
+          f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})")
     print_ptxas()
 
     bear = synthetic_params(N_BEAR, 0, 0.8, -4.2, 0.5)

@@ -1,6 +1,7 @@
-// What kernels B1 (blend_fwd.cu) and B2 (blend_bwd.cu) share: the staged
-// gaussian, the box of its footprint that a warp tests before it evaluates
-// the gaussian, the pair's alpha and the transmittance step.
+// What kernels B1 (blend_fwd.cu), B2 (blend_bwd.cu) and B1v
+// (blend_variants.cu) share: the staged gaussian, the box of its footprint
+// that a warp tests before it evaluates the gaussian, the pair's alpha and the
+// transmittance step.
 //
 // B2 re-walks exactly the (pixel, gaussian) pairs that B1 composited, and both
 // take exactly the pairs of the plain PyTorch version (ops/blend.py): sigma,
@@ -19,7 +20,7 @@ constexpr int kBlock = 16;
 constexpr int kTilePix = kBlock * kBlock;  // pixels of a tile
 constexpr int kBatch = 256;                // gaussians staged in shared memory at a time
 constexpr int kLanes = 32;
-// CTAs of kTilePix threads an SM that B1 and B2 ask ptxas to fit (the
+// CTAs of kTilePix threads an SM that B1, B2 and B1v ask ptxas to fit (the
 // registers this leaves, 32 at 8, may spill a little): 8 hold a 512² frame's
 // 1,024 tiles in one wave on the H100's 132 SMs
 template <int C>
@@ -32,8 +33,19 @@ constexpr float kTEps = 1e-4f;
 // alpha < exp(-kSkipMargin) / 255 before rounding, 1% under 1/255, and still
 // under it after, so it is skipped without its exponential; every other pair
 // takes the exact test. The margin dwarfs the rounding of logf, expf and the
-// product.
+// product. B1v's "notrans" ablation takes alpha = opacity / (1 + sigma) in
+// place of opacity * exp(-sigma) (kRecip below): alpha < 1/255 iff
+// sigma > 255 * opacity - 1, and past 255 * opacity * (1 + kSkipMargin) - 1
+// alpha is under 1/255 by 1% before rounding and under it after.
 constexpr float kSkipMargin = 1e-2f;
+
+// The level of sigma past which no pair of a gaussian of opacity o passes the
+// alpha test (see kSkipMargin); -inf at opacity 0 (-1 with kRecip): every
+// pair skipped.
+template <bool kRecip>
+__device__ __forceinline__ float skip_level(float o) {
+  return kRecip ? 255.0f * o * (1.0f + kSkipMargin) - 1.0f : logf(255.0f * o) + kSkipMargin;
+}
 
 // A staged gaussian is kPacks<C> float4s in shared memory: the box of its
 // footprint, which a warp reads to pass over the gaussians that none of its
@@ -100,8 +112,10 @@ __device__ __forceinline__ int take_first(unsigned& mask, int k32) {
   return k;
 }
 
-// Stage gaussian g (or, for g < 0, one that no pixel takes) into slot i.
-template <int C>
+// Stage gaussian g (or, for g < 0, one that no pixel takes) into slot i, with
+// the skip level and the box of alpha = opacity * exp(-sigma), or with kRecip
+// of alpha = opacity / (1 + sigma).
+template <int C, bool kRecip = false>
 __device__ __forceinline__ void stage(Staged<C>& s, int i, int g, const float* __restrict__ xys,
                                       const float* __restrict__ conics,
                                       const float* __restrict__ colors,
@@ -117,7 +131,7 @@ __device__ __forceinline__ void stage(Staged<C>& s, int i, int g, const float* _
     f[3] = conics[3 * g + 1];
     f[4] = conics[3 * g + 2];
     f[5] = o;
-    f[6] = logf(255.0f * o) + kSkipMargin;  // -inf at opacity 0: every pair skipped
+    f[6] = skip_level<kRecip>(o);
 #pragma unroll
     for (int c = 0; c < C; ++c) f[7 + c] = colors[g * C + c];
   } else {
@@ -151,6 +165,9 @@ struct Pair {
 // The pair's alpha as the plain version rounds it:
 //   sigma = 0.5 * (a*dx*dx + c*dy*dy) + b*dx*dy, alpha = min(0.999, o * exp(-sigma)),
 // or 0 where the pair is skipped. A pair is composited iff alpha >= 1/255.
+// With kRecip (B1v's "notrans"), exp(-sigma) is 1 / (1 + sigma) and p1.z the
+// skip level of stage<C, true>.
+template <bool kRecip = false>
 __device__ __forceinline__ Pair pair_alpha(const float4& p0, const float4& p1, float fpx, float fpy) {
   Pair r;
   r.dx = __fsub_rn(p0.x, fpx);
@@ -161,7 +178,7 @@ __device__ __forceinline__ Pair pair_alpha(const float4& p0, const float4& p1, f
   const float sigma = __fadd_rn(__fmul_rn(0.5f, __fadd_rn(aa, cc)), bb);
   r.alpha = r.e = r.oe = 0.0f;
   if (!(sigma < 0.0f || sigma > p1.z)) {
-    r.e = expf(-sigma);
+    r.e = kRecip ? __fdiv_rn(1.0f, __fadd_rn(1.0f, sigma)) : expf(-sigma);
     r.oe = __fmul_rn(p1.y, r.e);
     r.alpha = fminf(kAlphaClamp, r.oe);
   }

@@ -24,6 +24,7 @@ from pathlib import Path
 import torch
 
 from ..device import resolve_device
+from .layers import cast_keeping_norms
 
 _UNET_PATTERNS = [
     (r"^conv_in\.(.*)", r"conv_in.\1"),
@@ -163,10 +164,12 @@ def _config(model_dir: Path) -> dict:
 
 
 def _load(module_fn, sd: dict, device, dtype):
+    """The module with ``sd``'s float32 tensors on ``device``, cast to
+    ``dtype`` but for its norms, which stay float32."""
     with torch.device("meta"):
         module = module_fn()
     module.load_state_dict(sd, strict=True, assign=True)
-    return module.to(device=device, dtype=dtype).requires_grad_(False).eval()
+    return cast_keeping_norms(module.to(device=device), dtype).requires_grad_(False).eval()
 
 
 def load_sd_models(root: str | Path, device: str | torch.device = "cuda",
@@ -176,7 +179,8 @@ def load_sd_models(root: str | Path, device: str | torch.device = "cuda",
     ``dtype`` is the compute type of the UNet, the ControlNet and the VAE:
     bfloat16 by default, as the JAX package's (its parameters stay float32
     but every matmul and conv runs in bf16, which is the same as bf16
-    weights); every attention keeps an fp32 softmax. The text encoder stays
+    weights); every attention keeps an fp32 softmax, and every GroupNorm and
+    LayerNorm keeps its float32 scale and bias. The text encoder stays
     float32, as transformers' ``FlaxCLIPTextModel`` runs by default. Widths
     come from each ``config.json`` (SD-1.x's where there is none);
     diffusers' SD-1.x ``attention_head_dim`` of 8 is the number of heads."""

@@ -12,6 +12,10 @@ bf16 input as a differentiable cast, so its gradient arrives in float32.
 Where the parameters already have the input's type (the float32 generator,
 or the edit path's bf16 weights) every cast is the identity and each layer is
 its ``torch.nn`` parent, bit for bit. The state-dict names are the parent's.
+
+The edit path's bf16 stack (``cast_keeping_norms``) stores its Linear and
+Conv weights in bf16, which gives the bits of Flax's round-to-nearest cast at
+use, and keeps its norms' scale and bias float32, as Flax does.
 """
 
 from __future__ import annotations
@@ -23,6 +27,18 @@ from torch import nn
 
 def _like(p: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor | None:
     return None if p is None else p.to(x.dtype)
+
+
+def cast_keeping_norms(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """``module`` with every parameter cast to ``dtype`` in place, except the
+    scale and bias of its GroupNorms and LayerNorms, which are made float32:
+    a bf16 activation then meets them on the float path of ``GroupNorm`` and
+    ``LayerNorm`` below, as Flax's norms apply float32 parameters."""
+    for m in module.modules():
+        to = torch.float32 if isinstance(m, (nn.GroupNorm, nn.LayerNorm)) else dtype
+        for p in m.parameters(recurse=False):
+            p.data = p.data.to(to)
+    return module
 
 
 class Linear(nn.Linear):

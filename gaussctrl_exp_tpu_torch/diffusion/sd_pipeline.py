@@ -19,6 +19,7 @@ from torch import nn
 
 from ..device import resolve_device
 from .controlnet import ControlNet
+from .layers import cast_keeping_norms
 from .schedulers import DDIMInverseScheduler, DDIMScheduler, SchedulerConfig
 from .text_encoder import CLIPTextConfig, CLIPTextModel
 from .unet import UNet2DCondition
@@ -95,7 +96,8 @@ def init_random_models(
     (``block_out=(32, 64)``, …). Weights follow Flax's initialisers, drawn
     from one ``torch.Generator`` seeded with ``seed`` on ``device``; the
     ControlNet's zero-convs and its conditioning embedding's ``conv_out``
-    start at zero as in Flax. The UNet, ControlNet and VAE run in ``dtype``.
+    start at zero as in Flax. The UNet, ControlNet and VAE run in ``dtype``,
+    their norms' scale and bias float32 (``layers.cast_keeping_norms``).
     The text encoder (float32, as the JAX package's) is CLIP ViT-L/14 at
     ``cross_dim`` 768, else a 2-layer tower of width ``cross_dim``, unless
     ``text_config`` says otherwise."""
@@ -119,7 +121,7 @@ def init_random_models(
     controlnet = _random_module(lambda: ControlNet(**kw), device, gen, lambda m: m.zero_convs())
     vae = _random_module(lambda: AutoencoderKL(vae_block_out), device, gen)
     text = _random_module(lambda: CLIPTextModel(text_config), device, gen)
-    return SDModels(unet.to(dtype), controlnet.to(dtype), vae.to(dtype), text)
+    return SDModels(*(cast_keeping_norms(m, dtype) for m in (unet, controlnet, vae)), text)
 
 
 @torch.no_grad()

@@ -6,7 +6,9 @@ Port of ``gaussctrl_exp_tpu/diffusion/vae.py``: block channels
 in fp32. The encoder's stride-2 downsample pads (0, 1) on each spatial axis,
 as the JAX package's ``padding=((0, 1), (0, 1))``; the decoder upsamples by
 nearest 2×. The mid-block attention (C = 512) is plain ``torch.matmul``: the
-JAX package computes it outside any Pallas kernel too.
+JAX package computes it outside any Pallas kernel too. Its norms, convs and
+linear layers are those of ``layers.py``, so that float32 norm parameters
+meet a bf16 activation as Flax's do.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import Conv2d, GroupNorm, Linear
+
 SCALING_FACTOR = 0.18215
 VAE_BLOCK_OUT = (128, 256, 512, 512)
 
@@ -24,11 +28,11 @@ VAE_BLOCK_OUT = (128, 256, 512, 512)
 class VaeResnet(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
-        self.norm1 = nn.GroupNorm(32, in_channels, eps=1e-6)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
-        self.norm2 = nn.GroupNorm(32, out_channels, eps=1e-6)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
-        self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
+        self.norm1 = GroupNorm(32, in_channels, eps=1e-6)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
+        self.norm2 = GroupNorm(32, out_channels, eps=1e-6)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = Conv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
 
     def forward(self, x):
         h = self.conv1(F.silu(self.norm1(x)))
@@ -41,11 +45,11 @@ class VaeResnet(nn.Module):
 class VaeAttention(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.group_norm = nn.GroupNorm(32, channels, eps=1e-6)
-        self.to_q = nn.Linear(channels, channels)
-        self.to_k = nn.Linear(channels, channels)
-        self.to_v = nn.Linear(channels, channels)
-        self.to_out_0 = nn.Linear(channels, channels)
+        self.group_norm = GroupNorm(32, channels, eps=1e-6)
+        self.to_q = Linear(channels, channels)
+        self.to_k = Linear(channels, channels)
+        self.to_v = Linear(channels, channels)
+        self.to_out_0 = Linear(channels, channels)
 
     def forward(self, x):
         B, C, H, W = x.shape
@@ -62,20 +66,20 @@ class Encoder(nn.Module):
         super().__init__()
         self.block_out = tuple(block_out)
         n = len(self.block_out)
-        self.conv_in = nn.Conv2d(3, self.block_out[0], 3, padding=1)
+        self.conv_in = Conv2d(3, self.block_out[0], 3, padding=1)
         ch = self.block_out[0]
         for bi, cout in enumerate(self.block_out):
             for li in range(2):
                 self.add_module(f"down_{bi}_resnet_{li}", VaeResnet(ch, cout))
                 ch = cout
             if bi < n - 1:  # padding (0, 1) per axis, applied in forward
-                self.add_module(f"down_{bi}_downsample", nn.Conv2d(ch, ch, 3, stride=2, padding=0))
+                self.add_module(f"down_{bi}_downsample", Conv2d(ch, ch, 3, stride=2, padding=0))
         self.mid_resnet_0 = VaeResnet(ch, ch)
         self.mid_attn = VaeAttention(ch)
         self.mid_resnet_1 = VaeResnet(ch, ch)
-        self.conv_norm_out = nn.GroupNorm(32, ch, eps=1e-6)
-        self.conv_out = nn.Conv2d(ch, 8, 3, padding=1)
-        self.quant_conv = nn.Conv2d(8, 8, 1)
+        self.conv_norm_out = GroupNorm(32, ch, eps=1e-6)
+        self.conv_out = Conv2d(ch, 8, 3, padding=1)
+        self.quant_conv = Conv2d(8, 8, 1)
 
     def forward(self, x):  # (B, 3, H, W) in [-1, 1]
         n = len(self.block_out)
@@ -96,8 +100,8 @@ class Decoder(nn.Module):
         self.block_out = tuple(block_out)
         n = len(self.block_out)
         ch = self.block_out[-1]
-        self.post_quant_conv = nn.Conv2d(4, 4, 1)
-        self.conv_in = nn.Conv2d(4, ch, 3, padding=1)
+        self.post_quant_conv = Conv2d(4, 4, 1)
+        self.conv_in = Conv2d(4, ch, 3, padding=1)
         self.mid_resnet_0 = VaeResnet(ch, ch)
         self.mid_attn = VaeAttention(ch)
         self.mid_resnet_1 = VaeResnet(ch, ch)
@@ -106,9 +110,9 @@ class Decoder(nn.Module):
                 self.add_module(f"up_{bi}_resnet_{li}", VaeResnet(ch, cout))
                 ch = cout
             if bi < n - 1:
-                self.add_module(f"up_{bi}_upsample", nn.Conv2d(ch, ch, 3, padding=1))
-        self.conv_norm_out = nn.GroupNorm(32, ch, eps=1e-6)
-        self.conv_out = nn.Conv2d(ch, 3, 3, padding=1)
+                self.add_module(f"up_{bi}_upsample", Conv2d(ch, ch, 3, padding=1))
+        self.conv_norm_out = GroupNorm(32, ch, eps=1e-6)
+        self.conv_out = Conv2d(ch, 3, 3, padding=1)
 
     def forward(self, z):  # (B, 4, h, w)
         n = len(self.block_out)

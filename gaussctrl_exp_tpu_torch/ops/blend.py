@@ -199,17 +199,31 @@ def blend_vjp_plain(
     return tuple(torch.zeros_like(t) if g is None else g for t, g in zip(ins, grads))
 
 
-def footprint_box(xys: torch.Tensor, conics: torch.Tensor, opacs: torch.Tensor) -> torch.Tensor:
+def skip_level(opacs: torch.Tensor, reciprocal: bool = False) -> torch.Tensor:
+    """The level of sigma past which no pair of a gaussian passes the alpha
+    test, in float32 as ``csrc/blend_common.cuh``'s ``skip_level``:
+    log(255 · opacity) + SKIP_MARGIN for alpha = opacity · exp(−sigma);
+    with ``reciprocal``, for B1v's ``notrans`` alpha = opacity / (1 + sigma),
+    255 · opacity · (1 + SKIP_MARGIN) − 1. Negative where every pair is
+    skipped."""
+    o = opacs.float().reshape(-1)
+    if reciprocal:
+        return 255.0 * o * (1.0 + SKIP_MARGIN) - 1.0
+    return torch.log(255.0 * o) + SKIP_MARGIN
+
+
+def footprint_box(xys: torch.Tensor, conics: torch.Tensor, opacs: torch.Tensor,
+                  reciprocal: bool = False) -> torch.Tensor:
     """(N, 4) boxes (x0, x1, y0, y1) of the gaussians' footprints, in float32
     as ``csrc/blend_common.cuh``'s ``footprint_box`` draws them: no pixel
-    outside a box has sigma <= log(255 * opacity) + SKIP_MARGIN, so none
+    outside a box has sigma <= ``skip_level(opacs, reciprocal)``, so none
     takes the gaussian. Where det = ac - b² < BOX_DET·ac (or a, c ≤ 0) the
-    box is everything; where opacity < 1/255 (every pair skipped) it is
-    nothing. The kernel may fuse a product into a sum where this rounds it
-    apart, so an edge may differ by an ulp or so."""
+    box is everything; where the skip level is negative (every pair skipped)
+    it is nothing. The kernel may fuse a product into a sum where this rounds
+    it apart, so an edge may differ by an ulp or so."""
     x, y = xys.float().unbind(-1)
     a, b, c = conics.float().unbind(-1)
-    skip = torch.log(255.0 * opacs.float().reshape(-1)) + SKIP_MARGIN
+    skip = skip_level(opacs, reciprocal)
     det = a * c - b * b
     level = 2.0 * (BOX_LEVEL_SCALE * skip + BOX_LEVEL_PAD)
     ex = torch.sqrt(level * c / det) * BOX_WIDEN + BOX_PAD
@@ -222,6 +236,18 @@ def footprint_box(xys: torch.Tensor, conics: torch.Tensor, opacs: torch.Tensor) 
     box = torch.where(drawn[:, None], box, everything)
     box = torch.where((skip < 0)[:, None], nothing, box)
     return torch.where(torch.isnan(skip)[:, None], everything, box)
+
+
+def warp_meets(box: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
+    """(B, P, K) bool: whether box (B, K, 4) meets the warp of each pixel of
+    a tile, (B, P) coordinates in the tile's row-major order. A warp holds
+    WARP_ROWS rows of the tile: columns [x0, x0 + BLOCK − 1], rows
+    [y0, y0 + WARP_ROWS − 1]."""
+    x0 = px[:, :1, None]  # (B, 1, 1): the tile's first column
+    y0 = (py - (torch.arange(px.shape[-1], device=px.device) // BLOCK) % WARP_ROWS)[..., None]  # (B, P, 1)
+    bx = box[:, None]  # (B, 1, K, 4)
+    return ~((bx[..., 1] < x0) | (bx[..., 0] > x0 + (BLOCK - 1))
+             | (bx[..., 3] < y0) | (bx[..., 2] > y0 + (WARP_ROWS - 1)))
 
 
 def tile_pairs(
@@ -263,12 +289,7 @@ def tile_pairs(
         ks = torch.arange(K, device=g.device)
         first = torch.where(stopped, ks, K).amin(dim=-1)
         n = torch.minimum(first + 1, bins.tile_cnt[t0:t1].long()[:, None])  # (B, P)
-        # the warp's pixels: columns [x0, x0 + BLOCK - 1], rows [y0, y0 + WARP_ROWS - 1]
-        x0 = px[:, :1, None]  # (B, 1, 1): the tile's first column
-        y0 = (py - (torch.arange(P, device=g.device) // BLOCK) % WARP_ROWS)[..., None]  # (B, P, 1)
-        bx = box[g][:, None]  # (B, 1, K, 4)
-        meets = ~((bx[..., 1] < x0) | (bx[..., 0] > x0 + (BLOCK - 1))
-                  | (bx[..., 3] < y0) | (bx[..., 2] > y0 + (WARP_ROWS - 1)))
+        meets = warp_meets(box[g], px, py)
         walked[t0:t1] = n.sum(-1)
         evaluated[t0:t1] = (meets & (ks < n[..., None])).sum((-2, -1))
         composited[t0:t1] = (w > 0).sum((-2, -1))

@@ -30,7 +30,11 @@ the port writes the init into it, and ``defined_tiles`` names the tiles where
 the two are comparable.
 
 ``blend_variant_plain`` is the plain PyTorch version (all owners' chunks
-batched, one (256, 128) block per chunk, as the TPU kernel works);
+batched, one (256, 128) block per chunk, as the TPU kernel works). Kernel B1v
+evaluates only the pairs whose gaussian's footprint box (``ops/blend.py``,
+at the mode's own skip level) meets the pixel's warp, which changes no bit
+(no pair outside its box passes the alpha test); ``variant_pairs`` counts
+the pairs it evaluates for its bound;
 ``blend_variant`` launches kernel B1v (``csrc/blend_variants.cu``) on CUDA
 tensors or raises, and takes the plain version on CPU tensors.
 """
@@ -44,7 +48,7 @@ import torch
 
 from . import blend_cuda, cuda_build
 from .binning import TileBins
-from .blend import ALPHA_CLAMP, MIN_ALPHA, T_EPS, _gather, _pixel_grid
+from .blend import ALPHA_CLAMP, MIN_ALPHA, T_EPS, _gather, _pixel_grid, footprint_box, warp_meets
 from .projection import BLOCK
 
 MODES = ("base", "empty", "notrans", "nomatmul", "scan", "pair")
@@ -85,8 +89,15 @@ class VariantRun:
     out: torch.Tensor  # (num_tiles, 256, 16) float32 block layout
     band: torch.Tensor  # (num_tiles, 256) bool: a stop decision within STOP_BAND of T_EPS
     chunks: int  # chunks evaluated (chunks of tiles whose pixels had all stopped are skipped)
-    pairs: int  # (pixel, gaussian) pairs evaluated: 256 per slot of those chunks in the list
+    pairs: int  # (pixel, gaussian) pairs walked: 256 per slot of those chunks in the list
     composited: int  # of those, the pairs composited
+    # (num_tiles, 256) int64: the index, in its owner tile's chunks
+    # (``_sequences``), of the chunk at whose end each pixel became done;
+    # NEVER_DONE where it did not
+    stop_chunk: torch.Tensor
+
+
+NEVER_DONE = 1 << 40
 
 
 def _check_mode(mode: str) -> None:
@@ -199,11 +210,11 @@ def _excl_cumprod(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.ones_like(c[..., :1]), c[..., :-1]], -1)
 
 
-def _chunk_step(mode, state, owner, src, base, xys, conics, colors, opacs, bins: TileBins, tiles_x) -> tuple[int, int]:
-    """Composite one chunk (slots [base, base + 128) of tile ``src``'s list)
-    into each owner's pixels; returns the slots in the list and the pairs
-    composited."""
-    T, done, img, band = state
+def _chunk_alpha(mode, src, base, xys, conics, opacs, bins: TileBins, tiles_x):
+    """Slots [base, base + 128) of tile ``src``'s list against that tile's
+    pixels: the gaussians (B, 128), whether each slot is in the list, the
+    pixels' coordinates (B, 256) and aeff (B, 256, 128), the alpha of the
+    pairs that pass the alpha test and 0 elsewhere."""
     cnt = bins.tile_cnt[src].long()
     slot = base[:, None] + torch.arange(CHUNK, device=base.device)
     valid = slot < cnt[:, None]  # (B, 128)
@@ -217,7 +228,15 @@ def _chunk_step(mode, state, owner, src, base, xys, conics, colors, opacs, bins:
     vis = 1.0 / (1.0 + sigma) if mode == "notrans" else torch.exp(-sigma)
     alpha = torch.clamp(_gather(opacs, g)[:, None, :] * vis, max=ALPHA_CLAMP)
     ok = valid[:, None, :] & (sigma >= 0.0) & (alpha >= MIN_ALPHA)
-    aeff = torch.where(ok, alpha, 0.0)
+    return g, valid, px, py, torch.where(ok, alpha, 0.0)
+
+
+def _chunk_step(mode, state, owner, src, base, xys, conics, colors, opacs, bins: TileBins, tiles_x) -> tuple[int, int]:
+    """Composite one chunk (slots [base, base + 128) of tile ``src``'s list)
+    into each owner's pixels; returns the slots in the list and the pairs
+    composited."""
+    T, done, img, band = state
+    g, valid, _, _, aeff = _chunk_alpha(mode, src, base, xys, conics, opacs, bins, tiles_x)
     one_minus = 1.0 - aeff
     T_carry = T[owner][:, :, None]
     d = done[owner][:, :, None]
@@ -238,6 +257,21 @@ def _chunk_step(mode, state, owner, src, base, xys, conics, colors, opacs, bins:
     broke = torch.where(aeff > 0.0, T_after, 1.0).amin(-1) <= T_EPS
     done[owner] = d[..., 0] | broke
     return int(valid.sum()), int(comp.sum())
+
+
+def _sequence_table(mode, table: ChunkTable, bins: TileBins, dev):
+    """``_sequences`` as tensors: the owners (R,) and, per owner and chunk of
+    its sequence (R, L), the source tile, the base and whether it is there;
+    None where no tile composites anything."""
+    seqs = _sequences(mode, table, bins.tile_cnt.tolist())
+    if not seqs:
+        return None
+    L = max(len(items) for _, items in seqs)
+    owners = torch.tensor([t for t, _ in seqs], device=dev)
+    src = torch.tensor([[s for s, _ in items] + [0] * (L - len(items)) for _, items in seqs], device=dev)
+    base = torch.tensor([[b for _, b in items] + [0] * (L - len(items)) for _, items in seqs], device=dev)
+    has = torch.tensor([[True] * len(items) + [False] * (L - len(items)) for _, items in seqs], device=dev)
+    return owners, src, base, has
 
 
 def variant_plain_run(
@@ -265,30 +299,56 @@ def variant_plain_run(
     done = torch.zeros((num_tiles, P), dtype=torch.bool, device=dev)
     img = torch.zeros((num_tiles, P, C), dtype=xys.dtype, device=dev)
     band = torch.zeros((num_tiles, P), dtype=torch.bool, device=dev)
+    stop_chunk = torch.full((num_tiles, P), NEVER_DONE, dtype=torch.long, device=dev)
     n_chunks = n_slots = n_comp = 0
-    if mode != "empty":
-        seqs = _sequences(mode, table, bins.tile_cnt.tolist())
-        if seqs:
-            L = max(len(items) for _, items in seqs)
-            owners = torch.tensor([t for t, _ in seqs], device=dev)
-            src = torch.tensor([[s for s, _ in items] + [0] * (L - len(items)) for _, items in seqs], device=dev)
-            base = torch.tensor([[b for _, b in items] + [0] * (L - len(items)) for _, items in seqs], device=dev)
-            has = torch.tensor([[True] * len(items) + [False] * (L - len(items)) for _, items in seqs], device=dev)
-            all_done = torch.zeros(num_tiles, dtype=torch.bool, device=dev)
-            for j in range(L):
-                rows = torch.nonzero(has[:, j] & ~all_done[owners]).flatten()
-                for r in rows.split(_BATCH_OWNERS):
-                    o = owners[r]
-                    slots, comp = _chunk_step(mode, (T, done, img, band), o, src[r, j], base[r, j],
-                                              xys, conics, colors, opacs, bins, tiles_x)
-                    n_slots, n_comp = n_slots + slots, n_comp + comp
-                    all_done[o] = done[o].all(-1)
-                n_chunks += len(rows)
+    seq = None if mode == "empty" else _sequence_table(mode, table, bins, dev)
+    if seq is not None:
+        owners, src, base, has = seq
+        all_done = torch.zeros(num_tiles, dtype=torch.bool, device=dev)
+        for j in range(has.shape[1]):
+            rows = torch.nonzero(has[:, j] & ~all_done[owners]).flatten()
+            for r in rows.split(_BATCH_OWNERS):
+                o = owners[r]
+                was = done[o]
+                slots, comp = _chunk_step(mode, (T, done, img, band), o, src[r, j], base[r, j], xys, conics, colors,
+                                          opacs, bins, tiles_x)
+                n_slots, n_comp = n_slots + slots, n_comp + comp
+                stop_chunk[o] = torch.where(done[o] & ~was, j, stop_chunk[o])
+                all_done[o] = done[o].all(-1)
+            n_chunks += len(rows)
     out = torch.zeros((num_tiles, P, NCOL), dtype=xys.dtype, device=dev)
     out[..., :C] = img
     out[..., COL_T] = T
     out[..., COL_DONE] = done.to(out.dtype)
-    return VariantRun(out=out, band=band, chunks=n_chunks, pairs=P * n_slots, composited=n_comp)
+    return VariantRun(out=out, band=band, chunks=n_chunks, pairs=P * n_slots, composited=n_comp,
+                      stop_chunk=stop_chunk)
+
+
+def variant_pairs(mode: str, run: VariantRun, xys, conics, opacs, bins: TileBins, img_height: int, img_width: int,
+                  table: ChunkTable) -> tuple[int, int]:
+    """The (pixel, gaussian) pairs kernel B1v evaluates in mode ``mode`` and,
+    of those, the live ones, on the inputs of the plain run ``run``: a pair of
+    a pixel not done at its chunk's start is evaluated where its gaussian's
+    footprint box, at the mode's skip level, meets the pixel's warp (as
+    ``ops/blend.tile_pairs`` counts B1's), and live where it passes the alpha
+    test (aeff > 0), which no pair outside its box does."""
+    _check_mode(mode)
+    seq = None if mode == "empty" else _sequence_table(mode, table, bins, xys.device)
+    if seq is None:
+        return 0, 0
+    tiles_x = (img_width + BLOCK - 1) // BLOCK
+    opacs = opacs.reshape(-1)
+    box = footprint_box(xys, conics, opacs, reciprocal=mode == "notrans")
+    owners, src, base, has = seq
+    evaluated = live = torch.zeros((), dtype=torch.long, device=xys.device)
+    for j in range(has.shape[1]):
+        walking = run.stop_chunk[owners] >= j  # (R, 256): not done at chunk j's start
+        for r in torch.nonzero(has[:, j] & walking.any(-1)).flatten().split(_BATCH_OWNERS):
+            g, valid, px, py, aeff = _chunk_alpha(mode, src[r, j], base[r, j], xys, conics, opacs, bins, tiles_x)
+            w = walking[r][:, :, None]
+            evaluated = evaluated + (warp_meets(box[g], px, py) & valid[:, None, :] & w).sum()
+            live = live + ((aeff > 0.0) & w).sum()
+    return int(evaluated), int(live)
 
 
 def blend_variant_plain(mode, xys, conics, colors, opacs, bins: TileBins, img_height: int, img_width: int,

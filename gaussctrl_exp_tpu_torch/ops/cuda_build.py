@@ -27,30 +27,18 @@ SOURCES = {
     "blend_variants": _PKG / "csrc" / "blend_variants.cu",
 }
 BUILD_DIR = _PKG / "_build"
+# B1, B2 and B1v write the roundings that must match the plain version
+# (sigma, alpha, T and B1v's running sums) with intrinsics that never fuse
+# (csrc/blend_common.cuh) and let the rest fuse. Every build prints its
+# registers and spills (ptxas -v) into its log
+PTXAS_VERBOSE = "-Xptxas=-v"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", PTXAS_VERBOSE,
 ]
-# the blend variants (B1v) keep the plain version's roundings by forbidding
-# fused multiply-adds in the whole file; B1 and B2 write the roundings that
-# must match (sigma, alpha, T) with intrinsics that never fuse
-# (csrc/blend_common.cuh) and let the rest fuse. The builds of B1 to B5
-# print their registers and spills (ptxas -v) into their logs
-PTXAS_VERBOSE = "-Xptxas=-v"
-EXTRA_FLAGS = {
-    "blend_fwd": [PTXAS_VERBOSE],
-    "blend_bwd": [PTXAS_VERBOSE],
-    "flash_attn_fwd": [PTXAS_VERBOSE],
-    "flash_attn_bwd": [PTXAS_VERBOSE],
-    "blend_variants": ["-fmad=false"],
-}
 
 logs: dict[str, str] = {}  # nvcc's output for each source built by this process
 _libs: dict[str, ctypes.CDLL] = {}
-
-
-def flags(name: str) -> list[str]:
-    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
 
 
 def _nvcc() -> str:
@@ -85,7 +73,7 @@ def library_path(name: str) -> Path:
     h = hashlib.sha256()
     for p in included(SOURCES[name]):
         h.update(p.name.encode() + b"\0" + p.read_bytes())
-    h.update(" ".join(flags(name)).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
@@ -102,7 +90,7 @@ def build(names=None) -> dict[str, Path]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         log = open(lib.with_suffix(f".{os.getpid()}.log"), "w+")
-        cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
         jobs.append((name, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, lib, log))
     failed = []
     for name, proc, tmp, lib, log in jobs:

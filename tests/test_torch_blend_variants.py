@@ -6,7 +6,10 @@ the variant script's own Pallas kernels (``make_fwd_kernel(mode)`` and
 ``make_pair_kernel()`` of ``scripts/bench_blend_variants.py``) in interpret
 mode, launched with the script's grid specs (copied here from its lines
 211-240) over the JAX binning's aligned stream; the port's chunk table is
-held against that binning's chunk metadata; and the port of
+held against that binning's chunk metadata; what kernel B1v's walk rests on
+is held on the plain version (the ``notrans`` skip level and box; no pair
+outside its footprint box passes the alpha test; the evaluated and live
+pairs against a brute-force count); and the port of
 ``scripts/bench_bwd_micro.py`` against ``blend_pallas._blend_core_fwd`` +
 ``_blend_core_bwd`` in interpret mode on the script's fixed cotangents. The
 script files are loaded as they are, with ``sys.argv`` set to a small size.
@@ -35,11 +38,14 @@ from gaussctrl_exp_tpu.cameras import camera_matrices, look_at, make_camera
 from gaussctrl_exp_tpu.ops import blend_pallas as BP
 from gaussctrl_exp_tpu.ops.binning import bin_gaussians
 from gaussctrl_exp_tpu.ops.projection import BLOCK, project_gaussians
+from gaussctrl_exp_tpu_torch.ops import blend
 from gaussctrl_exp_tpu_torch.ops import blend_variants as V
 from gaussctrl_exp_tpu_torch.ops.binning import bin_gaussians as tbin
-from gaussctrl_exp_tpu_torch.ops.blend import T_EPS, rasterize_tiles_plain
+from gaussctrl_exp_tpu_torch.ops.binning import TileBins
+from gaussctrl_exp_tpu_torch.ops.blend import MIN_ALPHA, SKIP_MARGIN, T_EPS, footprint_box, rasterize_tiles_plain
 from gaussctrl_exp_tpu_torch.ops.projection import ProjectedGaussians
 from gaussctrl_exp_tpu_torch.scripts import bench_bwd_micro as micro
+from torch_blend_scenes import screen_scene
 from torch_one_thread import one_torch_thread  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -282,6 +288,150 @@ def test_wrapper_refuses(script):
         V.blend_variant("base", *(a.to("meta") for a in args), scene["bt"], H, W)
     with pytest.raises(ValueError):  # more intersections than the capacity
         V.blend_variant("pair", *args, scene["bt"], H, W, capacity=scene["bt"].n_isects - 1)
+
+
+# ------------------------------------------- what kernel B1v's walk rests on
+
+
+def test_the_notrans_skip_drops_no_pair_the_alpha_test_takes():
+    """``notrans`` takes alpha = min(0.999, o / (1 + sigma)). Past its skip
+    level 255·o·(1 + SKIP_MARGIN) − 1, all in float32 as the kernel stages
+    it, the rounded alpha is under 1/255 for opacities from 1e-8 to 1 and
+    sigma from just past the level to 1e4; where 255·o − 1 < 0 the level is
+    negative and no pair with sigma ≥ 0 passes. The margin is narrow: at
+    sigma a fiftieth under 255·o − 1 the pair passes wherever 255·o > 1.1."""
+    f32 = np.float32
+    rng = np.random.default_rng(0)
+    o = np.concatenate([rng.uniform(0, 1, 100_000), 10 ** rng.uniform(-8, 0, 100_000),
+                        [1.0, 0.999, 1 / 255, 1.01 / 255, 0.99 / 255]]).astype(f32)
+    skip = (f32(255) * o * f32(1 + SKIP_MARGIN) - f32(1)).astype(f32)
+    assert (skip < 0).sum() > 50_000  # opacities with 255·o − 1 < 0
+    np.testing.assert_array_equal(skip, blend.skip_level(torch.as_tensor(o), reciprocal=True).numpy())
+
+    def alpha(sigma):
+        return np.minimum(f32(0.999), o * (f32(1) / (f32(1) + sigma)))
+
+    for sigma in (np.maximum(np.nextafter(skip, f32(np.inf)), f32(0)),
+                  np.maximum(skip, 0) + rng.uniform(0, 0.05, o.size).astype(f32),
+                  rng.uniform(0, 1e4, o.size).astype(f32)):
+        past = sigma > skip
+        assert past.any() and not (alpha(sigma)[past] >= f32(MIN_ALPHA)).any()
+    near = ((f32(255) * o - f32(1)) * f32(0.98)).astype(f32)
+    wide = (f32(255) * o > 1.1) & (near >= 0)
+    assert wide.sum() > 100_000 and (alpha(near)[wide] >= f32(MIN_ALPHA)).all()
+
+
+NOTRANS_SCENES = {
+    "mixed": dict(n=300, H=40, W=56),
+    "255·o − 1 < 0": dict(n=200, H=40, W=40, opacity=(0.0005, 0.0038)),
+    "opaque and thin": dict(n=200, H=40, W=56, opacity=(0.9, 1.0), sd=(1.0, 4.0), rho=(-0.9999, 0.9999)),
+}
+
+
+@pytest.mark.parametrize("name", NOTRANS_SCENES)
+def test_no_pixel_outside_the_notrans_box_takes_its_gaussian(name):
+    """Every (pixel, gaussian) pair of the image, in the plain version's
+    float32 arithmetic: a pixel outside the gaussian's ``notrans`` box
+    (``footprint_box(..., reciprocal=True)``) does not pass its alpha test.
+    The boxes are finite for most gaussians of opacity over 1/255, and empty
+    where 255·o·(1 + SKIP_MARGIN) < 1."""
+    (xys, conics, _, opacs), _, H, W = screen_scene("cpu", **NOTRANS_SCENES[name])
+    box = footprint_box(xys, conics, opacs, reciprocal=True)
+    py, px = (g.float().reshape(-1, 1) for g in torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij"))
+    dx, dy = xys[:, 0][None] - px, xys[:, 1][None] - py
+    sigma = 0.5 * (conics[:, 0][None] * dx * dx + conics[:, 2][None] * dy * dy) + conics[:, 1][None] * dx * dy
+    alpha = torch.clamp(opacs[None] * (1.0 / (1.0 + sigma)), max=0.999)
+    takes = (sigma >= 0) & (alpha >= MIN_ALPHA)
+    outside = (px < box[:, 0]) | (px > box[:, 1]) | (py < box[:, 2]) | (py > box[:, 3])
+    assert not bool((takes & outside).any())
+    low = 255.0 * opacs * (1 + SKIP_MARGIN) < 1.0
+    assert bool((box[low] == torch.tensor([np.inf, -np.inf, np.inf, -np.inf])).all())
+    if not bool(low.all()):
+        finite = torch.isfinite(box).all(-1)
+        assert float(finite[~low].float().mean()) > 0.5 and bool(takes.any()) and bool((outside & ~low).any())
+
+
+def _chunks(scene):
+    """Every chunk of every tile's list, as (tile, base) tensors: B1v
+    composites each chunk with its own tile's pixels in every mode."""
+    cnt = scene["bt"].tile_cnt.tolist()
+    items = [(t, b) for t, n in enumerate(cnt) for b in range(0, n, V.CHUNK)]
+    return tuple(torch.tensor(x) for x in zip(*items))
+
+
+@pytest.mark.parametrize("mode", V.MODES)
+@pytest.mark.parametrize("name", SCENE_NAMES)
+def test_skipping_the_pairs_outside_the_boxes_changes_no_bit(script, name, mode):
+    """No pair whose gaussian's box, at the mode's skip level, misses the
+    pixel's warp passes the plain version's alpha test, so B1v, which passes
+    over such pairs, leaves every bit as the plain version has it; the pairs
+    it evaluates are at most the walked ones, and the live ones at most
+    those."""
+    scene = _get_scene(name, script)
+    xys, conics, _, opacs = _torch_args(scene)
+    H, W = scene["H"], scene["W"]
+    tiles_x = (W + BLOCK - 1) // BLOCK
+    src, base = _chunks(scene)
+    g, _, px, py, aeff = V._chunk_alpha(mode, src, base, xys, conics, opacs.reshape(-1), scene["bt"], tiles_x)
+    outside = ~blend.warp_meets(footprint_box(xys, conics, opacs, reciprocal=mode == "notrans")[g], px, py)
+    assert not bool(((aeff > 0) & outside).any())
+    assert bool((aeff > 0).any())
+    run = _plain_run(mode, scene)
+    evaluated, live = V.variant_pairs(mode, run, xys, conics, opacs, scene["bt"], H, W,
+                                      V.bins_chunk_table(scene["bt"], H, W, scene["capacity"]))
+    if mode == "empty":
+        assert (evaluated, live, run.pairs, run.composited) == (0, 0, 0, 0)
+    else:
+        assert 0 < run.composited <= live <= evaluated <= run.pairs
+
+
+def _brute_force_pairs(mode, scene):
+    """The pairs B1v evaluates and the live ones, counted one tile and one
+    chunk at a time: for each pixel not done at the chunk's start, the slots
+    of the chunk whose gaussian's box meets the pixel's two rows of the tile,
+    and of those the slots whose aeff is above 0. The done flags at the start
+    of chunk j are those of the plain run on every list cut to its first j
+    chunks."""
+    xys, conics, colors, opacs = _torch_args(scene)
+    bins, H, W = scene["bt"], scene["H"], scene["W"]
+    box = footprint_box(xys, conics, opacs, reciprocal=mode == "notrans").numpy()
+    tiles_x = (W + BLOCK - 1) // BLOCK
+    cnt = bins.tile_cnt.numpy()
+    done_at = [np.zeros((cnt.size, V.P), bool)]
+    for j in range(1, -(-int(cnt.max()) // V.CHUNK)):
+        cut = TileBins(bins.order, bins.gid, bins.tile_start, torch.clamp(bins.tile_cnt, max=j * V.CHUNK),
+                       bins.n_isects)
+        out = V.variant_plain_run(mode, xys, conics, colors, opacs, cut, H, W, scene["capacity"]).out
+        done_at.append(out[..., V.COL_DONE].numpy() > 0)
+    lin = np.arange(V.P)
+    evaluated = live = 0
+    for tile in range(cnt.size):
+        x0 = tile % tiles_x * BLOCK
+        y0 = tile // tiles_x * BLOCK + (lin // BLOCK) // 2 * 2  # each pixel's pair of rows
+        for j in range(-(-int(cnt[tile]) // V.CHUNK)):
+            n = min(V.CHUNK, int(cnt[tile]) - j * V.CHUNK)
+            start = int(bins.tile_start[tile]) + j * V.CHUNK
+            g = bins.gid[start:start + n].numpy()
+            b = box[g][None]
+            meets = ~((b[..., 1] < x0) | (b[..., 0] > x0 + BLOCK - 1) | (b[..., 3] < y0[:, None])
+                      | (b[..., 2] > y0[:, None] + 1))
+            walking = ~done_at[j][tile][:, None]
+            aeff = V._chunk_alpha(mode, torch.tensor([tile]), torch.tensor([j * V.CHUNK]), xys, conics,
+                                  opacs.reshape(-1), bins, tiles_x)[-1][0, :, :n].numpy()
+            evaluated += int((meets & walking).sum())
+            live += int(((aeff > 0) & walking).sum())
+    return evaluated, live
+
+
+@pytest.mark.parametrize("mode", ["base", "notrans", "nomatmul", "scan"])
+def test_evaluated_pairs_match_a_brute_force_count(script, mode):
+    scene = _get_scene("dense C=3", script)
+    run = _plain_run(mode, scene)
+    xys, conics, _, opacs = _torch_args(scene)
+    evaluated, live = V.variant_pairs(mode, run, xys, conics, opacs, scene["bt"], scene["H"], scene["W"],
+                                      V.bins_chunk_table(scene["bt"], scene["H"], scene["W"], scene["capacity"]))
+    assert (evaluated, live) == _brute_force_pairs(mode, scene)
+    assert live < evaluated < run.pairs  # the boxes pass over pairs here, and the alpha test over more
 
 
 def test_bwd_micro_matches_jax_backward():

@@ -13,19 +13,18 @@ from gaussctrl_exp_tpu_torch.ops import cuda_build
 def test_the_attention_sources_follow_their_header():
     for name in ("flash_attn_fwd", "flash_attn_bwd"):
         assert [p.name for p in cuda_build.included(cuda_build.SOURCES[name])] == [f"{name}.cu", "tf32_mma.cuh"]
-    # B1 and B2 share the staged gaussian and the exact sigma, alpha and T
-    for name in ("blend_fwd", "blend_bwd"):
+    # B1, B2 and B1v share the staged gaussian and the exact sigma, alpha and T
+    for name in ("blend_fwd", "blend_bwd", "blend_variants"):
         assert [p.name for p in cuda_build.included(cuda_build.SOURCES[name])] == [f"{name}.cu", "blend_common.cuh"]
-    assert [p.name for p in cuda_build.included(cuda_build.SOURCES["blend_variants"])] == ["blend_variants.cu"]
 
 
 def test_only_the_blend_variants_forbid_fused_multiply_adds():
-    """B1 and B2 keep the plain version's roundings with intrinsics that never
-    fuse, so their files may fuse the rest; B1v forbids fusing in the whole
-    file. B1 to B5 print their registers and spills."""
-    for name in cuda_build.SOURCES:
-        assert ("-fmad=false" in cuda_build.flags(name)) == (name == "blend_variants")
-        assert (cuda_build.PTXAS_VERBOSE in cuda_build.flags(name)) == (name != "blend_variants")
+    """No source forbids fused multiply-adds any more: B1, B2 and (since its
+    redesign on B1's header) B1v keep the plain version's roundings with
+    intrinsics that never fuse, so their files may fuse the rest. Every
+    kernel prints its registers and spills."""
+    assert "-fmad=false" not in cuda_build.NVCC_FLAGS
+    assert cuda_build.PTXAS_VERBOSE in cuda_build.NVCC_FLAGS
 
 
 @pytest.mark.parametrize("names", [("blend_fwd",), ("blend_fwd", "blend_bwd"), None])
@@ -47,7 +46,7 @@ def test_build_starts_one_nvcc_per_source_asked_for(tmp_path, monkeypatch, names
     want = list(cuda_build.SOURCES) if names is None else list(names)
     assert list(libs) == want and all(libs[n].exists() for n in want)
     assert [cmd[-1] for cmd in started] == [str(cuda_build.SOURCES[n]) for n in want]
-    assert all(cmd[1:-3] == cuda_build.flags(n) for cmd, n in zip(started, want))
+    assert all(cmd[1:-3] == cuda_build.NVCC_FLAGS for cmd in started)
     cuda_build.build(names)  # every library is there: nothing is started again
     assert len(started) == len(want)
 
@@ -67,7 +66,7 @@ def test_a_changed_header_changes_the_library(tmp_path, monkeypatch):
     assert second != first and second.parent == first.parent and second.name.startswith("k_")
     top.write_text('#pragma once\n#include "b.cuh"\n// edited\n')
     assert cuda_build.library_path("k") not in (first, second)
-    monkeypatch.setitem(cuda_build.EXTRA_FLAGS, "k", ["-lineinfo"])  # and the flags
+    monkeypatch.setattr(cuda_build, "NVCC_FLAGS", cuda_build.NVCC_FLAGS + ["-lineinfo"])  # and the flags
     assert cuda_build.library_path("k") not in (first, second)
 
 

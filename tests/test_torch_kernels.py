@@ -831,6 +831,88 @@ def test_variant_base_matches_blend_kernel(cuda_device):
     torch.testing.assert_close(T, want.final_T, rtol=1e-4, atol=1e-6)
 
 
+VARIANT_MODES = ["base", "empty", "notrans", "nomatmul", "scan", "pair"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", VARIANT_MODES)
+@pytest.mark.parametrize("n_chan", range(1, 9))
+def test_variant_kernel_every_channel_count(cuda_device, mode, n_chan):
+    """Tiles of several 256-slot batches (so both chunks of a batch and the
+    chunk boundary inside it), most pixels stopping after a few chunks, at
+    C = 1 to 8."""
+    args, bins, H, W = screen_scene(cuda_device, n=1500, H=48, W=64, n_chan=n_chan, opacity=(0.3, 0.9), seed=n_chan)
+    assert int(bins.tile_cnt.max()) > 2 * 256
+    _check_variant(mode, args, bins, H, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", VARIANT_MODES)
+def test_variant_kernel_on_a_sparse_scene_with_undefined_empty_tiles(cuda_device, mode):
+    """A wide frame with few gaussians: empty tiles that own a padding chunk
+    and empty tiles that own none, both written with the init."""
+    from gaussctrl_exp_tpu_torch.ops import blend_variants as V
+
+    args, bins, H, W = screen_scene(cuda_device, n=12, H=48, W=256, sd=(1.0, 3.0))
+    table = V.bins_chunk_table(bins, H, W)
+    empty, defined = bins.tile_cnt == 0, V.defined_tiles("base", table)
+    assert bool((empty & defined).any()) and bool((empty & ~defined).any())
+    got, _ = _check_variant(mode, args, bins, H, W)
+    init = torch.zeros(256, 16, device=cuda_device)
+    init[:, V.COL_T] = 1.0
+    assert bool((got[empty] == init).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", VARIANT_MODES)
+def test_variant_kernel_where_most_pairs_fall_outside_every_box(cuda_device, mode):
+    """3,000 gaussians of 0.4-1.2 px: each meets one or two of a tile's eight
+    warps, so the warps pass over most of the list."""
+    from gaussctrl_exp_tpu_torch.ops import blend_variants as V
+
+    args, bins, H, W = screen_scene(cuda_device, n=3000, H=64, W=64, sd=(0.4, 1.2), opacity=(0.05, 0.6), seed=4)
+    _check_variant(mode, args, bins, H, W)
+    if mode not in ("empty", "notrans"):  # notrans's boxes reach 255·o − 1: they hold most of a tile
+        run = V.variant_plain_run(mode, *args, bins, H, W)
+        table = V.bins_chunk_table(bins, H, W)
+        evaluated, _ = V.variant_pairs(mode, run, args[0], args[1], args[3], bins, H, W, table)
+        assert evaluated < 0.3 * run.pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", VARIANT_MODES)
+def test_variant_kernel_repeats_bit_for_bit(cuda_device, mode):
+    from gaussctrl_exp_tpu_torch.ops import blend_variants as V
+
+    args, bins, H, W = _repeat_scene(cuda_device)
+    table = V.bins_chunk_table(bins, H, W)
+    a = V.blend_variant(mode, *args, bins, H, W, table=table)
+    b = V.blend_variant(mode, *args, bins, H, W, table=table)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opacity", [(0.05, 0.6), (0.5, 0.95)])
+def test_variant_base_matches_blend_kernel_off_the_stop_band(cuda_device, opacity):
+    """``base`` in image layout against B1 on lists of several batches, off
+    the stop band of either (the two round T apart: a running sum of log1p
+    against a running product), elementwise within 1e-5 + 1e-4 of B1's value
+    (1e-6 + 1e-4 for T)."""
+    from gaussctrl_exp_tpu_torch.ops import blend_variants as V
+
+    args, bins, H, W = screen_scene(cuda_device, n=2500, H=64, W=64, opacity=opacity, seed=6)
+    assert int(bins.tile_cnt.max()) > 256
+    got, _ = _check_variant("base", args, bins, H, W)
+    img, T = V.tiles_to_image(got, H, W, 4)
+    want = blend_cuda.blend_forward(*args, bins, H, W)
+    torch.cuda.synchronize()
+    band = ((T - T_EPS).abs() <= V.STOP_BAND * T_EPS) | ((want.final_T - T_EPS).abs() <= V.STOP_BAND * T_EPS)
+    assert int(band.sum()) <= band.numel() // 200
+    keep = ~band
+    assert bool(((img - want.img).abs()[keep] <= 1e-5 + 1e-4 * want.img.abs()[keep]).all())
+    assert bool(((T - want.final_T).abs()[keep] <= 1e-6 + 1e-4 * want.final_T.abs()[keep]).all())
+
+
 @pytest.mark.cuda
 def test_variant_kernel_refuses_what_it_does_not_take(cuda_device):
     from gaussctrl_exp_tpu_torch.ops import blend_variants as V
