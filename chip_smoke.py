@@ -9,6 +9,7 @@ Run from the repository root, with one CUDA card visible:
     python3 chip_smoke.py --generator   # phase 17 alone, on seeded latents
     python3 chip_smoke.py --variants    # phase 16's checks, then B1 and B1v alone
     python3 chip_smoke.py --edit        # phases 9 to 11 alone: the edit path
+    python3 chip_smoke.py --train-cli   # phase 18 alone: the loader and the training CLI
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN.
@@ -89,6 +90,19 @@ Phases (any failure exits non-zero):
      launches read around them, the parameters and the Adam state checked
      float32, the peak memory; the step by stage and by device time with B4
      + B5's share of the backward, as phase 15.
+ 18. the scene loader and the training CLI: a 96-frame bear-scale scene at
+     512² written as PNGs (B1 renders of the bear checkpoint in the
+     dataparser's frame, ``utils/png.write_png``) with a ``transforms.json``
+     and a binary ``sparse_pc.ply``; ``data.DataManager`` keeps 40 views
+     (4 × 10) whose images equal the PNG bytes / 255, and an OPENCV copy's
+     new K and ROI equal ``data/undistort.optimal_new_K``'s;
+     ``cli.train.main`` from the perturbed checkpoint for 60 steps (eval and
+     save every 30) with B1 and B2 launches read around it (60 + 18 and
+     60), the loss and the eval PSNR falling and rising, the saved
+     checkpoint loaded back bit for bit; ``cli.train.main`` from the seed
+     ply for 30 steps; ``cli.render dataset`` on the saved checkpoint (96
+     frames, 96 depth sidecars, 96 B1 launches); step 1 at 128² on the card
+     against the CPU; timings of each with the card's name and power limit.
 
 ``--blend`` builds only B1 and B2 (ptxas registers and spills, and, where
 cuobjdump runs, the instructions by class of each loop of B1 at C = 4 and
@@ -266,10 +280,15 @@ def orbit_c2w(i, n):
     return np.concatenate([c2w, [[0.0, 0.0, 0.0, 1.0]]]).astype(np.float32)
 
 
+def save_splatfacto(path, arrays):
+    """``arrays`` as a splatfacto checkpoint at step 29,999."""
+    torch.save({"step": 29_999, "pipeline": {f"_model.gauss_params.{k}": torch.as_tensor(v)
+                                             for k, v in arrays.items()}}, str(path))
+
+
 def write_inputs(tmp: Path, arrays) -> tuple[Path, Path]:
     ckpt = tmp / "step-000029999.ckpt"
-    sd = {f"_model.gauss_params.{k}": torch.as_tensor(v) for k, v in arrays.items()}
-    torch.save({"step": 29_999, "pipeline": sd}, str(ckpt))
+    save_splatfacto(ckpt, arrays)
     path = tmp / "camera_path.json"
     frames = [{"camera_to_world": orbit_c2w(i, FRAMES).reshape(-1).tolist(), "fov": FOV_DEG}
               for i in range(FRAMES)]
@@ -2219,6 +2238,315 @@ def generator_only(dev) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- phase 18
+
+SCENE_VIEWS = 96  # the bear scene: 96 frames at 512² (SURVEY.md), subset to 4 × 10 = 40
+CLI_STEPS = 60
+CLI_EVAL_EVERY = 30  # eval image, evaluate() and a checkpoint every 30 steps
+SEED_STEPS = 30
+CARD_CPU_DOWNSCALE = 4  # step 1, card against CPU, at 128² through the box filter
+# step 1's l1, ssim and psnr, card vs the plain path on the CPU: the same
+# images and start, summed in another order (phase 7 holds the step's loss
+# to 1e-5 and its gradients to 1e-3)
+CARD_CPU_RTOL = 1e-4
+# small OPENCV coefficients of the bear scene's kind (k1, k2, p1, p2)
+BEAR_OPENCV = {"k1": 0.012, "k2": -0.0041, "p1": 0.00052, "p2": -0.00031}
+
+
+def scene_c2w(i, n):
+    """(4, 4) pose i of n on an orbit at the target's height: every camera's
+    up is +z exactly, so the dataparser's orientation is the identity."""
+    from gaussctrl_exp_tpu_torch.cameras import look_at
+
+    ang = 2 * np.pi * i / n
+    c2w = look_at([4.0 * np.sin(ang), -4.0 * np.cos(ang), 0.0], np.zeros(3))
+    return np.concatenate([c2w, [[0.0, 0.0, 0.0, 1.0]]]).astype(np.float32)
+
+
+def to_parsed_frame(arrays, transform, scale):
+    """Splatfacto parameters moved into the dataparser's frame (as a
+    checkpoint trained on the parsed scene holds them): means through the
+    transform and the scale, as the dataparser moves the seed points, log
+    scales + log(scale). The transform's rotation must be the identity, so
+    quaternions and SH stay."""
+    if not np.array_equal(transform[:3, :3], np.eye(3, dtype=np.float32)):
+        raise SystemExit(f"FAIL: the scene's dataparser rotation is not the identity: {transform}")
+    out = dict(arrays)
+    out["means"] = ((arrays["means"] @ transform[:3, :3].T + transform[:3, 3]) * scale).astype(np.float32)
+    out["scales"] = (arrays["scales"] + np.log(scale)).astype(np.float32)
+    return out
+
+
+def write_bear_scene(dev, bear, root: Path):
+    """The bear-shaped scene on disk, without PIL: ``SCENE_VIEWS`` PNG
+    frames at S² rendered by B1 from ``bear`` moved into the parsed frame,
+    a ``transforms.json`` with global intrinsics and a binary
+    ``sparse_pc.ply`` of the bear's means and colours. Returns (frames
+    (uint8), the parsed outputs, the bear in the parsed frame)."""
+    from gaussctrl_exp_tpu_torch.cameras import make_camera
+    from gaussctrl_exp_tpu_torch.cli.render import EVAL_STEP
+    from gaussctrl_exp_tpu_torch.data.dataparser import DataParserConfig, load_scene
+    from gaussctrl_exp_tpu_torch.models.gaussians import GaussianState, params_from_numpy
+    from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig, render_model
+    from gaussctrl_exp_tpu_torch.ops.sh import SH_C0
+    from gaussctrl_exp_tpu_torch.utils.png import write_png
+
+    (root / "images").mkdir(parents=True)
+    f = S / (2 * np.tan(np.deg2rad(FOV_DEG) / 2))
+    frames = [{"file_path": f"images/frame_{i + 1:05d}.png", "transform_matrix": scene_c2w(i, SCENE_VIEWS).tolist()}
+              for i in range(SCENE_VIEWS)]
+    meta = {"w": S, "h": S, "fl_x": f, "fl_y": f, "cx": S / 2, "cy": S / 2, "camera_model": "OPENCV",
+            "ply_file_path": "sparse_pc.ply", "frames": frames}
+    (root / "transforms.json").write_text(json.dumps(meta))
+    rgb = np.clip((bear["features_dc"] * SH_C0 + 0.5) * 255, 0, 255).astype(np.uint8)
+    rec = np.zeros(len(rgb), dtype=[("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                                    ("red", "u1"), ("green", "u1"), ("blue", "u1")])
+    rec["x"], rec["y"], rec["z"] = bear["means"].T
+    rec["red"], rec["green"], rec["blue"] = rgb.T
+    head = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(rec)}\n"
+            + "".join(f"property {t} {n}\n" for t, n in [("float", "x"), ("float", "y"), ("float", "z"),
+                                                         ("uchar", "red"), ("uchar", "green"), ("uchar", "blue")])
+            + "end_header\n")
+    (root / "sparse_pc.ply").write_bytes(head.encode() + rec.tobytes())
+
+    parsed = load_scene(DataParserConfig(data=root))
+    bear_p = to_parsed_frame(bear, parsed.dataparser_transform, parsed.dataparser_scale)
+    state = GaussianState(params_from_numpy(bear_p, dev), torch.ones(len(rgb), dtype=torch.bool, device=dev))
+    c = parsed.cameras
+    cfg = SplatModelConfig(background_color="white")
+    images = []
+    with torch.no_grad():
+        for i, path in enumerate(parsed.image_filenames):
+            cam = make_camera(c.c2w[i], c.fx[i], c.fy[i], c.cx[i], c.cy[i], c.width, c.height, device=dev)
+            img = (render_model(state, cam, EVAL_STEP, cfg).rgb.clamp(0, 1).cpu().numpy() * 255).astype(np.uint8)
+            write_png(path, img)
+            images.append(img)
+    return images, parsed, bear_p
+
+
+def events_of(run_dir: Path) -> list[dict]:
+    return [json.loads(line) for line in (run_dir / "logs" / "events.jsonl").read_text().splitlines()]
+
+
+def phase18_train_cli(dev, bear, tmp: Path) -> dict:
+    """The scene loader, the training CLI and ``render dataset`` on a
+    96-frame bear-scale PNG scene: the DataManager's 4 × 10 subset and its
+    images, an OPENCV copy's undistortion, ``cli.train.main`` from the
+    perturbed checkpoint (B1 and B2 launches read around it, checkpoint
+    round trip) and from the seed cloud, ``cli.render dataset`` on the saved
+    checkpoint, and step 1 on the card against the CPU at 128²."""
+    from gaussctrl_exp_tpu_torch.cli import render as render_cli
+    from gaussctrl_exp_tpu_torch.cli import train as train_cli
+    from gaussctrl_exp_tpu_torch.data.datamanager import DataManager, DataManagerConfig
+    from gaussctrl_exp_tpu_torch.data.dataparser import DataParserConfig
+    from gaussctrl_exp_tpu_torch.data.undistort import optimal_new_K
+    from gaussctrl_exp_tpu_torch.engine import trainer as ttr
+    from gaussctrl_exp_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint
+    from gaussctrl_exp_tpu_torch.models.gaussians import PARAM_NAMES, GaussianState
+    from gaussctrl_exp_tpu_torch.ops import blend_cuda
+    from gaussctrl_exp_tpu_torch.utils.timing import device_window
+
+    smi = smi_line()
+    scene = tmp / "bear_scene"
+    t0 = time.perf_counter()
+    images, parsed, bear_p = write_bear_scene(dev, bear, scene)
+    print(f"[18] wrote a {SCENE_VIEWS}-frame {S}² PNG scene (B1 renders, write_png) in "
+          f"{time.perf_counter() - t0:.2f} s; dataparser scale {parsed.dataparser_scale:.6f}, translation "
+          f"{parsed.dataparser_transform[:, 3].tolist()}; {smi}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dm = DataManager(DataManagerConfig(dataparser=DataParserConfig(data=scene)), device=dev)
+    dm_s = time.perf_counter() - t0
+    if len(dm) != 40 or len(set(dm.view_indices)) != 40:
+        raise SystemExit(f"FAIL: the DataManager kept {len(dm)} of {SCENE_VIEWS} views, expected 40")
+    for k, gi in enumerate(dm.view_indices):
+        if not np.array_equal(dm.images[k], images[gi].astype(np.float32) / 255.0):
+            raise SystemExit(f"FAIL: view {k} (frame {gi + 1}) is not its PNG's bytes / 255")
+        if dm.camera(k).c2w.device.type != dev.type:
+            raise SystemExit(f"FAIL: camera {k} is on {dm.camera(k).c2w.device}")
+    print(f"    DataManager: {len(dm)} of {SCENE_VIEWS} views (4 × 10) at {dm.width}×{dm.height}, images equal "
+          f"their PNG bytes / 255, cameras on {dev}; build {dm_s:.3f} s host wall ({SCENE_VIEWS} PNG decodes + "
+          f"subsetting); view indices {dm.view_indices[:6]}…")
+
+    distorted = tmp / "bear_scene_opencv"
+    distorted.mkdir()
+    (distorted / "images").symlink_to(scene / "images")
+    meta = json.loads((scene / "transforms.json").read_text())
+    meta.update(BEAR_OPENCV)
+    del meta["ply_file_path"]
+    (distorted / "transforms.json").write_text(json.dumps(meta))
+    t0 = time.perf_counter()
+    dmd = DataManager(DataManagerConfig(dataparser=DataParserConfig(data=distorted)), device=dev)
+    dmd_s = time.perf_counter() - t0
+    c = dmd.parsed.cameras
+    K = np.array([[c.fx[0], 0, c.cx[0]], [0, c.fy[0], c.cy[0]], [0, 0, 1]], np.float64)
+    dist6 = [BEAR_OPENCV.get(k, 0.0) for k in ("k1", "k2", "k3", "k4", "p1", "p2")]
+    newK, roi = optimal_new_K(K, np.asarray(c.distortion[0], np.float64), S, S)
+    want = np.float32([newK[0, 0], newK[1, 1], newK[0, 2] - roi[0], newK[1, 2] - roi[1]])
+    got = np.float32([dmd.fx[0], dmd.fy[0], dmd.cx[0], dmd.cy[0]])
+    if not np.array_equal(got, want) or (dmd.width, dmd.height) != roi[2:] or \
+            not np.allclose(c.distortion[0], np.float32(dist6)):
+        raise SystemExit(f"FAIL: the OPENCV scene's intrinsics {got} / {dmd.width}×{dmd.height} are not "
+                         f"optimal_new_K's {want} / {roi}")
+    print(f"    OPENCV copy {BEAR_OPENCV}: new K fx {got[0]:.4f} fy {got[1]:.4f} cx {got[2]:.4f} cy {got[3]:.4f}, "
+          f"ROI {roi} as data/undistort.optimal_new_K gives; build {dmd_s:.3f} s host wall (decode + native remap)")
+
+    pert = perturbed(bear, 1)  # phase 7's perturbation, in the parsed frame
+    pert_ckpt = tmp / "bear_scene_perturbed.ckpt"
+    save_splatfacto(pert_ckpt, to_parsed_frame(pert, parsed.dataparser_transform, parsed.dataparser_scale))
+    runs = tmp / "runs"
+    common = ["--data", str(scene), "--output-dir", str(runs), "--capacity", str(TRAIN_CAPACITY),
+              "--train.use-lpips", "False", "--train.model.background-color", "white"]
+
+    # ---- the CLI from the perturbed checkpoint, with each train step's CUDA events
+    steps: list = []
+    real_make = ttr.make_train_step
+
+    def timed_make(*a, **k):
+        step = real_make(*a, **k)
+
+        def timed(*sa, **sk):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = step(*sa, **sk)
+            e1.record()
+            steps.append((e0, e1))
+            return out
+
+        return timed
+
+    argv = common + ["--device", dev.type, "--experiment-name", "from_ckpt", "--load-checkpoint", str(pert_ckpt),
+                     "--max-num-iterations", str(CLI_STEPS), "--pipeline.render-rate", str(CLI_STEPS),
+                     "--steps-per-eval-image", str(CLI_EVAL_EVERY), "--steps-per-save", str(CLI_EVAL_EVERY)]
+    ttr.make_train_step = timed_make
+    try:
+        blend_cuda.launches = blend_cuda.bwd_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = train_cli.main(argv)
+        torch.cuda.synchronize()
+        cli_wall = time.perf_counter() - t0
+        cli_launches = (blend_cuda.launches, blend_cuda.bwd_launches)
+    finally:
+        ttr.make_train_step = real_make
+    n_eval = CLI_STEPS // CLI_EVAL_EVERY
+    want_b1 = CLI_STEPS + n_eval * (1 + len(trainer.dm.eval_indices()))
+    step_ms = [e0.elapsed_time(e1) for e0, e1 in steps]
+    mean_step = float(np.mean(step_ms[1:]))
+    ev = events_of(runs / "from_ckpt")
+    loss = {e["step"]: e["main_loss"] for e in ev if "main_loss" in e}
+    psnrs = [e["eval_psnr"] for e in ev if "eval_psnr" in e]
+    print(f"    cli.train from the perturbed checkpoint: {CLI_STEPS} steps at {trainer.dm.width}² in {cli_wall:.2f} s "
+          f"host wall (data, eval and checkpoints included); blend_fwd launches {cli_launches[0]} (= {CLI_STEPS} "
+          f"steps + {n_eval} × (1 eval image + {len(trainer.dm.eval_indices())} evaluate views)), blend_bwd "
+          f"launches {cli_launches[1]}; main_loss {loss}; eval_psnr {psnrs}")
+    if cli_launches != (want_b1, CLI_STEPS) or len(steps) != CLI_STEPS:
+        raise SystemExit(f"FAIL: launches {cli_launches}, expected ({want_b1}, {CLI_STEPS}); {len(steps)} steps timed")
+    if not (1 in loss and 50 in loss and loss[50] < loss[1]):
+        raise SystemExit(f"FAIL: main_loss did not fall from step 1 to step 50: {loss}")
+    if len(psnrs) != n_eval or not psnrs[1] > psnrs[0]:
+        raise SystemExit(f"FAIL: the second eval's psnr is not above the first's: {psnrs}")
+    ckpts = runs / "from_ckpt" / "ckpts"
+    if [p.name for p in ckpts.iterdir()] != [f"step-{CLI_STEPS:09d}"]:
+        raise SystemExit(f"FAIL: checkpoints {sorted(p.name for p in ckpts.iterdir())}")
+    st = trainer.state
+
+    def example():
+        return ttr.init_train_state(GaussianState(st.params, st.alive), trainer.cfg, num_views=len(trainer.dm))
+
+    restored, step = load_checkpoint(ckpts, example(), dev)
+    if step != CLI_STEPS or not all(torch.equal(getattr(restored.params, n), getattr(st.params, n))
+                                    for n in PARAM_NAMES) or not torch.equal(restored.alive, st.alive):
+        raise SystemExit("FAIL: load_checkpoint did not restore the trained parameters bit for bit")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev_metrics = trainer.evaluate()
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    saved = save_checkpoint(tmp / "ckpt_timing", st, trainer.step)
+    save_s = time.perf_counter() - t0
+    fresh = example()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    load_checkpoint(saved, fresh, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    size_mb = sum(p.stat().st_size for p in saved.iterdir()) / 2**20
+    win = device_window(lambda: trainer.train(1, log_every=10**9), calls=5)
+    print(f"    step (CUDA events around train_step, steps 2-{CLI_STEPS}): mean {mean_step:.4f} ms, min "
+          f"{min(step_ms[1:]):.4f}, max {max(step_ms[1:]):.4f}; the CLI loop's step (Trainer.train(1): sampling, "
+          f"upload, step) by torch.profiler over {win['calls']} steps: wall {win['wall_ms'] / win['calls']:.4f} ms, "
+          f"device time {win['device_ms']:.4f} ms in {win['ops']:.0f} ops, {busy_text(win)}")
+    print(f"    one eval pass (evaluate(), {len(trainer.dm.eval_indices())} views): {eval_ms:.3f} ms host wall; "
+          + " ".join(f"{k} {v:.4f}" for k, v in ev_metrics.items()))
+    print(f"    checkpoint ({size_mb:.1f} MiB, capacity {TRAIN_CAPACITY}): save {save_s * 1e3:.1f} ms, load "
+          f"{load_s * 1e3:.1f} ms host wall; load_checkpoint restored step {step} bit for bit")
+
+    # ---- the CLI from the seed cloud
+    blend_cuda.launches = blend_cuda.bwd_launches = 0
+    t0 = time.perf_counter()
+    seeded = train_cli.main(common + ["--device", dev.type, "--experiment-name", "from_seed",
+                                      "--max-num-iterations", str(SEED_STEPS), "--pipeline.render-rate",
+                                      str(SEED_STEPS), "--steps-per-eval-image", str(SEED_STEPS)])
+    torch.cuda.synchronize()
+    seed_wall = time.perf_counter() - t0
+    seed_launches = (blend_cuda.launches, blend_cuda.bwd_launches)
+    n_seed = int(seeded.state.alive.sum())
+    h = seeded.history
+    print(f"    cli.train from the seed ply: {n_seed} gaussians, {SEED_STEPS} steps in {seed_wall:.2f} s host wall "
+          f"(knn init included); launches {seed_launches}; main_loss step 1 {h[0]['main_loss']:.5f}")
+    if n_seed != len(bear["means"]) or seed_launches != (SEED_STEPS + 1 + len(seeded.dm.eval_indices()), SEED_STEPS) \
+            or not np.isfinite(h[0]["main_loss"]):
+        raise SystemExit(f"FAIL: the seed-cloud run: {n_seed} gaussians, launches {seed_launches}")
+
+    # ---- render dataset on the saved checkpoint
+    blend_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = render_cli.main(["dataset", "--data", str(scene), "--ckpt", str(ckpts), "--out", str(tmp / "dataset"),
+                              "--device", dev.type])
+    torch.cuda.synchronize()
+    ds_ms = (time.perf_counter() - t0) * 1e3 / SCENE_VIEWS
+    ds_launches = blend_cuda.launches
+    depths = sorted((scene / "depth_npy").glob("frame_*.npy"))
+    d0 = np.load(depths[0])
+    print(f"    render dataset: {len(frames)} frames, {len(depths)} depth_npy files ({d0.shape}, {d0.dtype}), "
+          f"blend_fwd launches {ds_launches}; {ds_ms:.3f} ms per frame host wall (PNG encode and npy write included)")
+    if len(frames) != SCENE_VIEWS or len(depths) != SCENE_VIEWS or ds_launches != SCENE_VIEWS or \
+            d0.shape != (S, S) or not np.isfinite(d0).all():
+        raise SystemExit("FAIL: render dataset did not write 96 frames and depth sidecars with 96 launches")
+
+    # ---- step 1, card against CPU, at 128² through the box filter
+    small = common + ["--load-checkpoint", str(pert_ckpt), "--max-num-iterations", "1", "--pipeline.render-rate", "1",
+                      "--steps-per-eval-image", "1", "--datamanager.dataparser.downscale-factor", str(CARD_CPU_DOWNSCALE)]
+    card = train_cli.main(small + ["--device", dev.type, "--experiment-name", "step1_card"]).history[0]
+    cpu = train_cli.main(small + ["--device", "cpu", "--experiment-name", "step1_cpu"]).history[0]
+    rels = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in ("l1", "ssim", "psnr", "main_loss")}
+    print(f"    step 1 at {S // CARD_CPU_DOWNSCALE}², card vs CPU plain path: "
+          + " ".join(f"{k} {card[k]:.7f} / {cpu[k]:.7f} (rel {rels[k]:.2e})" for k in rels))
+    if max(rels[k] for k in ("l1", "ssim", "psnr")) > CARD_CPU_RTOL:
+        raise SystemExit("FAIL: the CLI's step 1 on the card disagrees with the CPU's")
+    return dict(b1_cli=cli_launches[0], b2_cli=cli_launches[1], b1_dataset=ds_launches, step_ms=mean_step,
+                busy=win["busy"])
+
+
+def train_cli_only(dev) -> int:
+    """``--train-cli``: phase 18 alone (kernels B1 and B2 built). Prints no
+    kernels line and no result."""
+    from gaussctrl_exp_tpu_torch.ops import cuda_build
+
+    print(smi_line())
+    t0 = time.perf_counter()
+    cuda_build.build(BLEND_SOURCES)
+    print(f"built B1 and B2 in {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase18_train_cli(dev, synthetic_params(N_BEAR, 0, 0.8, -4.2, 0.5), Path(tmp))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = p.add_mutually_exclusive_group()
@@ -2232,6 +2560,8 @@ def main(argv=None) -> int:
                       help="build, check and time only B1 and B1v, the blend ablations (phase 16's checks, then alone)")
     mode.add_argument("--edit", action="store_true",
                       help="only the edit path at full width (phases 9 to 11)")
+    mode.add_argument("--train-cli", action="store_true",
+                      help="only the scene loader, the training CLI and render dataset (phase 18)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA card",
@@ -2247,6 +2577,8 @@ def main(argv=None) -> int:
         return variants_only(torch.device("cuda"))
     if args.edit:
         return edit_only(torch.device("cuda"))
+    if args.train_cli:
+        return train_cli_only(torch.device("cuda"))
     from gaussctrl_exp_tpu_torch.cameras import camera_matrices, make_camera
     from gaussctrl_exp_tpu_torch.cli import render as cli
     from gaussctrl_exp_tpu_torch.engine.checkpoint import import_splatfacto_checkpoint
@@ -2395,9 +2727,7 @@ def main(argv=None) -> int:
             targets = [render_model(state, c, cli.EVAL_STEP, train_cfg.model).rgb.contiguous() for c in cams]
         views = ViewSet(cams, targets)
         ckpt2 = tmp / "perturbed.ckpt"
-        pert = perturbed(bear, 1)
-        torch.save({"step": 29_999, "pipeline": {f"_model.gauss_params.{k}": torch.as_tensor(v)
-                                                 for k, v in pert.items()}}, str(ckpt2))
+        save_splatfacto(ckpt2, perturbed(bear, 1))
         gs, _ = import_splatfacto_checkpoint(ckpt2, capacity=TRAIN_CAPACITY, device=dev)
         trainer = Trainer(gs, views, train_cfg)
         refines, resets = [], []
@@ -2543,6 +2873,8 @@ def main(argv=None) -> int:
             mv.pop(name)
         torch.cuda.empty_cache()
         mvb = phase17_mv_bf16(dev, mv["cams"], mv["depths"], mv["x0"], mv["ctx"])
+        torch.cuda.empty_cache()
+        cli18 = phase18_train_cli(dev, bear, tmp)
         print(f"    total chip_smoke wall {time.perf_counter() - t_start:.1f} s; spare launches a profiled cycle at the end "
               f"{spare_launches()}")
 
@@ -2559,6 +2891,8 @@ def main(argv=None) -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "train_cli_launches": cli18["b1_cli"],
+        "dataset_launches": cli18["b1_dataset"],
     }, {
         "name": "blend_bwd",
         "route": "cuda",
@@ -2575,6 +2909,7 @@ def main(argv=None) -> int:
         "also_replaces": "bench.py:310 and scripts/bench_bwd_micro.py:109 (B2c: B2's _bwd_kernel launched directly "
                          "on fixed cotangents), run in phase 16 by gaussctrl_exp_tpu_torch/scripts/bench_bwd_micro.py",
         "b2c_launches": variants["b2c_launches"],
+        "train_cli_launches": cli18["b2_cli"],
     }, {
         "name": "flash_attn_fwd",
         "route": "cuda",

@@ -6,14 +6,21 @@ Pallas kernel, a CUDA C++ kernel written for Hopper (``csrc/``).
 
 Layout (each module names its JAX counterpart):
   cameras.py   — camera model and view/projection matrices
+  configs.py   — the ``gaussctrl`` method's configuration (flags of cli/train.py)
+  data/        — ``transforms.json`` parsing, the image cache (undistorted,
+                 4×10 view subset), the seed point cloud
+  native/      — the loader's C++ (PLY reader, JPEG decode, undistort
+                 remap), built with g++ at first use
   ops/         — projection, SH, binning, blend and attention (plain versions
                  + CUDA kernels), renderer, losses
   models/      — Gaussian parameters, the splat model's render, densify
-  engine/      — trainer, optimizers, splatfacto checkpoint import/export
+  engine/      — trainer, optimizers, training checkpoints, splatfacto
+                 checkpoint import/export, the event writer
   diffusion/   — the SD1.x edit stack, the experimental cross-view
                  processors, the depth generator and inpainting
   experimental/ — the 3D noise mask
-  cli/         — the ``camera-path`` render entry point
+  cli/         — ``train`` (load a scene, init, optional edit, train) and
+                 ``render`` (``dataset`` and ``camera-path``)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card they raise instead of falling back.

@@ -146,3 +146,17 @@ def make_camera(
         width=int(width),
         height=int(height),
     )
+
+
+def stack_cameras(cams: list) -> Camera:
+    """One :class:`Camera` whose fields stack those of ``cams``: ``c2w``
+    (V, 3, 4), intrinsics (V,); width and height are the first camera's."""
+    return Camera(
+        c2w=torch.stack([c.c2w for c in cams]),
+        fx=torch.stack([c.fx for c in cams]),
+        fy=torch.stack([c.fy for c in cams]),
+        cx=torch.stack([c.cx for c in cams]),
+        cy=torch.stack([c.cy for c in cams]),
+        width=cams[0].width,
+        height=cams[0].height,
+    )

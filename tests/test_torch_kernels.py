@@ -2,9 +2,11 @@
 flash-attention forward), B4, B5 (its backward) and B1v (the blend-forward
 ablations) against their plain PyTorch versions.
 
-Needs an NVIDIA card and nvcc; without a card every test here skips. The
-file imports neither JAX nor the JAX package and uses no fixture of
-tests/conftest.py, so on a machine without JAX it runs with
+Needs an NVIDIA card and nvcc; without a card every test here skips, but
+for two host tests of the card machine's toolchain: the data loader's native
+libraries build with its g++, and the PNG reader round-trips the writer at
+512². The file imports neither JAX, PIL nor the JAX package and uses no
+fixture of tests/conftest.py, so on a machine without JAX it runs with
 ``python -m pytest --noconftest tests/test_torch_kernels.py``.
 """
 
@@ -1031,3 +1033,42 @@ def test_flash_backward_bf16_misaligned_input_is_copied(cuda_device):
         got = _check_grads(q, k_off, v, seed=5)
     assert attention_cuda.copies == copies + 3  # B3's forward, then B4 and B5
     assert all(torch.equal(x, y) for x, y in zip(got, _check_grads(q, k, v, seed=5)))
+
+
+def test_native_libraries_build_with_gxx(tmp_path, monkeypatch):
+    """The data loader's C++ (native/plyio.cpp, imageio.cpp) builds with this
+    machine's g++ into a fresh directory, and both libraries load and read."""
+    import ctypes
+
+    from gaussctrl_exp_tpu_torch import native
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(native, "_libs", {})
+    for name in ("plyio", "imageio"):
+        lib = native.build(name)
+        assert lib.parent == tmp_path / "_build" and lib.exists()
+    xyz = np.arange(12, dtype="<f4").reshape(4, 3)
+    ply = tmp_path / "p.ply"
+    head = "ply\nformat binary_little_endian 1.0\nelement vertex 4\n" + "".join(
+        f"property float {c}\n" for c in "xyz") + "end_header\n"
+    ply.write_bytes(head.encode() + xyz.tobytes())
+    from gaussctrl_exp_tpu_torch.data.ply import read_ply_points_native
+
+    got, rgb = read_ply_points_native(ply)
+    np.testing.assert_array_equal(got, xyz)
+    assert rgb is None
+    K = np.array([[40.0, 0, 16], [0, 40.0, 12], [0, 0, 1]])
+    dist = np.array([0.05, 0.0, 0.0, 0.0, 0.0, 0.0])
+    src = np.random.default_rng(0).uniform(size=(24, 32, 3)).astype(np.float32)
+    out = np.zeros_like(src)
+    native.get_imageio().undistort_f32(*(a.ctypes.data_as(ctypes.c_void_p) for a in (src,)), 24, 32, 3,
+                                       *(a.ctypes.data_as(ctypes.c_void_p) for a in (K, dist, K, out)))
+    assert np.isfinite(out).all() and 0 < np.abs(out - src).max() < 1
+
+
+def test_png_reader_round_trips_the_writer_at_512(tmp_path):
+    from gaussctrl_exp_tpu_torch.utils.png import read_png, write_png
+
+    img = np.random.default_rng(1).integers(0, 256, (512, 512, 3)).astype(np.uint8)
+    write_png(tmp_path / "f.png", img)
+    np.testing.assert_array_equal(read_png(tmp_path / "f.png"), img)
