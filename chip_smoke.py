@@ -10,6 +10,7 @@ Run from the repository root, with one CUDA card visible:
     python3 chip_smoke.py --variants    # phase 16's checks, then B1 and B1v alone
     python3 chip_smoke.py --edit        # phases 9 to 11 alone: the edit path
     python3 chip_smoke.py --train-cli   # phase 18 alone: the loader and the training CLI
+    python3 chip_smoke.py --segment     # phase 19 alone: the CLI's edit with live segmentation
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN.
@@ -103,6 +104,20 @@ Phases (any failure exits non-zero):
      ply for 30 steps; ``cli.render dataset`` on the saved checkpoint (96
      frames, 96 depth sidecars, 96 B1 launches); step 1 at 128² on the card
      against the CPU; timings of each with the card's name and power limit.
+ 19. live segmentation in the training CLI's edit phase: a SAM at ViT-H
+     widths and a CLIP at ViT-L/14 widths from seeds, written as
+     segment_anything's ``.pth`` and a transformers directory;
+     ``cli.train.main`` with ``--pipeline.edit-prompt``,
+     ``--pipeline.langsam-obj bear``, ``--pipeline.sam-ckpt``,
+     ``--pipeline.clip-ckpt``, 20 inference steps and a 20-step fine-tune on
+     a fresh copy of phase 18's scene (40 views), with the full-width bf16
+     SD1.x stack handed in for ``diffusion.convert.load_sd_models``; B1, B2
+     and B3 launches read around it (B3 by phase 10's formula); every mask
+     (512², values 0 and 1) and the composite (each written-back image is
+     its render where the mask is 0) checked; the checkpoints' bytes and
+     save and load walls, SAM-H encode and decode and CLIP-L by CUDA events,
+     LangSAM per view, peak memory; ``LangSAM``'s logits and masks at ViT-B
+     width on the card against the CPU.
 
 ``--blend`` builds only B1 and B2 (ptxas registers and spills, and, where
 cuobjdump runs, the instructions by class of each loop of B1 at C = 4 and
@@ -123,7 +138,7 @@ script's scene and (base, nomatmul) the garden frame, against both of B1v's
 bounds (the pairs each pixel's warp must evaluate and the live ones among
 them, and every walked pair), with each mode's difference from base as a
 share of base. ``--edit`` runs phases 9 to 11 alone (the edit path at full
-width and its timings).
+width and its timings), ``--train-cli`` phase 18 and ``--segment`` phase 19.
 
 A busy share is the union of the device ops' intervals over the wall of
 the same profiled window, both from torch.profiler, so it cannot pass 1.
@@ -2547,6 +2562,357 @@ def train_cli_only(dev) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- phase 19
+
+SEG_OBJ = "bear"  # the reference's scripts/bear.sh object
+SEG_FINETUNE_STEPS = 20  # a short fine-tune after the edit (eval and save at its end)
+SAM_SEED, CLIP_SEED, SAM_B_SEED = 19, 20, 21
+SEG_TIMING_ITERS = 5
+# card vs CPU, LangSAM.predict at ViT-B width, fp32 on both sides with TF32
+# off for matmuls and cuDNN: the low-res logits may differ by this share of
+# their largest magnitude (summation order over 12 blocks; the tests see
+# 5e-7 at tiny widths), and a mask only where the CPU's upsampled logit is
+# within this share of it of 0
+SEG_LOGIT_REL = 1e-3
+SEG_MASK_MARGIN = 1e-3
+# openai/clip-vit-large-patch14's text tower, as its config.json gives it
+CLIP_L_TEXT = dict(vocab_size=49408, hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
+                   num_attention_heads=12, max_position_embeddings=77, layer_norm_eps=1e-5)
+CLIP_L_PROJECTION = 768
+
+
+def seeded_(model: torch.nn.Module, seed: int, embed_std: float) -> torch.nn.Module:
+    """Fill every parameter and buffer of a SAM or CLIP from ``seed`` on its
+    device: Linear and conv weights normal over √fan-in (a transposed conv's
+    fan-in is its input channels), biases 0.01, norms 1 and 0, embedding
+    tables ``embed_std`` (SAM's 1, CLIP's 0.02), SAM's positional gaussian
+    1, the rest (positional embeddings, relative-position tables, CLIP's
+    class embedding) 0.02."""
+    from gaussctrl_exp_tpu_torch.segmentation.sam import LayerNorm2d
+
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    done = set()
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (torch.nn.LayerNorm, LayerNorm2d)):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, (torch.nn.Linear, torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                w = mod.weight
+                fan_in = w.shape[0] if isinstance(mod, torch.nn.ConvTranspose2d) else w[0].numel()
+                w.normal_(0.0, fan_in**-0.5, generator=gen)
+                if mod.bias is not None:
+                    mod.bias.normal_(0.0, 0.01, generator=gen)
+            elif isinstance(mod, torch.nn.Embedding):
+                mod.weight.normal_(0.0, embed_std, generator=gen)
+            else:
+                continue
+            done.update(id(p) for p in mod.parameters(recurse=False))
+        for name, t in [*model.named_parameters(), *model.named_buffers()]:
+            if id(t) in done:
+                continue
+            t.normal_(0.0, 1.0 if name.endswith("gaussian_matrix") else 0.02, generator=gen)
+    return model
+
+
+def random_sam(cfg, seed: int, dev):
+    from gaussctrl_exp_tpu_torch.segmentation.sam import SAM
+
+    with torch.device("meta"):
+        m = SAM(cfg)
+    return seeded_(m.to_empty(device=dev), seed, embed_std=1.0).eval()
+
+
+def write_sam_checkpoint(dev, path: Path):
+    """A SAM at ``SAMConfig()``'s ViT-H widths from ``SAM_SEED``, saved as
+    segment_anything's ``.pth`` holds it: its state dict with the pixel
+    statistics and the mask-input downscaler (which neither package
+    uses)."""
+    from gaussctrl_exp_tpu_torch.segmentation.sam import PIXEL_MEAN, PIXEL_STD, SAMConfig
+
+    sam = random_sam(SAMConfig(), SAM_SEED, dev)
+    sd = {k: v.detach().cpu() for k, v in sam.state_dict().items()}
+    n_params = sum(p.numel() for p in sam.parameters())
+    del sam
+    gen = torch.Generator().manual_seed(SAM_SEED)
+    for i, shape in {0: (4, 1, 2, 2), 1: (4,), 3: (16, 4, 2, 2), 4: (16,), 6: (256, 16, 1, 1)}.items():
+        sd[f"prompt_encoder.mask_downscaling.{i}.weight"] = torch.randn(shape, generator=gen)
+        sd[f"prompt_encoder.mask_downscaling.{i}.bias"] = torch.randn(shape[0], generator=gen)
+    sd["pixel_mean"] = torch.as_tensor(PIXEL_MEAN).reshape(3, 1, 1)
+    sd["pixel_std"] = torch.as_tensor(PIXEL_STD).reshape(3, 1, 1)
+    torch.save(sd, str(path))
+    return n_params
+
+
+def write_clip_checkpoint(dev, root: Path):
+    """A CLIP at openai/clip-vit-large-patch14's widths from ``CLIP_SEED``
+    as a transformers directory: ``config.json``, ``pytorch_model.bin`` (with
+    the ``position_ids`` buffers such checkpoints hold) and the port's
+    miniature ``vocab.json``/``merges.txt``."""
+    from gaussctrl_exp_tpu_torch.diffusion.text_encoder import CLIPTextConfig
+    from gaussctrl_exp_tpu_torch.diffusion.tokenizer import make_test_vocab
+    from gaussctrl_exp_tpu_torch.segmentation.clip_vision import CLIPModel, CLIPVisionConfig
+
+    vision = CLIPVisionConfig()
+    with torch.device("meta"):
+        m = CLIPModel(CLIPTextConfig(**CLIP_L_TEXT), vision, CLIP_L_PROJECTION, eos_token_id=2)
+    m = seeded_(m.to_empty(device=dev), CLIP_SEED, embed_std=0.02)
+    sd = {k: v.detach().cpu() for k, v in m.state_dict().items()}
+    n_params = sum(p.numel() for p in m.parameters())
+    del m
+    sd["text_model.embeddings.position_ids"] = torch.arange(77)[None]
+    sd["vision_model.embeddings.position_ids"] = torch.arange(vision.grid**2 + 1)[None]
+    root.mkdir()
+    torch.save(sd, str(root / "pytorch_model.bin"))
+    cfg = {"architectures": ["CLIPModel"], "model_type": "clip", "projection_dim": CLIP_L_PROJECTION,
+           "logit_scale_init_value": 2.6592,
+           "text_config": {**CLIP_L_TEXT, "hidden_act": "quick_gelu", "bos_token_id": 0, "eos_token_id": 2,
+                           "pad_token_id": 1, "projection_dim": CLIP_L_PROJECTION},
+           "vision_config": {**{f: getattr(vision, f) for f in vision.__dataclass_fields__},
+                             "hidden_act": "quick_gelu", "num_channels": 3, "projection_dim": CLIP_L_PROJECTION}}
+    (root / "config.json").write_text(json.dumps(cfg, indent=2))
+    vocab, merges = make_test_vocab()
+    (root / "vocab.json").write_text(json.dumps(vocab))
+    (root / "merges.txt").write_text("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    return n_params
+
+
+def phase19_segment(dev, bear, tmp: Path) -> dict:
+    """``cli.train`` with the edit phase and live segmentation at SAM ViT-H
+    and CLIP ViT-L/14 widths (seeded random weights written as the files
+    the CLI loads) and the full-width bf16 SD1.x stack, on the 96-frame
+    bear scene (40 views), then a short fine-tune: masks and the composite
+    checked, B1, B2 and B3 counted, SAM and CLIP timed, LangSAM card vs CPU
+    at ViT-B width."""
+    import gaussctrl_exp_tpu_torch.diffusion.convert as sd_convert
+    from gaussctrl_exp_tpu_torch.cli import train as train_cli
+    from gaussctrl_exp_tpu_torch.data.datamanager import DataManager
+    from gaussctrl_exp_tpu_torch.diffusion.pipeline import GaussCtrlEditPipeline
+    from gaussctrl_exp_tpu_torch.diffusion.sd_pipeline import init_random_models
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda, blend_cuda
+    from gaussctrl_exp_tpu_torch.segmentation import clip_vision, lang_sam
+    from gaussctrl_exp_tpu_torch.segmentation import convert as seg_convert
+    from gaussctrl_exp_tpu_torch.segmentation.grounding import clip_pixels
+    from gaussctrl_exp_tpu_torch.segmentation.sam import preprocess_image, upscale_logits, vit_b_config
+
+    smi = smi_line()
+    t_phase = time.perf_counter()
+    scene = tmp / "seg_scene"
+    _, _, bear_p = write_bear_scene(dev, bear, scene)
+    ckpt = tmp / "seg_bear.ckpt"
+    save_splatfacto(ckpt, bear_p)
+
+    # ---- the checkpoints the slice loads
+    sam_pth, clip_dir = tmp / "sam_vit_h_seeded.pth", tmp / "clip_vit_l14_seeded"
+    t0 = time.perf_counter()
+    n_sam = write_sam_checkpoint(dev, sam_pth)
+    sam_save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_clip = write_clip_checkpoint(dev, clip_dir)
+    clip_save_s = time.perf_counter() - t0
+    sam_bytes = sam_pth.stat().st_size
+    clip_bytes = sum(p.stat().st_size for p in clip_dir.iterdir())
+    print(f"[19] live segmentation through cli.train; {smi}")
+    print(f"    SAM ViT-H (1280 wide, 32 blocks, 16 heads, global attention at 7/15/23/31, window 14, 1024²) "
+          f"{n_sam:,} parameters, seed {SAM_SEED}: {sam_bytes:,} bytes written as segment_anything's .pth in "
+          f"{sam_save_s:.2f} s; CLIP ViT-L/14 (vision 1024 × 24, text 768 × 12, projection 768) {n_clip:,} "
+          f"parameters, seed {CLIP_SEED}: {clip_bytes:,} bytes as a transformers directory in {clip_save_s:.2f} s")
+
+    # ---- the full-width bf16 SD1.x stack, handed to the CLI in memory
+    models = init_random_models(SD_SEED, dev, torch.bfloat16)
+    per_eval = count_transformers(models.unet) + count_transformers(models.controlnet)
+    print("    diffusion.convert.load_sd_models replaced for the call: the CLI gets the random-weight full-width "
+          f"bf16 SD1.x stack (seed {SD_SEED}) made on the card, no SD checkpoint written")
+
+    seen = {"predict_s": [], "written": {}}
+    real = dict(load_sd=sd_convert.load_sd_models, rr=GaussCtrlEditPipeline.render_reverse,
+                edit=GaussCtrlEditPipeline.edit_images, write=DataManager.write_back,
+                predict=lang_sam.LangSAM.predict, ls_init=lang_sam.LangSAM.__init__, load_clip=clip_vision.load_clip,
+                load_sam=seg_convert.load_sam)
+
+    def timed(key, fn):
+        def wrapper(self, *a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(self, *a, **k)
+            torch.cuda.synchronize()
+            seen[key] = time.perf_counter() - t
+            seen["pipe"] = self
+            return out
+        return wrapper
+
+    def predict(self, image, text):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real["predict"](self, image, text)
+        torch.cuda.synchronize()
+        seen["predict_s"].append(time.perf_counter() - t)
+        seen.setdefault("boxes", []).append(out[1])
+        return out
+
+    def ls_init(self, sam, box_provider=None):
+        real["ls_init"](self, sam, box_provider)
+        seen["langsam"] = self
+
+    def write_back(self, i, image):
+        seen["written"][i] = np.asarray(image, np.float32).copy()
+        real["write"](self, i, image)
+
+    def loaded(key, fn):  # the CLI's checkpoint load, timed to the weights on the card
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            seen[key] = fn(*a, **k)
+            torch.cuda.synchronize()
+            seen[f"{key}_load_s"] = time.perf_counter() - t
+            return seen[key]
+        return wrapper
+
+    argv = ["--data", str(scene), "--output-dir", str(tmp / "seg_runs"), "--experiment-name", "seg",
+            "--device", dev.type, "--load-checkpoint", str(ckpt), "--capacity", str(TRAIN_CAPACITY),
+            "--train.use-lpips", "False", "--train.model.background-color", "white",
+            "--pipeline.edit-prompt", EDIT_PROMPT, "--pipeline.reverse-prompt", REVERSE_PROMPT,
+            "--pipeline.langsam-obj", SEG_OBJ, "--pipeline.sam-ckpt", str(sam_pth),
+            "--pipeline.clip-ckpt", str(clip_dir), "--pipeline.num-inference-steps", "20",
+            "--max-num-iterations", str(SEG_FINETUNE_STEPS), "--pipeline.render-rate", str(SEG_FINETUNE_STEPS),
+            "--steps-per-eval-image", str(SEG_FINETUNE_STEPS), "--steps-per-save", str(SEG_FINETUNE_STEPS)]
+    sd_convert.load_sd_models = lambda root, device="cuda", **k: models
+    GaussCtrlEditPipeline.render_reverse = timed("reverse_s", real["rr"])
+    GaussCtrlEditPipeline.edit_images = timed("edit_s", real["edit"])
+    DataManager.write_back = write_back
+    lang_sam.LangSAM.predict = predict
+    lang_sam.LangSAM.__init__ = ls_init
+    clip_vision.load_clip = loaded("clip", real["load_clip"])
+    seg_convert.load_sam = loaded("sam", real["load_sam"])
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        attention_cuda.launches = 0
+        blend_cuda.launches = blend_cuda.bwd_launches = 0
+        t0 = time.perf_counter()
+        trainer = train_cli.main(argv)
+        torch.cuda.synchronize()
+        cli_wall = time.perf_counter() - t0
+        launches = (blend_cuda.launches, blend_cuda.bwd_launches, attention_cuda.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        sd_convert.load_sd_models = real["load_sd"]
+        GaussCtrlEditPipeline.render_reverse, GaussCtrlEditPipeline.edit_images = real["rr"], real["edit"]
+        DataManager.write_back = real["write"]
+        lang_sam.LangSAM.predict, lang_sam.LangSAM.__init__ = real["predict"], real["ls_init"]
+        clip_vision.load_clip, seg_convert.load_sam = real["load_clip"], real["load_sam"]
+
+    pipe, dm = seen["pipe"], trainer.dm
+    V, cfg = len(dm), pipe.cfg
+    n_chunks = -(-V // cfg.chunk_size)
+    want_b3 = V * cfg.num_inference_steps * 2 * per_eval + n_chunks * cfg.num_inference_steps * \
+        (2 + cfg.ref_view_num) * per_eval
+    want_b1 = V + SEG_FINETUNE_STEPS + 1 + len(dm.eval_indices())
+    print(f"    cli.train: {V} views at {dm.width}², edit \"{EDIT_PROMPT}\" with masks of \"{SEG_OBJ}\", "
+          f"{cfg.num_inference_steps} inference steps, then {SEG_FINETUNE_STEPS} fine-tune steps: {cli_wall:.2f} s "
+          f"host wall (data, checkpoint loads, edit, fine-tune, eval and save); render_reverse {seen['reverse_s']:.3f} s "
+          f"(renders, inversions and LangSAM), edit_images {seen['edit_s']:.3f} s ({n_chunks} chunks); peak memory "
+          f"{peak_gb:.2f} GB")
+    print(f"    checkpoints loaded by the CLI (file → float32 on the card): load_sam {seen['sam_load_s']:.2f} s, "
+          f"load_clip {seen['clip_load_s']:.2f} s")
+    print(f"    launches: blend_fwd {launches[0]} (expected {want_b1} = {V} renders + {SEG_FINETUNE_STEPS} steps + 1 eval "
+          f"image + {len(dm.eval_indices())} evaluate views), blend_bwd {launches[1]} (expected {SEG_FINETUNE_STEPS}), "
+          f"flash_attn_fwd {launches[2]} (expected {want_b3}: phase 10's formula at {V} views, {per_eval} "
+          f"Transformer2D blocks an evaluation)")
+    if launches != (want_b1, SEG_FINETUNE_STEPS, want_b3):
+        raise SystemExit(f"FAIL: launches {launches}, expected {(want_b1, SEG_FINETUNE_STEPS, want_b3)}")
+
+    # ---- the masks and the composite
+    cover = []
+    if sorted(pipe.masks) != list(range(V)) or sorted(seen["written"]) != list(range(V)):
+        raise SystemExit(f"FAIL: masks for {len(pipe.masks)} and write-backs for {len(seen['written'])} of {V} views")
+    for i in range(V):
+        m = pipe.masks[i]
+        if m.shape != (dm.height, dm.width) or not np.isin(m, (0.0, 1.0)).all():
+            raise SystemExit(f"FAIL: view {i}'s mask is {m.shape} with values {np.unique(m)[:6]}")
+        keep = m == 0
+        if not np.array_equal(seen["written"][i][keep], pipe.unedited[i][keep]):
+            raise SystemExit(f"FAIL: view {i}'s written-back image differs from its render where the mask is 0")
+        cover.append(float(m.mean()))
+    n_boxes = [len(b) for b in seen["boxes"]]
+    pre = seen["predict_s"]
+    print(f"    masks: {V} of {dm.height}×{dm.width}, values in {{0, 1}}; written-back images equal their renders "
+          f"wherever the mask is 0; coverage per view {[round(c, 4) for c in cover]}; CLIP boxes per view {n_boxes}")
+    print(f"    LangSAM.predict host wall per view (CLIP grounding + SAM-H encode + decode + mask upsampling, "
+          f"synchronized): mean {np.mean(pre) * 1e3:.2f} ms, min {min(pre) * 1e3:.2f}, max {max(pre) * 1e3:.2f} over "
+          f"{len(pre)} views")
+
+    # ---- SAM-H and CLIP-L by CUDA events on the CLI's own models
+    ls, clip = seen["langsam"], seen["clip"]
+    img0 = (np.clip(pipe.unedited[0], 0, 1) * 255).astype(np.uint8)
+    batch = torch.as_tensor(preprocess_image(img0, ls.cfg.img_size)[0], device=dev)
+    with torch.no_grad():
+        emb = ls.sam.encode_image(batch)
+        boxes = torch.as_tensor(np.array([[40.0, 60.0, 900.0, 980.0]], np.float32), device=dev)
+        enc_ms = time_ms(lambda: ls.sam.encode_image(batch), SEG_TIMING_ITERS, warmup=1)
+        dec_ms = time_ms(lambda: ls.sam.predict_boxes(emb, boxes), SEG_TIMING_ITERS, warmup=1)
+        pixel = torch.as_tensor(clip_pixels(img0, clip.vision_config.image_size), device=dev)
+        ids = torch.as_tensor(crc_tokenize([SEG_OBJ]), device=dev)
+        patch_ms = time_ms(lambda: clip.patch_embeddings(pixel), SEG_TIMING_ITERS, warmup=1)
+        text_ms = time_ms(lambda: clip.get_text_features(ids), SEG_TIMING_ITERS, warmup=1)
+    print(f"    by CUDA events, mean of {SEG_TIMING_ITERS} warm calls: SAM-H encode {enc_ms:.3f} ms per 1024² image, "
+          f"decode {dec_ms:.3f} ms per box; CLIP-L/14 patch embeddings {patch_ms:.3f} ms per 224² image, text "
+          f"features {text_ms:.3f} ms per prompt; {smi}")
+
+    # ---- LangSAM.predict, card vs CPU, at ViT-B width
+    sam_cpu = random_sam(vit_b_config(), SAM_B_SEED, torch.device("cpu"))
+    sam_card = copy.deepcopy(sam_cpu).to(dev)
+    vi = int(np.argmax([0 < c < 1 for c in cover]))  # a view whose mask is neither empty nor full, if any
+    img = (np.clip(pipe.unedited[vi], 0, 1) * 255).astype(np.uint8)
+    fixed = seen["boxes"][vi] if len(seen["boxes"][vi]) else np.array([[0, 0, S, S]], np.float32)
+
+    def provider(image, text):
+        return fixed, [text] * len(fixed), np.ones(len(fixed), np.float32)
+
+    card_ls, cpu_ls = lang_sam.LangSAM(sam_card, provider), lang_sam.LangSAM(sam_cpu, provider)
+    t0 = time.perf_counter()
+    low_cpu, scale = cpu_ls.low_res_logits(img, fixed)
+    cpu_s = time.perf_counter() - t0
+    low_card, _ = card_ls.low_res_logits(img, fixed)
+    up_cpu = upscale_logits(low_cpu, scale, img.shape[:2], cpu_ls.cfg.img_size)[:, 0].numpy()
+    m_cpu, m_card = cpu_ls.predict(img, SEG_OBJ)[0], card_ls.predict(img, SEG_OBJ)[0]
+    scale_l = float(low_cpu.abs().max())
+    d_low = float((low_card.cpu() - low_cpu).abs().max())
+    away = np.abs(up_cpu) > SEG_MASK_MARGIN * float(np.abs(up_cpu).max())
+    n_diff = int((m_card != m_cpu).sum())
+    n_diff_away = int((m_card != m_cpu)[away].sum())
+    print(f"    LangSAM.predict at ViT-B width (seed {SAM_B_SEED}), view {vi}, {len(fixed)} boxes, card vs CPU, fp32, TF32 "
+          f"off for matmuls (torch.backends.cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}) and cuDNN "
+          f"(torch.backends.cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}): low-res logits max|d| {d_low:.3e} "
+          f"of max|logit| {scale_l:.4f} (limit {SEG_LOGIT_REL:g} of it); masks differ at {n_diff} pixels, "
+          f"{n_diff_away} where |logit| > {SEG_MASK_MARGIN:g} of its largest (limit 0); CPU encode+decode {cpu_s:.2f} s")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise SystemExit("FAIL: TF32 is on for the card vs CPU check")
+    if not d_low <= SEG_LOGIT_REL * scale_l or n_diff_away:
+        raise SystemExit("FAIL: LangSAM on the card disagrees with the CPU")
+    del models, sam_card, sam_cpu, pipe, ls, clip, seen, trainer
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"    phase 19 wall {phase_s:.1f} s (scene, checkpoints, the CLI run, timings and the CPU check)")
+    return dict(b1=launches[0], b2=launches[1], b3=launches[2])
+
+
+def segment_only(dev) -> int:
+    """``--segment``: phase 19 alone (kernels B1, B2 and B3 built). Prints
+    no kernels line and no result."""
+    from gaussctrl_exp_tpu_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi_line())
+    t0 = time.perf_counter()
+    cuda_build.build(BLEND_SOURCES + ("flash_attn_fwd",))
+    print(f"built B1, B2 and B3 in {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase19_segment(dev, synthetic_params(N_BEAR, 0, 0.8, -4.2, 0.5), Path(tmp))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = p.add_mutually_exclusive_group()
@@ -2562,6 +2928,8 @@ def main(argv=None) -> int:
                       help="only the edit path at full width (phases 9 to 11)")
     mode.add_argument("--train-cli", action="store_true",
                       help="only the scene loader, the training CLI and render dataset (phase 18)")
+    mode.add_argument("--segment", action="store_true",
+                      help="only the training CLI's edit with live segmentation (phase 19)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA card",
@@ -2579,6 +2947,8 @@ def main(argv=None) -> int:
         return edit_only(torch.device("cuda"))
     if args.train_cli:
         return train_cli_only(torch.device("cuda"))
+    if args.segment:
+        return segment_only(torch.device("cuda"))
     from gaussctrl_exp_tpu_torch.cameras import camera_matrices, make_camera
     from gaussctrl_exp_tpu_torch.cli import render as cli
     from gaussctrl_exp_tpu_torch.engine.checkpoint import import_splatfacto_checkpoint
@@ -2875,6 +3245,8 @@ def main(argv=None) -> int:
         mvb = phase17_mv_bf16(dev, mv["cams"], mv["depths"], mv["x0"], mv["ctx"])
         torch.cuda.empty_cache()
         cli18 = phase18_train_cli(dev, bear, tmp)
+        torch.cuda.empty_cache()
+        seg19 = phase19_segment(dev, bear, tmp)
         print(f"    total chip_smoke wall {time.perf_counter() - t_start:.1f} s; spare launches a profiled cycle at the end "
               f"{spare_launches()}")
 
@@ -2893,6 +3265,7 @@ def main(argv=None) -> int:
         "library_ms": None,
         "train_cli_launches": cli18["b1_cli"],
         "dataset_launches": cli18["b1_dataset"],
+        "segment_cli_launches": seg19["b1"],
     }, {
         "name": "blend_bwd",
         "route": "cuda",
@@ -2910,6 +3283,7 @@ def main(argv=None) -> int:
                          "on fixed cotangents), run in phase 16 by gaussctrl_exp_tpu_torch/scripts/bench_bwd_micro.py",
         "b2c_launches": variants["b2c_launches"],
         "train_cli_launches": cli18["b2_cli"],
+        "segment_cli_launches": seg19["b2"],
     }, {
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -2922,6 +3296,7 @@ def main(argv=None) -> int:
         "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
+        "segment_cli_launches": seg19["b3"],
     }, {
         "name": "flash_attn_fwd_f32",
         "route": "cuda",

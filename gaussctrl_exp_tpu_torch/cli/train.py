@@ -8,8 +8,11 @@ gc_trainer.py:58-255):
      the gaussians from the seed cloud, else 50,000 random ones;
   3. with ``--pipeline.edit-prompt``, run the GaussCtrl edit phase
      (render_reverse → edit_images) with the SD weights of
-     ``--pipeline.diffusion-ckpt`` and the scene's ``mask_npy/`` masks, and
-     write the edited images back into the datamanager;
+     ``--pipeline.diffusion-ckpt``, and write the edited images back into
+     the datamanager. Masks come from live Lang-SAM when
+     ``--pipeline.langsam-obj`` and ``--pipeline.sam-ckpt`` are both set
+     (boxes from the CLIP grounder of ``--pipeline.clip-ckpt``, else the
+     whole frame), else from the scene's ``mask_npy/`` sidecars;
   4. train for min(render_rate, max_num_iterations) steps in blocks of
      ``steps_per_eval_image``, each followed by an eval image, its depth,
      ``Trainer.evaluate`` and, at the save cadence, a checkpoint; then the
@@ -19,8 +22,7 @@ Usage:
   python -m gaussctrl_exp_tpu_torch.cli.train --data data/bear \\
       [--load-checkpoint step-000029999.ckpt] [--device cuda]
 
-Live segmentation (``--pipeline.sam-ckpt``) and the viewer
-(``--viewer-port``) are not ported yet and raise.
+The viewer (``--viewer-port``) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -53,9 +55,6 @@ def run(cfg):
     from ..models.splat_model import render_model
     from ..utils.colormaps import apply_depth_colormap
 
-    if cfg.pipeline.sam_ckpt:
-        raise NotImplementedError("--pipeline.sam-ckpt: live segmentation is not ported yet "
-                                  "(ROADMAP.md §A item 2); use the scene's mask_npy/ sidecars")
     if cfg.viewer_port > 0:
         raise NotImplementedError("--viewer-port: the viewer is not ported yet (ROADMAP.md §A item 3)")
     device = resolve_device(cfg.device)
@@ -76,11 +75,25 @@ def run(cfg):
         gs = init_random(50_000, capacity=cfg.capacity, device=device)
         print("[init] random init (no seed points)")
 
-    # --- optional GaussCtrl edit phase; masks from the mask_npy/ sidecars
+    # --- optional GaussCtrl edit phase
     if cfg.pipeline.edit_prompt:
         from ..diffusion.pipeline import EditConfig, GaussCtrlEditPipeline
 
         p = cfg.pipeline
+        # mask source, in the reference's preference order: live Lang-SAM
+        # (SAM + text->box grounding) when checkpoints are configured, else
+        # precomputed mask_npy/ sidecars, else no masking (README.md:110-116)
+        mask_provider = None
+        if p.langsam_obj and p.sam_ckpt:
+            from ..segmentation.convert import load_sam
+            from ..segmentation.lang_sam import LangSAM
+
+            box_provider = None
+            if p.clip_ckpt:
+                from ..segmentation.grounding import load_clip_grounder
+
+                box_provider = load_clip_grounder(p.clip_ckpt, device=device)
+            mask_provider = LangSAM(load_sam(p.sam_ckpt, device=device), box_provider=box_provider).as_mask_provider()
         pipe = GaussCtrlEditPipeline(
             EditConfig(
                 edit_prompt=p.edit_prompt,
@@ -94,9 +107,11 @@ def run(cfg):
                 sidecar_dir=p.sidecar_dir or str(cfg.data),
                 resume_sidecars=p.resume_sidecars,
             ),
+            mask_provider=mask_provider,
             device=device,
         )
-        pipe.masks.update(dm.load_masks())
+        if mask_provider is None:
+            pipe.masks.update(dm.load_masks())  # precomputed mask_npy/ sidecars
         pipe.render_reverse(gs, dm, cfg.train.model)
         if pipe.n_resumed:
             print(f"[render_reverse] resumed {pipe.n_resumed} views from sidecars, "

@@ -41,9 +41,10 @@ class PipelineConfig:
     # depth_npy/z_0/mask_npy/unedited inside the scene folder)
     sidecar_dir: str = ""
     resume_sidecars: bool = True
-    # live Lang-SAM masks: a local SAM checkpoint and a local CLIP checkpoint
-    # for text → box grounding. Segmentation is not ported yet, so setting
-    # sam_ckpt raises; without it masks come from the mask_npy/ sidecars
+    # live Lang-SAM masks of langsam_obj: a local SAM checkpoint
+    # (segment_anything's .pth) and, for text → box grounding, a local CLIP
+    # checkpoint (transformers' layout; without it the box is the whole
+    # frame). Without langsam_obj and sam_ckpt, masks come from mask_npy/
     sam_ckpt: str = ""
     clip_ckpt: str = ""
 

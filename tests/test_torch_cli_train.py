@@ -23,6 +23,8 @@ from gaussctrl_exp_tpu.data import datamanager as jdm
 from gaussctrl_exp_tpu.engine import checkpoint as jckpt
 from gaussctrl_exp_tpu.engine import trainer as jtr
 from gaussctrl_exp_tpu.models.gaussians import init_random as jinit_random
+from gaussctrl_exp_tpu.segmentation import lang_sam as jlang_sam
+from gaussctrl_exp_tpu.segmentation import sam as jsam
 from gaussctrl_exp_tpu.utils.cliconf import parse_config as jparse_config
 from gaussctrl_exp_tpu_torch.cli import render as render_cli
 from gaussctrl_exp_tpu_torch.cli import train as train_cli
@@ -38,9 +40,12 @@ from gaussctrl_exp_tpu_torch.engine.optimizers import group_state
 from gaussctrl_exp_tpu_torch.models.densify import DensifyConfig
 from gaussctrl_exp_tpu_torch.models.gaussians import PARAM_NAMES, GaussianState, init_from_points
 from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig
+from gaussctrl_exp_tpu_torch.segmentation import grounding as tgrounding
 from gaussctrl_exp_tpu_torch.utils.cliconf import parse_config
 from torch_one_thread import one_torch_thread  # noqa: F401  (fixture)
 from torch_sd_tiny import TINY
+from torch_seg_tiny import CLI as SEG_CLI
+from torch_seg_tiny import jax_clip_grounder, jax_langsam_logits, jax_sam_params, write_sam_pth, write_tiny_clip
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -331,7 +336,113 @@ def test_edit_branch_uses_the_mask_sidecars_and_writes_back(mini_scene, tmp_path
     assert len(list((scene / "z_0").glob("frame_*.npy"))) == 3
 
 
-@pytest.mark.parametrize("flag", [["--pipeline.sam-ckpt", "sam.pth"], ["--viewer-port", "1"]])
+# ---------------------------------------------------------------- live segmentation
+
+EDIT_ARGS = ["--max-num-iterations", "1", "--pipeline.render-rate", "1", "--steps-per-eval-image", "1",
+             "--capacity", "64", "--train.use-lpips", "False", "--pipeline.edit-prompt", "a bronze statue",
+             "--pipeline.reverse-prompt", "a photo", "--pipeline.num-inference-steps", "2",
+             "--pipeline.chunk-size", "2", "--pipeline.ref-view-num", "2", "--pipeline.diffusion-ckpt", "sd-tiny"]
+# a mask may differ from the JAX LangSAM's only where every box's JAX logit
+# is within this share of the largest magnitude of 0 (tests/test_torch_segmentation.py)
+MASK_MARGIN = 1e-4
+
+
+@pytest.fixture(scope="module")
+def seg_ckpts(tmp_path_factory):
+    """A tiny SAM .pth (segment_anything's keys) and a tiny CLIP directory."""
+    root = tmp_path_factory.mktemp("seg")
+    params = jax_sam_params(SEG_CLI, seed=3)
+    return params, write_sam_pth(root / "sam.pth", params), write_tiny_clip(root / "clip")
+
+
+def _scene_with_mask_sidecars(mini_scene, tmp_path):
+    scene = tmp_path / "scene"
+    shutil.copytree(mini_scene, scene)
+    (scene / "mask_npy").mkdir()
+    rng = np.random.default_rng(2)
+    masks = {i: (rng.uniform(size=(64, 64)) > 0.5).astype(np.float32) for i in range(3)}
+    for i, m in masks.items():
+        np.save(scene / "mask_npy" / f"frame_{i + 1:05d}.npy", m)
+    return scene, masks
+
+
+def _edit_run(scene, tmp_path, monkeypatch, extra):
+    """``cli.train.run`` with the edit phase on the tiny SD stack; records
+    the pipeline's masks and renders at ``edit_images``, the written-back
+    images and the datamanager's ``load_masks`` calls."""
+    monkeypatch.setattr(tconvert, "load_sd_models", lambda root, device="cuda", **k: init_random_models(0, device, **TINY))
+    seen = {"load_masks": 0, "written": {}}
+    edit_images, write_back, load_masks = GaussCtrlEditPipeline.edit_images, tdm.DataManager.write_back, \
+        tdm.DataManager.load_masks
+
+    def rec_edit(self, dm):
+        seen.update(masks={k: v.copy() for k, v in self.masks.items()}, provider=self.mask_provider,
+                    unedited={k: v.copy() for k, v in self.unedited.items()})
+        edit_images(self, dm)
+
+    def rec_write(self, i, image):
+        seen["written"][i] = np.asarray(image, np.float32).copy()
+        write_back(self, i, image)
+
+    def rec_load_masks(self):
+        seen["load_masks"] += 1
+        return load_masks(self)
+
+    monkeypatch.setattr(GaussCtrlEditPipeline, "edit_images", rec_edit)
+    monkeypatch.setattr(tdm.DataManager, "write_back", rec_write)
+    monkeypatch.setattr(tdm.DataManager, "load_masks", rec_load_masks)
+    cfg, _ = parse_config(GaussCtrlConfig, ["--data", str(scene), "--output-dir", str(tmp_path / "out"),
+                                            "--device", "cpu", *EDIT_ARGS, *extra])
+    assert train_cli.run(cfg).step == 1
+    return seen
+
+
+def test_edit_branch_with_live_segmentation_matches_jax_langsam(mini_scene, seg_ckpts, tmp_path, monkeypatch):
+    """``--pipeline.langsam-obj`` with ``--pipeline.sam-ckpt`` and
+    ``--pipeline.clip-ckpt``: the masks handed to edit_images are the JAX
+    LangSAM's (CLIP grounding, SAM) on the same renders, the mask_npy/
+    sidecars are not read, and each written-back image is its render where
+    the mask is 0."""
+    params, sam_pth, clip_dir = seg_ckpts
+    scene, sidecars = _scene_with_mask_sidecars(mini_scene, tmp_path)
+    seen = _edit_run(scene, tmp_path, monkeypatch, ["--pipeline.langsam-obj", "bear", "--pipeline.sam-ckpt",
+                                                    str(sam_pth), "--pipeline.clip-ckpt", str(clip_dir)])
+    assert seen["load_masks"] == 0 and seen["provider"] is not None
+    ref = jlang_sam.LangSAM(params, jsam.SAMConfig(**SEG_CLI), box_provider=jax_clip_grounder(clip_dir))
+    port_boxes = tgrounding.load_clip_grounder(str(clip_dir), device="cpu")
+    assert sorted(seen["masks"]) == sorted(seen["unedited"]) == [0, 1, 2]
+    for i, rgb in seen["unedited"].items():
+        got = seen["masks"][i]
+        assert got.dtype == np.float32 and got.shape == (64, 64) and set(np.unique(got)) <= {0.0, 1.0}
+        img = (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
+        boxes, logits = jax_langsam_logits(ref, img, "bear")
+        np.testing.assert_array_equal(port_boxes(img, "bear")[0], boxes)
+        away = np.abs(logits).min(axis=0) > MASK_MARGIN * np.abs(logits).max()
+        np.testing.assert_array_equal(got[away], ref.as_mask_provider()(rgb, "bear")[away])
+        assert away.mean() > 0.99 and not np.array_equal(got, sidecars[i])
+        keep = got == 0
+        np.testing.assert_array_equal(seen["written"][i][keep], rgb[keep])
+        # the pipeline persists the live masks as the scene's sidecars
+        np.testing.assert_array_equal(np.load(scene / "mask_npy" / f"frame_{i + 1:05d}.npy"), got)
+    assert any(0 < m.mean() < 1 for m in seen["masks"].values())
+
+
+def test_sam_ckpt_without_langsam_obj_reads_the_mask_sidecars(mini_scene, seg_ckpts, tmp_path, monkeypatch):
+    """As the JAX package: a provider needs both the object and the SAM
+    checkpoint; without the object the masks are the mask_npy/ sidecars."""
+    _, sam_pth, clip_dir = seg_ckpts
+    scene, sidecars = _scene_with_mask_sidecars(mini_scene, tmp_path)
+    monkeypatch.setattr("gaussctrl_exp_tpu_torch.segmentation.convert.load_sam",
+                        lambda *a, **k: pytest.fail("load_sam called without --pipeline.langsam-obj"))
+    seen = _edit_run(scene, tmp_path, monkeypatch, ["--pipeline.sam-ckpt", str(sam_pth),
+                                                    "--pipeline.clip-ckpt", str(clip_dir)])
+    assert seen["load_masks"] == 1 and seen["provider"] is None
+    assert sorted(seen["masks"]) == [0, 1, 2]
+    for i, m in sidecars.items():
+        np.testing.assert_array_equal(seen["masks"][i], m)
+
+
+@pytest.mark.parametrize("flag", [["--viewer-port", "1"]])
 def test_unported_branches_raise(mini_scene, tmp_path, flag):
     cfg, _ = parse_config(GaussCtrlConfig, ["--data", str(mini_scene), "--output-dir", str(tmp_path),
                                             "--device", "cpu", *flag])

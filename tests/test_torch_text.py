@@ -122,16 +122,21 @@ def test_load_sd_models_reads_a_transformers_text_encoder(tmp_path):
     assert rel_l2(m.text_encoder(ids), want.numpy()) <= REL
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gaussctrl_exp_tpu", "transformers", "safetensors")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gaussctrl_exp_tpu", "transformers", "safetensors",
+             "PIL", "cv2", "imageio")
 
 
 def test_port_imports_no_jax_transformers_or_safetensors():
-    """The card has neither transformers nor safetensors, and no JAX."""
+    """The card has neither transformers nor safetensors, no JAX, and no
+    image library (PIL, OpenCV, imageio): the port resizes and decodes with
+    its own code."""
     files = sorted((REPO / "gaussctrl_exp_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     names = {str(p.relative_to(REPO)) for p in files}
     for module in ("diffusion/geometry.py", "diffusion/correspondence.py", "diffusion/triplane_attention.py",
                    "diffusion/mv_generator.py", "diffusion/inpaint.py", "experimental/noise_mask.py",
-                   "ops/attention_cuda.py"):
+                   "ops/attention_cuda.py", "segmentation/__init__.py", "segmentation/sam.py",
+                   "segmentation/lang_sam.py", "segmentation/grounding.py", "segmentation/convert.py",
+                   "segmentation/clip_vision.py", "utils/resize.py"):
         assert f"gaussctrl_exp_tpu_torch/{module}" in names
     bad = []
     for path in files:
