@@ -11,6 +11,8 @@ Run from the repository root, with one CUDA card visible:
     python3 chip_smoke.py --edit        # phases 9 to 11 alone: the edit path
     python3 chip_smoke.py --train-cli   # phase 18 alone: the loader and the training CLI
     python3 chip_smoke.py --segment     # phase 19 alone: the CLI's edit with live segmentation
+    python3 chip_smoke.py --cli         # phase 20 alone: the render CLI's subcommands and the viewer
+    python3 chip_smoke.py --parallel    # phase 21 alone: parallel/ at world size 1 on NCCL
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN.
@@ -118,6 +120,29 @@ Phases (any failure exits non-zero):
      save and load walls, SAM-H encode and decode and CLIP-L by CUDA events,
      LangSAM per view, peak memory; ``LangSAM``'s logits and masks at ViT-B
      width on the card against the CPU.
+ 20. the rest of the render CLI on the bear-scale checkpoint in phase 18's
+     scene: ``interpolate`` through an 8-view subset (every 12th frame; 21
+     frames at 512²) and ``spiral`` (24 frames), each with its video (an mp4
+     where ``ffmpeg`` is on the path, else the port's GIF; which is printed
+     and checked); ``camera-path`` with an omnidirectional-stereo path, the
+     nearest-camera probe and its occlusion check; ``--fmt jpg``; B1
+     launches read around each (frames, eyes and 16² probes), frame 1 of each
+     held against the CPU's plain path; then ``cli.viewer.serve`` on the
+     checkpoint: ``/``, ``/status`` and 20 ``/render`` requests (rgb and
+     depth), ms a request by host wall split into render, copy and JPEG
+     encode; then ``cli.train --viewer-port`` on a fresh copy of the subset
+     with an edited view 0, polled on ``/status`` and ``/render`` while it
+     trains, then ``POST /reset``: the step advances, every image decodes,
+     the reset restores the unedited images, and B1 and B2 launches add up.
+ 21. ``parallel/`` at world size 1 on NCCL (a FileStore, no network; NCCL
+     refuses two ranks on one card): the sharded loss and its gradient at
+     bear scale, 512², against ``render_model`` + ``splatfacto_loss`` on the
+     same tensors, 3 steps of ``make_sharded_train_step`` with torch Adam (B1
+     and B2 counted) and its warm ms; the band blend at each band of a
+     4-band split against the full frame's rows, forward (B1) and the bands'
+     summed backward (B2); ``make_sharded_generate`` at the full SD1.x
+     widths in bf16 on 6 views, 5 steps, against the same generation
+     through ``make_cross_view_processor``, B3 counted.
 
 ``--blend`` builds only B1 and B2 (ptxas registers and spills, and, where
 cuobjdump runs, the instructions by class of each loop of B1 at C = 4 and
@@ -138,7 +163,8 @@ script's scene and (base, nomatmul) the garden frame, against both of B1v's
 bounds (the pairs each pixel's warp must evaluate and the live ones among
 them, and every walked pair), with each mode's difference from base as a
 share of base. ``--edit`` runs phases 9 to 11 alone (the edit path at full
-width and its timings), ``--train-cli`` phase 18 and ``--segment`` phase 19.
+width and its timings), ``--train-cli`` phase 18, ``--segment`` phase 19,
+``--cli`` phase 20 and ``--parallel`` phase 21.
 
 A busy share is the union of the device ops' intervals over the wall of
 the same profiled window, both from torch.profiler, so it cannot pass 1.
@@ -162,6 +188,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 from pathlib import Path
@@ -262,6 +289,19 @@ def smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+class PhaseClock:
+    """Host wall of each phase of the whole run: ``end(label)`` closes the
+    phase that began at the previous ``end`` (or at construction)."""
+
+    def __init__(self):
+        self.t, self.walls = time.perf_counter(), {}
+
+    def end(self, label: str) -> None:
+        now = time.perf_counter()
+        self.walls[label] = round(now - self.t, 1)
+        self.t = now
 
 
 def synthetic_params(n, seed, mean_sd, log_scale_mu, log_scale_sd, sh_degree=3):
@@ -2913,6 +2953,586 @@ def segment_only(dev) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- phase 20
+
+CLI_SCENE_STRIDE = 12  # the interpolate / probe scene: every 12th of the 96 frames (8 views)
+INTERP_STEPS = 3  # 7 transitions × 3 = 21 frames
+SPIRAL_FRAMES = 24
+ODS_FRAMES = 4
+JPG_FRAMES = 6
+CLI_FPS = 24
+VIEWER_REQUESTS = 20  # 10 rgb, 10 depth
+LIVE_STEPS = 240
+LIVE_VIEW = 512  # cli/train.py attaches the viewer at its default size
+# frame 1, card vs the plain path on the CPU, as phase 4 holds the rgb: a
+# gaussian at the 1/255 alpha edge or a pixel at the stop can flip, at most
+# one gaussian's weight (~0.02 here, 6 of 255 after rounding); over 1 of 255
+# at no more than 1% of the pixels; the probe's column the same view's pixels
+FRAME_MAX_DIFF, FRAME_FRAC = 6, 1e-2
+JPEG_MIN_PSNR = 30.0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def http(port: int, path: str, post: bool = False) -> bytes:
+    import urllib.request
+
+    req = urllib.request.Request(f"http://localhost:{port}{path}", method="POST" if post else "GET",
+                                 data=b"" if post else None)
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.read()
+
+
+def psnr_u8(a, b) -> float:
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0**2 / mse)
+
+
+def subset_scene(src: Path, dst: Path, stride: int) -> None:
+    """A copy of a scene's transforms.json keeping every ``stride``-th frame,
+    its images linked, not copied."""
+    meta = json.loads((src / "transforms.json").read_text())
+    meta["frames"] = meta["frames"][::stride]
+    dst.mkdir()
+    (dst / "images").symlink_to(src / "images")
+    (dst / "sparse_pc.ply").symlink_to(src / "sparse_pc.ply")
+    (dst / "transforms.json").write_text(json.dumps(meta))
+
+
+def frame_vs_cpu(name: str, card: np.ndarray, cpu: np.ndarray, probe_cols: int = 0) -> dict:
+    """Frame 1 on the card against the same frame on the CPU's plain path."""
+    w = card.shape[1] - probe_cols
+    d = np.abs(card[:, :w].astype(np.int32) - cpu[:, :w])
+    out = dict(max=int(d.max()), frac=float((d.max(-1) > 1).mean()))
+    if probe_cols and not np.array_equal(card[:, w:], cpu[:, w:]):
+        raise SystemExit(f"FAIL: {name}: the probe's column on the card is not the CPU's")
+    print(f"    {name} frame 1, card vs CPU plain path: max |d| {out['max']} of 255, pixels over 1: "
+          f"{out['frac']:.2e}" + (f"; probe column ({probe_cols} wide) equal" if probe_cols else ""))
+    if card.shape != cpu.shape or out["max"] > FRAME_MAX_DIFF or out["frac"] > FRAME_FRAC:
+        raise SystemExit(f"FAIL: {name}: frame 1 on the card disagrees with the CPU")
+    return out
+
+
+def run_cli(dev, argv: list, out_dir: Path) -> tuple[list, float, int]:
+    """``cli.render.main`` with B1's launches and the host wall read around it."""
+    from gaussctrl_exp_tpu_torch.cli import render as cli
+    from gaussctrl_exp_tpu_torch.ops import blend_cuda
+
+    blend_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = cli.main(argv + ["--out", str(out_dir), "--device", dev.type])
+    torch.cuda.synchronize()
+    return frames, time.perf_counter() - t0, blend_cuda.launches
+
+
+def gif_frames(data: bytes) -> tuple[int, int, int, list]:
+    """Walk a GIF's blocks: (width, height, loop count, each frame's delay
+    in centiseconds). Raises on a block it does not know."""
+    if not data.startswith(b"GIF89a"):
+        raise SystemExit("FAIL: not a GIF89a file")
+    w, h, packed = int.from_bytes(data[6:8], "little"), int.from_bytes(data[8:10], "little"), data[10]
+    pos = 13 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+    loop, delays, delay = None, [], None
+
+    def skip_sub_blocks(p):
+        while data[p]:
+            p += 1 + data[p]
+        return p + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21 and data[pos + 1] == 0xFF and data[pos + 3 : pos + 14] == b"NETSCAPE2.0":
+            loop = int.from_bytes(data[pos + 16 : pos + 18], "little")
+            pos = skip_sub_blocks(pos + 14)
+        elif data[pos] == 0x21 and data[pos + 1] == 0xF9:
+            delay = int.from_bytes(data[pos + 4 : pos + 6], "little")
+            pos = skip_sub_blocks(pos + 2)
+        elif data[pos] == 0x21:
+            pos = skip_sub_blocks(pos + 2)
+        elif data[pos] == 0x2C:
+            lpacked = data[pos + 9]
+            pos += 10 + (3 << ((lpacked & 7) + 1) if lpacked & 0x80 else 0)
+            pos = skip_sub_blocks(pos + 1)  # the LZW minimum code size, then the data
+            delays.append(delay)
+        else:
+            raise SystemExit(f"FAIL: an unknown GIF block 0x{data[pos]:02x} at byte {pos}")
+    return w, h, loop, delays
+
+
+def check_video(name: str, out_dir: Path, n: int, shape) -> str:
+    """The written video: an mp4 if ffmpeg made one, else a GIF whose frame
+    count, size, delays and loop are checked. Returns which."""
+    mp4, gif = out_dir / "render.mp4", out_dir / "render.gif"
+    if mp4.exists():
+        if mp4.stat().st_size == 0:
+            raise SystemExit(f"FAIL: {name}: an empty mp4")
+        return f"mp4 through ffmpeg at {shutil.which('ffmpeg')} ({mp4.stat().st_size:,} bytes)"
+    if not gif.exists():
+        raise SystemExit(f"FAIL: {name}: no video written")
+    data = gif.read_bytes()
+    w, h, loop, delays = gif_frames(data)
+    want = int(1000 / CLI_FPS) // 10
+    if len(delays) != n or (h, w) != tuple(shape[:2]) or set(delays) != {want} or loop != 0 or shutil.which("ffmpeg"):
+        raise SystemExit(f"FAIL: {name}: the GIF holds {len(delays)} frames of {w}×{h}, delays {set(delays)} cs, "
+                         f"loop {loop}")
+    return f"GIF (no ffmpeg on the path): {len(delays)} frames of {w}×{h}, {want} cs a frame, loop 0, {len(data):,} bytes"
+
+
+def phase20_cli(dev, bear, tmp: Path) -> dict:
+    """The rest of the render CLI (interpolate, spiral, an ODS camera path
+    with the nearest-camera probe, JPEG frames), the viewer serving a
+    checkpoint, and the viewer attached to ``cli.train --viewer-port``."""
+    from gaussctrl_exp_tpu_torch import native
+    from gaussctrl_exp_tpu_torch.cli import render as cli
+    from gaussctrl_exp_tpu_torch.cli import train as train_cli
+    from gaussctrl_exp_tpu_torch.cli import viewer
+    from gaussctrl_exp_tpu_torch.data import datamanager as dm_mod
+    from gaussctrl_exp_tpu_torch.data.dataparser import DataParserConfig, load_scene
+    from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig
+    from gaussctrl_exp_tpu_torch.ops import blend_cuda
+
+    smi = smi_line()
+    t_phase = time.perf_counter()
+    scene = tmp / "cli_scene"
+    _, parsed_all, bear_p = write_bear_scene(dev, bear, scene)
+    ckpt = tmp / "cli_bear.ckpt"
+    save_splatfacto(ckpt, bear_p)
+    small = tmp / "cli_scene_8"
+    subset_scene(scene, small, CLI_SCENE_STRIDE)
+    parsed = load_scene(DataParserConfig(data=small))
+    print(f"[20] the render CLI and the viewer on the bear-scale checkpoint in phase 18's scene ({SCENE_VIEWS} "
+          f"frames at {S}², written again) and its {len(parsed.image_filenames)}-view subset (every "
+          f"{CLI_SCENE_STRIDE}th frame); {smi}")
+    cpu_state = cli.load_state(ckpt, "cpu")
+    cfg = SplatModelConfig(background_color="white")
+    out = {}
+
+    def cpu_frame1(cam_cpu, **kw):
+        return cli.render_cameras(cpu_state, [cam_cpu], tmp / "cpu_frame", cfg=cfg, **kw)[0]
+
+    # ---- interpolate
+    d = tmp / "interpolate"
+    frames, wall, b1 = run_cli(dev, ["interpolate", "--data", str(small), "--ckpt", str(ckpt), "--steps",
+                                               str(INTERP_STEPS), "--fps", str(CLI_FPS)], d)
+    n = (len(parsed.image_filenames) - 1) * INTERP_STEPS
+    video = check_video("interpolate", d, n, (S, S))
+    print(f"    interpolate: {len(frames)} frames of {S}² ({INTERP_STEPS} steps × {n // INTERP_STEPS} transitions) in "
+          f"{wall:.3f} s host wall ({wall / len(frames) * 1e3:.1f} ms a frame, PNG and video included); blend_fwd "
+          f"launches {b1}; video: {video}")
+    if len(frames) != n or b1 != n or len(list(d.glob("frame_*.png"))) != n:
+        raise SystemExit(f"FAIL: interpolate wrote {len(frames)} frames with {b1} launches, expected {n}")
+    poses = cli.interp_poses(list(np.asarray(parsed.cameras.c2w)), INTERP_STEPS)
+    out["interpolate"] = frame_vs_cpu("interpolate", frames[0], cpu_frame1(cli.scene_camera(parsed, poses[0], 1,
+                                                                                             "cpu")))
+    launches = {"interpolate": b1}
+
+    # ---- spiral
+    d = tmp / "spiral"
+    frames, wall, b1 = run_cli(dev, ["spiral", "--data", str(small), "--ckpt", str(ckpt), "--frames",
+                                          str(SPIRAL_FRAMES), "--fps", str(CLI_FPS)], d)
+    video = check_video("spiral", d, SPIRAL_FRAMES, (S, S))
+    print(f"    spiral: {len(frames)} frames of {S}² in {wall:.3f} s host wall ({wall / len(frames) * 1e3:.1f} ms a "
+          f"frame); blend_fwd launches {b1}; video: {video}")
+    if len(frames) != SPIRAL_FRAMES or b1 != SPIRAL_FRAMES:
+        raise SystemExit(f"FAIL: spiral wrote {len(frames)} frames with {b1} launches")
+    out["spiral"] = frame_vs_cpu("spiral", frames[0], cpu_frame1(cli.scene_camera(
+        parsed, cli.spiral_poses(parsed, SPIRAL_FRAMES)[0], 1, "cpu")))
+    launches["spiral"] = b1
+
+    # ---- an ODS camera path with the nearest-camera probe and its occlusion check
+    path = tmp / "ods_path.json"
+    c2ws = np.asarray(parsed.cameras.c2w)
+    fr = []
+    for i in range(ODS_FRAMES):  # half way between two views, a little inside the orbit
+        m = cli.interp_poses([c2ws[i], c2ws[i + 1]], 2)[1]
+        m[:3, 3] *= 0.9
+        fr.append({"camera_to_world": np.concatenate([m, [[0, 0, 0, 1]]]).reshape(-1).tolist(), "fov": FOV_DEG})
+    path.write_text(json.dumps({"camera_type": "omni-directional-stereo", "render_height": S, "render_width": S,
+                                "camera_path": fr}))
+    probes = []
+    real_probe = cli.NearestCameraProbe
+
+    class CountedProbe(real_probe):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            probes.append(self)
+
+    cli.NearestCameraProbe = CountedProbe
+    try:
+        d = tmp / "ods"
+        frames, wall, b1 = run_cli(dev, ["camera-path", "--camera-path", str(path), "--ckpt", str(ckpt),
+                                                   "--data", str(small), "--render-nearest-camera",
+                                                   "--check-occlusions", "--fps", str(CLI_FPS)], d)
+    finally:
+        cli.NearestCameraProbe = real_probe
+    n_probe = probes[0].probes
+    shape = (2 * S, S + 2 * S, 3)  # the eyes stacked, then the train view resized to 2S rows
+    video = check_video("camera-path", d, ODS_FRAMES, shape)
+    print(f"    camera-path, omni-directional stereo with --render-nearest-camera --check-occlusions: "
+          f"{len(frames)} frames of {frames[0].shape[1]}×{frames[0].shape[0]} (eyes top-bottom + the nearest view) "
+          f"in {wall:.3f} s host wall; blend_fwd launches {b1} = {2 * ODS_FRAMES} eye renders + {n_probe} 16² "
+          f"occlusion probes; video: {video}")
+    if len(frames) != ODS_FRAMES or frames[0].shape != shape or b1 != 2 * ODS_FRAMES + n_probe or n_probe == 0:
+        raise SystemExit(f"FAIL: camera-path frames {frames[0].shape}, launches {b1}, probes {n_probe}")
+    cam0 = cli.path_cameras(path, device="cpu")[0]
+    out["camera-path"] = frame_vs_cpu("camera-path (ODS + probe)", frames[0], cpu_frame1(
+        cam0, stereo="ods", nearest=cli.NearestCameraProbe(parsed, True)), probe_cols=2 * S)
+    launches["camera-path"] = b1
+
+    # ---- JPEG frames
+    d = tmp / "jpg"
+    frames, wall, b1 = run_cli(dev, ["spiral", "--data", str(small), "--ckpt", str(ckpt), "--frames",
+                                                    str(JPG_FRAMES), "--fmt", "jpg", "--fps", str(CLI_FPS)], d)
+    jpgs = sorted(d.glob("frame_*.jpg"))
+    psnrs = [psnr_u8(native.read_jpeg(p), f) for p, f in zip(jpgs, frames)]
+    print(f"    spiral --fmt jpg: {len(jpgs)} JPEGs (quality {cli.JPEG_QUALITY}, 4:2:0) in {wall:.3f} s host wall; "
+          f"blend_fwd launches {b1}; decoded by the port's decoder, PSNR {min(psnrs):.2f}-{max(psnrs):.2f} dB")
+    if len(jpgs) != JPG_FRAMES or b1 != JPG_FRAMES or min(psnrs) < JPEG_MIN_PSNR or list(d.glob("frame_*.png")):
+        raise SystemExit("FAIL: --fmt jpg")
+    out["jpg"] = frame_vs_cpu("spiral --fmt jpg (the frame before encoding)", frames[0], cpu_frame1(
+        cli.scene_camera(parsed, cli.spiral_poses(parsed, JPG_FRAMES)[0], 1, "cpu")))
+    launches["jpg"] = b1
+
+    # ---- the viewer serving the checkpoint
+    state = cli.load_state(ckpt, dev)
+    httpd = viewer.serve(state, cfg, port=0, size=S, device=dev)
+    port = httpd.server_address[1]
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    try:
+        page = http(port, "/")
+        status = json.loads(http(port, "/status"))
+        blend_cuda.launches = 0
+        walls, images = [], []
+        for i in range(VIEWER_REQUESTS):
+            q = f"/render?az={0.3 * i:.3f}&el=0.3&r=4.0" + ("&depth=1" if i % 2 else "")
+            t0 = time.perf_counter()
+            body = http(port, q)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            images.append(native.decode_jpeg(body))
+        b1 = blend_cuda.launches
+        timings = list(httpd.timings)
+    finally:
+        httpd.shutdown()
+        server.join(timeout=60)
+    parts = {k: float(np.mean([t[k] for t in timings[1:]])) for k in ("render", "copy", "encode")}
+    split = {kind: {k: float(np.mean([t[k] for t in ts])) for k in ("render", "copy", "encode")} | {
+        "wall": float(np.mean(ws))} for kind, ts, ws in (("rgb", timings[2::2], walls[2::2]),
+                                                         ("depth", timings[1::2], walls[1::2]))}
+    print(f"    viewer on the checkpoint: / ({len(page):,} bytes), /status {status}, {VIEWER_REQUESTS} /render "
+          f"requests at {S}² (rgb and depth in turns, quality {viewer.JPEG_QUALITY}): {np.mean(walls[1:]):.3f} ms "
+          f"a request by host wall at the client (first {walls[0]:.3f} ms; min {min(walls):.3f}, max "
+          f"{max(walls):.3f}) = render {parts['render']:.3f} + device-to-host copy and colormap {parts['copy']:.3f} "
+          f"+ JPEG encode {parts['encode']:.3f} ms at the server (mean of requests 2-{VIEWER_REQUESTS}); "
+          f"blend_fwd launches {b1}")
+    for kind, t in split.items():
+        print(f"      {kind}: {t['wall']:.3f} ms a request at the client = render {t['render']:.3f} + copy"
+              f"{' and colormap' if kind == 'depth' else ''} {t['copy']:.3f} + encode {t['encode']:.3f} ms")
+    if b"Reset to unedited" not in page or status != {"live": False, "step": 0, "loss": None} or \
+            b1 != VIEWER_REQUESTS or any(im.shape != (S, S, 3) for im in images) or len(timings) != VIEWER_REQUESTS:
+        raise SystemExit("FAIL: the viewer's routes")
+    launches["viewer"] = b1
+    out["viewer_ms"] = float(np.mean(walls[1:]))
+    out["viewer_parts"] = dict(parts, **split)
+
+    # ---- the viewer attached to cli.train --viewer-port
+    live = tmp / "live_scene"
+    shutil.copytree(small, live, symlinks=True)
+    dms = []
+    real_dm = dm_mod.DataManager
+
+    class EditedDM(real_dm):  # an edit's write-back on view 0, for /reset to undo
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.write_back(0, 1.0 - self.images[0])
+            dms.append(self)
+
+    vport = free_port()
+    argv = ["--data", str(live), "--output-dir", str(tmp / "live_runs"), "--capacity", str(TRAIN_CAPACITY),
+            "--train.use-lpips", "False", "--train.model.background-color", "white", "--load-checkpoint",
+            str(ckpt), "--max-num-iterations", str(LIVE_STEPS), "--pipeline.render-rate", str(LIVE_STEPS),
+            "--steps-per-eval-image", str(LIVE_STEPS), "--steps-per-save", str(LIVE_STEPS), "--viewer-port",
+            str(vport), "--device", dev.type]
+    result, errors = {}, []
+
+    def train():
+        try:
+            result["trainer"] = train_cli.main(argv)
+        except BaseException as e:  # noqa: BLE001  (re-raised below)
+            errors.append(e)
+
+    dm_mod.DataManager = EditedDM
+    blend_cuda.launches = blend_cuda.bwd_launches = 0
+    worker = threading.Thread(target=train)
+    t0 = time.perf_counter()
+    worker.start()
+    try:
+        polls, live_walls = [], []
+        while worker.is_alive() and len(polls) < 200:
+            try:
+                st = json.loads(http(vport, "/status"))
+            except OSError:  # the server is not up yet (scene loading)
+                time.sleep(0.2)
+                continue
+            t1 = time.perf_counter()
+            img = native.decode_jpeg(http(vport, f"/render?az={0.1 * len(polls):.3f}&el=0.3&r=4.0"))
+            live_walls.append((time.perf_counter() - t1) * 1e3)
+            polls.append((st["step"], st["loss"], img.shape))
+        worker.join(timeout=600)
+    finally:
+        dm_mod.DataManager = real_dm
+    if errors:
+        raise errors[0]
+    trainer = result["trainer"]
+    dm = dms[0]
+    edited = dm.images[0].copy()
+    reset = http(vport, "/reset", post=True)
+    n_view = len(trainer.viewer.timings)
+    trainer.viewer.shutdown()
+    wall = time.perf_counter() - t0
+    steps = [p[0] for p in polls]
+    b1, b2 = blend_cuda.launches, blend_cuda.bwd_launches
+    n_eval = 1 + len(dm.eval_indices())
+    print(f"    cli.train --viewer-port {vport}: {LIVE_STEPS} steps from the checkpoint on a fresh copy of the "
+          f"subset ({len(dm)} views) in {wall:.2f} s host wall; {len(polls)} polls of /status + /render while it "
+          f"trained, steps seen {steps[0]} → {steps[-1]} ({len(set(steps))} distinct), /render under training "
+          f"{np.mean(live_walls):.3f} ms by host wall at the client; POST /reset → {reset!r}; blend_fwd launches "
+          f"{b1} = {LIVE_STEPS} steps + {n_eval} eval renders + {n_view} viewer renders, blend_bwd {b2}")
+    if len(polls) < 3 or len(set(steps)) < 3 or steps != sorted(steps) or \
+            any(s != (LIVE_VIEW, LIVE_VIEW, 3) for *_, s in polls):
+        raise SystemExit(f"FAIL: the live viewer did not follow the training steps: {steps}")
+    if reset != b"ok" or not all(np.array_equal(a, b) for a, b in zip(dm.images, dm.unedited_images)) or \
+            np.array_equal(edited, dm.images[0]):
+        raise SystemExit("FAIL: /reset did not restore the unedited images")
+    if (b1, b2) != (LIVE_STEPS + n_eval + n_view, LIVE_STEPS):
+        raise SystemExit(f"FAIL: launches ({b1}, {b2})")
+    launches["live"] = b1
+    out["b2_live"] = b2
+    print(f"    phase 20 wall {time.perf_counter() - t_phase:.1f} s")
+    out["launches"] = launches
+    out["live_ms"] = float(np.mean(live_walls))
+    return out
+
+
+def cli_only(dev) -> int:
+    """``--cli``: phase 20 alone (kernels B1 and B2 built). Prints no
+    kernels line and no result."""
+    from gaussctrl_exp_tpu_torch.ops import cuda_build
+
+    print(smi_line())
+    t0 = time.perf_counter()
+    cuda_build.build(BLEND_SOURCES)
+    print(f"built B1 and B2 in {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase20_cli(dev, synthetic_params(N_BEAR, 0, 0.8, -4.2, 0.5), Path(tmp))
+    return 0
+
+
+# ---------------------------------------------------------------- phase 21
+
+SHARDED_STEPS = 3
+SHARDED_LR = 1e-3
+BANDS = 4
+GEN_STEPS = 5
+GEN_VIEWS = 6
+# the sharded loss at world size 1 against render_model + splatfacto_loss on
+# the same tensors: the same sums, the SSIM's over 10 more (zero) rows
+SHARDED_LOSS_RTOL, SHARDED_GRAD_REL_L2 = 1e-5, 1e-4
+# a band against the full frame's rows: the band shifts the centres by its
+# first row, so a pair at the 1/255 alpha edge or a pixel at the stop can
+# round the other way (one gaussian's weight at most)
+BAND_MAX, BAND_FRAC, BAND_GRAD_REL_L2 = 1e-2, 1e-2, 1e-4
+# the sharded generation at world size 1 against make_cross_view_processor:
+# the one-hot placement and the sum over one rank are exact
+GEN_REL_L2 = 1e-3
+
+
+def phase21_parallel(dev, bear, tmp: Path) -> dict:
+    """``parallel/`` at world size 1 on NCCL (a FileStore, no network): the
+    sharded train step at bear scale, the band blend at every band of a
+    4-band split against the full frame, and the view-sharded generation at
+    the full SD1.x widths in bf16."""
+    import torch.distributed as dist
+
+    from gaussctrl_exp_tpu_torch.cameras import stack_cameras
+    from gaussctrl_exp_tpu_torch.cli import render as cli
+    from gaussctrl_exp_tpu_torch.diffusion.attention import make_cross_view_processor
+    from gaussctrl_exp_tpu_torch.diffusion.pipeline import depth_to_disparity
+    from gaussctrl_exp_tpu_torch.diffusion.sd_pipeline import SDControlNetPipeline, encode_prompt_ids, init_random_models
+    from gaussctrl_exp_tpu_torch.models.gaussians import PARAM_NAMES, GaussianParams, GaussianState, params_from_numpy
+    from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig, render_model
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda, blend_cuda
+    from gaussctrl_exp_tpu_torch.ops.ssim import splatfacto_loss
+    from gaussctrl_exp_tpu_torch.parallel import distributed
+    from gaussctrl_exp_tpu_torch.parallel import sharded as sh
+    from gaussctrl_exp_tpu_torch.parallel.edit_sharded import make_sharded_generate, make_view_mesh, shard_views
+
+    smi = smi_line()
+    t_phase = time.perf_counter()
+    multi = distributed.initialize_distributed(f"file://{tmp / 'nccl_store'}", 1, 0, device=dev)
+    try:
+        mesh = distributed.make_global_mesh(device=dev)
+        print(f"[21] parallel/ at world size {dist.get_world_size()} on {dist.get_backend()} (FileStore; more than "
+              f"one process: {multi}); mesh {mesh.shape}; {smi}")
+
+        # ---- the sharded train step at bear scale against the unsharded loss
+        cfg = sh.ShardedRenderConfig(height=S, width=S)
+        n_bear = len(bear["means"])
+        gs = GaussianState(params_from_numpy(bear, dev), torch.ones(n_bear, dtype=torch.bool, device=dev))
+        cams = [cli.make_camera(orbit_c2w(i, FRAMES), S / (2 * np.tan(np.deg2rad(FOV_DEG) / 2)),
+                                S / (2 * np.tan(np.deg2rad(FOV_DEG) / 2)), S / 2, S / 2, S, S, device=dev)
+                for i in range(FRAMES)]
+        cam_st = stack_cameras(cams[:1])
+        cam_arrays = (cam_st.c2w, cam_st.fx, cam_st.fy, cam_st.cx, cam_st.cy)
+        with torch.no_grad():
+            gt = render_model(GaussianState(params_from_numpy(perturbed(bear, 2), dev), gs.alive), cams[0],
+                              cli.EVAL_STEP, SplatModelConfig(background_color="black")).rgb[None].contiguous()
+        shard, alive = sh.shard_params(gs.params, gs.alive, mesh)
+        loss_fn = sh.make_sharded_render_loss(mesh, cfg)
+        loss = loss_fn(shard, alive, cam_arrays, gt, cli.EVAL_STEP)
+        loss.backward()
+        ref = GaussianParams(**{n: getattr(gs.params, n).detach().clone().requires_grad_() for n in PARAM_NAMES})
+        out = render_model(GaussianState(ref, gs.alive), cams[0], cli.EVAL_STEP,
+                           SplatModelConfig(background_color="black"), training=True)
+        ref_loss, _ = splatfacto_loss(out.rgb, gt[0])
+        ref_loss.backward()
+        loss, ref_loss = float(loss.detach()), float(ref_loss.detach())
+        d_loss = abs(loss - ref_loss) / abs(ref_loss)
+        grels = {n: float((getattr(shard, n).grad - getattr(ref, n).grad).norm() / getattr(ref, n).grad.norm())
+                 for n in ("means", "features_dc", "opacities")}
+        print(f"    sharded loss at {S}², bear ({n_bear} gaussians), against render_model + splatfacto_loss on the "
+              f"same tensors: {float(loss):.7f} vs {float(ref_loss):.7f} (rel {d_loss:.2e}); gradient relative L2 "
+              + " ".join(f"{n} {r:.2e}" for n, r in grels.items()) + f"; band n_isects {loss_fn.last.n_isects}")
+        if d_loss > SHARDED_LOSS_RTOL or max(grels.values()) > SHARDED_GRAD_REL_L2:
+            raise SystemExit("FAIL: the sharded loss or its gradient disagrees with the unsharded one")
+
+        shard, alive = sh.shard_params(gs.params, gs.alive, mesh)
+        opt = torch.optim.Adam([getattr(shard, n) for n in PARAM_NAMES], lr=SHARDED_LR)
+        step_fn = sh.make_sharded_train_step(mesh, cfg, opt)
+        blend_cuda.launches = blend_cuda.bwd_launches = 0
+        events, losses = [], []
+        for i in range(SHARDED_STEPS):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            losses.append(float(step_fn(shard, alive, cam_arrays, gt, cli.EVAL_STEP)))
+            e1.record()
+            events.append((e0, e1))
+        torch.cuda.synchronize()
+        step_launches = (blend_cuda.launches, blend_cuda.bwd_launches)
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        warm = []
+        for _ in range(10):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            step_fn(shard, alive, cam_arrays, gt, cli.EVAL_STEP)
+            e1.record()
+            warm.append((e0, e1))
+        torch.cuda.synchronize()
+        warm_ms = [a.elapsed_time(b) for a, b in warm]
+        print(f"    make_sharded_train_step (torch Adam, lr {SHARDED_LR}): {SHARDED_STEPS} steps, loss {losses}, "
+              f"blend_fwd/blend_bwd launches {step_launches}; CUDA events per step {[round(x, 3) for x in step_ms]} "
+              f"ms; then 10 warm steps: mean {np.mean(warm_ms):.4f} ms (min {min(warm_ms):.4f}, max "
+              f"{max(warm_ms):.4f})")
+        if step_launches != (SHARDED_STEPS, SHARDED_STEPS) or not losses[-1] < losses[0] or \
+                not all(bool(torch.isfinite(getattr(shard, n)).all()) for n in PARAM_NAMES):
+            raise SystemExit("FAIL: the sharded train step")
+
+        # ---- the band blend at band-local offsets, each band of a 4-band split
+        payload = {k: v.detach() for k, v in sh.project_local(gs.params, gs.alive, cams[1], cli.EVAL_STEP,
+                                                               cfg).items()}
+        gen = torch.Generator(device=dev).manual_seed(21)
+        g = torch.randn((S, S, 4), generator=gen, device=dev)
+
+        def blend_bands(k):
+            leaves = {f: payload[f].clone().requires_grad_() for f in ("xys", "conics", "colors", "opacs")}
+            rows, n_isects = [], []
+            for b in range(k):
+                img, _, bins = sh.band_blend(sh.band_payload(dict(payload, **leaves), b, k, cfg), k, cfg)
+                (img * g[b * S // k : (b + 1) * S // k]).sum().backward()
+                rows.append(img.detach())
+                n_isects.append(bins.n_isects)
+            return torch.cat(rows), {f: t.grad for f, t in leaves.items()}, n_isects
+
+        blend_cuda.launches = blend_cuda.bwd_launches = 0
+        full, gfull, n_full = blend_bands(1)
+        bands, gbands, n_bands = blend_bands(BANDS)
+        band_launches = (blend_cuda.launches, blend_cuda.bwd_launches)
+        d = (bands - full).abs()
+        brels = {f: float((gbands[f] - gfull[f]).norm() / gfull[f].norm()) for f in gfull}
+        print(f"    band blend, {BANDS} bands of {S // BANDS} rows against the full frame (view 2): max |d| "
+              f"{float(d.max()):.3e}, pixels over 1e-5 {float((d.amax(-1) > 1e-5).float().mean()):.2e}; the bands' "
+              f"summed B2 gradients against the full frame's, relative L2 "
+              + " ".join(f"{f} {r:.2e}" for f, r in brels.items())
+              + f"; n_isects per band {n_bands} (full {n_full[0]}); blend_fwd/blend_bwd launches {band_launches}")
+        if float(d.max()) > BAND_MAX or float((d.amax(-1) > 1e-5).float().mean()) > BAND_FRAC or \
+                max(brels.values()) > BAND_GRAD_REL_L2 or band_launches != (1 + BANDS, 1 + BANDS):
+            raise SystemExit("FAIL: the band blend disagrees with the full frame")
+
+        # ---- the view-sharded generation at full width in bf16
+        models = init_random_models(SD_SEED, dev, torch.bfloat16)
+        pipe = SDControlNetPipeline(models)
+        vmesh = make_view_mesh(device=dev)
+        rng = np.random.default_rng(21)
+        lat = torch.as_tensor(rng.normal(size=(GEN_VIEWS, S // 8, S // 8, 4)).astype(np.float32), device=dev)
+        with torch.no_grad():
+            ctx = encode_prompt_ids(models, crc_tokenize([EDIT_PROMPT, ""]))
+            depths = [render_model(gs, c, cli.EVAL_STEP, SplatModelConfig(background_color="white")).depth[..., 0]
+                      for c in cams[:GEN_VIEWS]]
+        hint = torch.as_tensor(np.stack([depth_to_disparity(x.cpu().numpy()) for x in depths]), device=dev)
+        cc, cu = ctx[:1].expand(GEN_VIEWS, -1, -1), ctx[1:].expand(GEN_VIEWS, -1, -1)
+        per_eval = count_transformers(models.unet) + count_transformers(models.controlnet)
+        expected = GEN_STEPS * (2 + 4) * per_eval
+        run = make_sharded_generate(vmesh, pipe, self_attn_coeff=0.6)
+        args = shard_views(vmesh, lat, cc, cu, hint)
+        attention_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run(*args, 7.5, GEN_STEPS)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        b3 = attention_cuda.launches
+        t0 = time.perf_counter()
+        want = pipe.generate(lat, cc, cu, hint, 7.5, num_steps=GEN_STEPS, processor=make_cross_view_processor(0.6))
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        gen_rel = rel_l2(got, want)
+        print(f"    make_sharded_generate, {GEN_VIEWS} views ({GEN_VIEWS} on this rank, references 0-3) at "
+              f"{S // 8}² latents, full SD1.x widths in bf16, {GEN_STEPS} steps: {gen_s:.3f} s host wall (first "
+              f"call), make_cross_view_processor's generation {ref_s:.3f} s; relative L2 {gen_rel:.3e} (limit "
+              f"{GEN_REL_L2}); flash_attn_fwd launches {b3} (expected {expected} = {GEN_STEPS} steps × 6 per block "
+              f"× {per_eval} blocks)")
+        if gen_rel > GEN_REL_L2 or b3 != expected or not bool(torch.isfinite(got).all()):
+            raise SystemExit("FAIL: the view-sharded generation")
+        del models, pipe
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(f"    phase 21 wall {time.perf_counter() - t_phase:.1f} s")
+    return dict(b1=step_launches[0], b2=step_launches[1], band=band_launches, b3=b3, step_ms=float(np.mean(warm_ms)))
+
+
+def parallel_only(dev) -> int:
+    """``--parallel``: phase 21 alone (kernels B1, B2 and B3 built). Prints
+    no kernels line and no result."""
+    from gaussctrl_exp_tpu_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi_line())
+    t0 = time.perf_counter()
+    cuda_build.build(BLEND_SOURCES + ("flash_attn_fwd",))
+    print(f"built B1, B2 and B3 in {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase21_parallel(dev, synthetic_params(N_BEAR, 0, 0.8, -4.2, 0.5), Path(tmp))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = p.add_mutually_exclusive_group()
@@ -2930,6 +3550,10 @@ def main(argv=None) -> int:
                       help="only the scene loader, the training CLI and render dataset (phase 18)")
     mode.add_argument("--segment", action="store_true",
                       help="only the training CLI's edit with live segmentation (phase 19)")
+    mode.add_argument("--cli", action="store_true",
+                      help="only the render CLI's subcommands, the viewer and its live attach (phase 20)")
+    mode.add_argument("--parallel", action="store_true",
+                      help="only parallel/ at world size 1 on NCCL (phase 21)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA card",
@@ -2949,6 +3573,10 @@ def main(argv=None) -> int:
         return train_cli_only(torch.device("cuda"))
     if args.segment:
         return segment_only(torch.device("cuda"))
+    if args.cli:
+        return cli_only(torch.device("cuda"))
+    if args.parallel:
+        return parallel_only(torch.device("cuda"))
     from gaussctrl_exp_tpu_torch.cameras import camera_matrices, make_camera
     from gaussctrl_exp_tpu_torch.cli import render as cli
     from gaussctrl_exp_tpu_torch.engine.checkpoint import import_splatfacto_checkpoint
@@ -2967,6 +3595,7 @@ def main(argv=None) -> int:
     from gaussctrl_exp_tpu_torch.utils.timing import device_window, kernel_time_ms, spare_launches
 
     t_start = time.perf_counter()
+    clock = PhaseClock()
     dev = torch.device("cuda")
     smi = smi_line()
     print(f"[1] device: {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()}); "
@@ -2980,6 +3609,7 @@ def main(argv=None) -> int:
     print(f"[2] built {built} in {time.perf_counter() - t0:.2f} s, one nvcc per source in parallel "
           f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})")
     print_ptxas()
+    clock.end("1-2")
 
     bear = synthetic_params(N_BEAR, 0, 0.8, -4.2, 0.5)
     garden = synthetic_params(N_GARDEN, 7, 1.2, -5.3, 0.4)
@@ -2996,6 +3626,7 @@ def main(argv=None) -> int:
         (bear_args, bear_bins), (args_odd, bins_odd), (g_args, g_bins) = cases["bear"], cases["odd"], cases["garden"]
         c2w0 = orbit_c2w(0, FRAMES)
 
+        clock.end("3")
         # ---- phase 4: the main path through the CLI entry point
         out_dir = tmp / "frames"
         argv = ["camera-path", "--ckpt", str(ckpt), "--camera-path", str(path_json),
@@ -3048,6 +3679,7 @@ def main(argv=None) -> int:
         if float(d_rgb.max()) > 2e-2 or float(d_alpha.max()) > 2e-2 or frac > 1e-2:
             raise SystemExit("FAIL: cuda render disagrees with the cpu render")
 
+        clock.end("4")
         # ---- phase 5: timings (bear frame 1, 512², C = 4)
         p = state.params
         vm, _, fm = camera_matrices(cam0)
@@ -3084,9 +3716,11 @@ def main(argv=None) -> int:
               f"vs plain {g_plain_ms:.4f} ms; bound {g_bound_ms:.5f} ms ({g_bound_by}); n_isects {g_bins.n_isects}; "
               f"work {g_work}")
 
+        clock.end("5")
         # ---- phase 6: B2 against the plain VJP
         bwd_max_abs_err = phase6_blend(dev, cases, state, cam0)
 
+        clock.end("6")
         # ---- phase 7: the training path through Trainer
         train_cfg = TrainConfig(
             model=SplatModelConfig(sh_degree=3, sh_degree_interval=10, background_color="white"),
@@ -3168,6 +3802,7 @@ def main(argv=None) -> int:
                 abs(m_card["main_loss"] - m_cpu["main_loss"]) > 1e-5 * abs(m_cpu["main_loss"]):
             raise SystemExit("FAIL: the card's train step disagrees with the CPU's")
 
+        clock.end("7")
         # ---- phase 8: timings of the train step (bear, 512², one fixed view, SH degree 3)
         st, gt0 = trainer.state, targets[0]
         stages = ("render", "loss", "backward", "optimizer", "stats")
@@ -3231,22 +3866,41 @@ def main(argv=None) -> int:
         print(f"    garden {N_GARDEN} blend_bwd {g_bwd_dev_ms:.4f} ms device time ({g_bwd_ms:.4f} ms in events) vs "
               f"plain VJP {g_bwd_plain_ms:.4f} ms; bound {g_bwd_bound_ms:.5f} ms ({g_bwd_bound_by}); n_isects "
               f"{g_bins.n_isects}; work {g_bwd_work}")
+        clock.end("8")
         flash_errs, flash_cases = phase9_flash(dev)
+        clock.end("9")
         edit = phase10_edit(dev, state, cams, targets)
+        clock.end("10")
         flash = phase11_timings(dev, state, cams, edit, flash_cases)
+        clock.end("11")
         bwd_errs = phase12_flash_bwd(dev)
+        clock.end("12")
         mv = phase13_mv(dev, state, edit)
+        clock.end("13")
         phase14_experimental(dev, state, cams, targets, edit)
+        clock.end("14")
         bwd = phase15_timings(dev, mv)
+        clock.end("15")
         variants = phase16_variants(dev, (args_odd, bins_odd), (g_args, g_bins))
+        clock.end("16")
         for name in ("gen", "opt", "proc"):  # the fp32 generator and its Adam state make room for the bf16 one
             mv.pop(name)
         torch.cuda.empty_cache()
         mvb = phase17_mv_bf16(dev, mv["cams"], mv["depths"], mv["x0"], mv["ctx"])
         torch.cuda.empty_cache()
+        clock.end("17")
         cli18 = phase18_train_cli(dev, bear, tmp)
         torch.cuda.empty_cache()
+        clock.end("18")
         seg19 = phase19_segment(dev, bear, tmp)
+        torch.cuda.empty_cache()
+        clock.end("19")
+        cli20 = phase20_cli(dev, bear, tmp)
+        torch.cuda.empty_cache()
+        clock.end("20")
+        par21 = phase21_parallel(dev, bear, tmp)
+        clock.end("21")
+        print(f"    host wall by phase, s: {clock.walls}")
         print(f"    total chip_smoke wall {time.perf_counter() - t_start:.1f} s; spare launches a profiled cycle at the end "
               f"{spare_launches()}")
 
@@ -3266,6 +3920,9 @@ def main(argv=None) -> int:
         "train_cli_launches": cli18["b1_cli"],
         "dataset_launches": cli18["b1_dataset"],
         "segment_cli_launches": seg19["b1"],
+        "render_cli_launches": cli20["launches"],
+        "sharded_step_launches": par21["b1"],
+        "band_check_launches": par21["band"][0],
     }, {
         "name": "blend_bwd",
         "route": "cuda",
@@ -3284,6 +3941,8 @@ def main(argv=None) -> int:
         "b2c_launches": variants["b2c_launches"],
         "train_cli_launches": cli18["b2_cli"],
         "segment_cli_launches": seg19["b2"],
+        "sharded_step_launches": par21["b2"],
+        "viewer_live_train_launches": cli20["b2_live"],
     }, {
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -3297,6 +3956,7 @@ def main(argv=None) -> int:
         "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
         "segment_cli_launches": seg19["b3"],
+        "sharded_generate_launches": par21["b3"],
     }, {
         "name": "flash_attn_fwd_f32",
         "route": "cuda",

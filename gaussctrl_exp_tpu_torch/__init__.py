@@ -9,8 +9,8 @@ Layout (each module names its JAX counterpart):
   configs.py   — the ``gaussctrl`` method's configuration (flags of cli/train.py)
   data/        — ``transforms.json`` parsing, the image cache (undistorted,
                  4×10 view subset), the seed point cloud
-  native/      — the loader's C++ (PLY reader, JPEG decode, undistort
-                 remap), built with g++ at first use
+  native/      — the loader's C++ (PLY reader, JPEG decode and encode, GIF
+                 LZW, undistort remap), built with g++ at first use
   ops/         — projection, SH, binning, blend and attention (plain versions
                  + CUDA kernels), renderer, losses
   models/      — Gaussian parameters, the splat model's render, densify
@@ -19,8 +19,13 @@ Layout (each module names its JAX counterpart):
   diffusion/   — the SD1.x edit stack, the experimental cross-view
                  processors, the depth generator and inpainting
   experimental/ — the 3D noise mask
-  cli/         — ``train`` (load a scene, init, optional edit, train) and
-                 ``render`` (``dataset`` and ``camera-path``)
+  segmentation/ — SAM, the CLIP grounder and Lang-SAM
+  parallel/    — sharded render, training and edit generation on
+                 ``torch.distributed``
+  utils/       — PNG, GIF, resizes, spherical video metadata, timing
+  cli/         — ``train`` (load a scene, init, optional edit, train, the
+                 live viewer), ``render`` (``dataset``, ``camera-path``,
+                 ``interpolate``, ``spiral``) and ``viewer``
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card they raise instead of falling back.

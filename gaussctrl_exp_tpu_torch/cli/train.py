@@ -20,9 +20,11 @@ gc_trainer.py:58-255):
 
 Usage:
   python -m gaussctrl_exp_tpu_torch.cli.train --data data/bear \\
-      [--load-checkpoint step-000029999.ckpt] [--device cuda]
+      [--load-checkpoint step-000029999.ckpt] [--device cuda] [--viewer-port 7007]
 
-The viewer (``--viewer-port``) is not ported yet and raises.
+``--viewer-port`` attaches the live viewer (``cli/viewer.py``) to the
+trainer before the first step; ``run`` returns the trainer, whose
+``viewer`` is the server (None without the flag), still serving.
 """
 
 from __future__ import annotations
@@ -55,8 +57,6 @@ def run(cfg):
     from ..models.splat_model import render_model
     from ..utils.colormaps import apply_depth_colormap
 
-    if cfg.viewer_port > 0:
-        raise NotImplementedError("--viewer-port: the viewer is not ported yet (ROADMAP.md §A item 3)")
     device = resolve_device(cfg.device)
 
     t0 = time.time()
@@ -125,6 +125,11 @@ def run(cfg):
 
     trainer = Trainer(gs, dm, cfg.train)
     num_steps = min(cfg.pipeline.render_rate, cfg.max_num_iterations)
+    trainer.viewer = None
+    if cfg.viewer_port:
+        from .viewer import attach_live_viewer
+
+        trainer.viewer = attach_live_viewer(trainer, dm, cfg.train.model, cfg.viewer_port)
 
     def callback(m):
         m = dict(m)

@@ -63,7 +63,7 @@ class GaussCtrlConfig:
     save_only_latest_checkpoint: bool = True
     seed: int = 42
     capacity: int = 1 << 17
-    viewer_port: int = 0  # >0: serve the live viewer (not ported yet: raises)
+    viewer_port: int = 0  # >0: serve the live viewer during training
     device: str = "cuda"
     pipeline: PipelineConfig = PipelineConfig()
     train: TrainConfig = TrainConfig()

@@ -38,11 +38,9 @@ import torch
 from ..cameras import Camera, make_camera, stack_cameras
 from ..device import resolve_device
 from ..native import get_imageio
-from ..utils.png import read_png
+from ..utils.png import is_png, read_png
 from .dataparser import DataParserConfig, DataparserOutputs, ParsedCameras, load_scene
 from .undistort import optimal_new_K
-
-_PNG = b"\x89PNG\r\n\x1a\n"
 
 
 @dataclasses.dataclass
@@ -52,11 +50,6 @@ class DataManagerConfig:
     sampled_views_every_subset: int = 10
     load_all: bool = False
     seed: int = 0
-
-
-def _is_png(path: Path) -> bool:
-    with open(path, "rb") as f:
-        return f.read(len(_PNG)) == _PNG
 
 
 def _load_image(path: Path) -> np.ndarray:
@@ -79,7 +72,7 @@ def _fit_to(img: np.ndarray, H: int, W: int, path: Path) -> np.ndarray:
 
 def _image_size(path: Path) -> tuple[int, int]:
     """(W, H) of a PNG or of a JPEG the native decoder reads."""
-    if _is_png(path):
+    if is_png(path):
         h, w = read_png(path).shape[:2]
         return w, h
     lib = get_imageio()
@@ -124,7 +117,7 @@ def cache_images(paths: list, cams: ParsedCameras) -> tuple[np.ndarray, np.ndarr
     if n_ok < V:  # PNGs (and JPEGs the batch loader refuses, which raise)
         for i in sorted(failed[failed >= 0]):
             path = Path(paths[i])
-            if not _is_png(path):
+            if not is_png(path):
                 raise ValueError(f"{path}: the native loader refused it (not a baseline JPEG, or its size "
                                  f"is not an integer multiple of {W}×{H}), and it is not a PNG")
             img = np.ascontiguousarray(_fit_to(_load_image(path), H, W, path), np.float32)

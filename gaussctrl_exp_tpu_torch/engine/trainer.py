@@ -12,11 +12,20 @@ that the optimizer, ``refine`` and ``reset_opacity`` update in place, and a
 step advances ``TrainState.step`` and its generator. The JAX package's
 capacity rebucket has no counterpart: the port's binning sizes the
 intersection list exactly.
+
+Because the state changes in place, ``Trainer`` holds ``lock`` through each
+step and its refine or reset; ``snapshot`` copies the gaussians under that
+lock, so a reader on another thread (the live viewer) never sees a
+half-updated or half-densified state; ``status`` reads the step and the
+last loss with neither. A waiting reader takes the lock
+before the next step does (a plain lock would let the loop, which releases
+it and takes it again at once, starve the reader until training ends).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import warnings
 from typing import Callable, Optional
 
@@ -203,6 +212,31 @@ class Trainer:
         self.reset_opacity_step = make_reset_opacity_step(cfg)
         self.step = 0
         self.history: list[dict] = []
+        self.lock = threading.Lock()  # held through each step and its refine or reset
+        self._readers = 0  # snapshots waiting for or holding the lock
+        self._turn = threading.Condition()
+
+    def snapshot(self) -> tuple[GaussianState, int, Optional[float]]:
+        """(a copy of the gaussians, the step, the last logged main_loss),
+        taken together under ``lock``. The copy is detached: a render of it
+        records no graph, whatever the caller's grad mode."""
+        with self._turn:
+            self._readers += 1
+        try:
+            with self.lock, torch.no_grad():
+                st = self.state
+                params = GaussianParams(**{n: getattr(st.params, n).detach().clone() for n in PARAM_NAMES})
+                loss = self.history[-1]["main_loss"] if self.history else None
+                return GaussianState(params, st.alive.clone()), self.step, loss
+        finally:
+            with self._turn:
+                self._readers -= 1
+                self._turn.notify_all()
+
+    def status(self) -> tuple[int, Optional[float]]:
+        """(the step, the last logged main_loss), read without the lock or a
+        copy: two Python values, each read whole."""
+        return self.step, self.history[-1]["main_loss"] if self.history else None
 
     def _image(self, img) -> torch.Tensor:
         return torch.as_tensor(img, dtype=torch.float32, device=self.state.alive.device)
@@ -210,27 +244,10 @@ class Trainer:
     def train(self, num_steps: int, log_every: int = 50, callback=None) -> TrainState:
         d = self.cfg.densify
         for _ in range(num_steps):
-            view_idx, gt = self.dm.next_train()
-            camera = self.dm.camera(view_idx)
-            metrics = self.train_step(self.state, camera, self._image(gt), int(view_idx))
-            self.step += 1
-
-            # splatfacto's refinement_after cadence: densify only once every
-            # image has been seen since the last opacity reset (in-cycle
-            # position > num_train_data + refine_every); cull-only after
-            # stop_split_at when continue_cull_post_densification; opacity
-            # reset one refine-cycle after each reset_interval boundary
-            if self.step > d.warmup_length and self.step % d.refine_every == 0:
-                reset_interval = d.reset_alpha_every * d.refine_every
-                pos = self.step % reset_interval
-                do_densify = self.step < d.stop_split_at and pos > len(self.dm) + d.refine_every
-                if do_densify:
-                    self.refine_step(self.state)
-                elif self.step >= d.stop_split_at and d.continue_cull_post_densification:
-                    self.refine_step(self.state)  # cull-only
-                if self.step < d.stop_split_at and pos == d.refine_every:
-                    self.reset_opacity_step(self.state)
-
+            with self._turn:  # waiting snapshots go first
+                self._turn.wait_for(lambda: self._readers == 0)
+            with self.lock:
+                metrics = self._step(d)
             if self.step % log_every == 0 or self.step == 1:
                 names = [k for k, v in metrics.items() if torch.is_tensor(v)]
                 values = torch.stack([metrics[k].float() for k in names] + [self.state.alive.sum().float()])
@@ -246,6 +263,29 @@ class Trainer:
                 if callback:
                     callback(m)
         return self.state
+
+    def _step(self, d: DensifyConfig) -> dict:
+        """One step and, at splatfacto's cadence, its refine or reset."""
+        view_idx, gt = self.dm.next_train()
+        camera = self.dm.camera(view_idx)
+        metrics = self.train_step(self.state, camera, self._image(gt), int(view_idx))
+        self.step += 1
+        # splatfacto's refinement_after cadence: densify only once every
+        # image has been seen since the last opacity reset (in-cycle
+        # position > num_train_data + refine_every); cull-only after
+        # stop_split_at when continue_cull_post_densification; opacity
+        # reset one refine-cycle after each reset_interval boundary
+        if self.step > d.warmup_length and self.step % d.refine_every == 0:
+            reset_interval = d.reset_alpha_every * d.refine_every
+            pos = self.step % reset_interval
+            do_densify = self.step < d.stop_split_at and pos > len(self.dm) + d.refine_every
+            if do_densify:
+                self.refine_step(self.state)
+            elif self.step >= d.stop_split_at and d.continue_cull_post_densification:
+                self.refine_step(self.state)  # cull-only
+            if self.step < d.stop_split_at and pos == d.refine_every:
+                self.reset_opacity_step(self.state)
+        return metrics
 
     @torch.no_grad()
     def evaluate(self, view_indices=None) -> dict:

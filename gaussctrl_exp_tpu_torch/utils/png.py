@@ -25,6 +25,12 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
 
 
+def is_png(path: str | Path) -> bool:
+    """Whether the file starts with the PNG signature."""
+    with open(path, "rb") as f:
+        return f.read(len(_SIGNATURE)) == _SIGNATURE
+
+
 def write_png(path: str | Path, rgb: np.ndarray) -> None:
     """Write an (H, W, 3) uint8 array."""
     rgb = np.ascontiguousarray(rgb)

@@ -442,12 +442,26 @@ def test_sam_ckpt_without_langsam_obj_reads_the_mask_sidecars(mini_scene, seg_ck
         np.testing.assert_array_equal(seen["masks"][i], m)
 
 
-@pytest.mark.parametrize("flag", [["--viewer-port", "1"]])
+@pytest.mark.parametrize("flag", [["--viewer-port"]])
 def test_unported_branches_raise(mini_scene, tmp_path, flag):
-    cfg, _ = parse_config(GaussCtrlConfig, ["--data", str(mini_scene), "--output-dir", str(tmp_path),
-                                            "--device", "cpu", *flag])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_cli.run(cfg)
+    """``--viewer-port``, which raised until the viewer was ported, now
+    attaches the live viewer as the JAX CLI does: it serves the trained
+    step, and without the flag there is no viewer."""
+    import socket
+    import urllib.request
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    argv = ["--data", str(mini_scene), "--output-dir", str(tmp_path), "--device", "cpu", *COMMON[:6],
+            "--capacity", "64", "--train.use-lpips", "False"]
+    trainer = train_cli.run(parse_config(GaussCtrlConfig, argv + [*flag, str(port)])[0])
+    try:
+        with urllib.request.urlopen(f"http://localhost:{port}/status", timeout=60) as r:
+            assert json.loads(r.read()) == {"live": True, "step": 4, "loss": trainer.history[-1]["main_loss"]}
+    finally:
+        trainer.viewer.shutdown()
+    assert train_cli.run(parse_config(GaussCtrlConfig, argv)[0]).viewer is None
 
 
 def test_train_cli_refuses_a_missing_card(mini_scene, tmp_path):

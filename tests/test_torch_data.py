@@ -456,7 +456,10 @@ def test_port_data_and_cli_import_no_jax_pil_cv2_orbax_or_flax():
                "gaussctrl_exp_tpu_torch.data", "gaussctrl_exp_tpu_torch.configs",
                "gaussctrl_exp_tpu_torch.engine.checkpoint", "gaussctrl_exp_tpu_torch.engine.writer",
                "gaussctrl_exp_tpu_torch.engine.trainer", "gaussctrl_exp_tpu_torch.native",
-               "gaussctrl_exp_tpu_torch.utils.cliconf", "gaussctrl_exp_tpu_torch.utils.png"]
+               "gaussctrl_exp_tpu_torch.utils.cliconf", "gaussctrl_exp_tpu_torch.utils.png",
+               "gaussctrl_exp_tpu_torch.cli.viewer", "gaussctrl_exp_tpu_torch.parallel",
+               "gaussctrl_exp_tpu_torch.parallel.distributed", "gaussctrl_exp_tpu_torch.parallel.edit_sharded",
+               "gaussctrl_exp_tpu_torch.utils.gif", "gaussctrl_exp_tpu_torch.utils.video"]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")

@@ -136,7 +136,9 @@ def test_port_imports_no_jax_transformers_or_safetensors():
                    "diffusion/mv_generator.py", "diffusion/inpaint.py", "experimental/noise_mask.py",
                    "ops/attention_cuda.py", "segmentation/__init__.py", "segmentation/sam.py",
                    "segmentation/lang_sam.py", "segmentation/grounding.py", "segmentation/convert.py",
-                   "segmentation/clip_vision.py", "utils/resize.py"):
+                   "segmentation/clip_vision.py", "utils/resize.py", "utils/video.py", "utils/gif.py",
+                   "cli/viewer.py", "parallel/__init__.py", "parallel/distributed.py", "parallel/sharded.py",
+                   "parallel/edit_sharded.py"):
         assert f"gaussctrl_exp_tpu_torch/{module}" in names
     bad = []
     for path in files:
