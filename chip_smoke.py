@@ -3084,6 +3084,17 @@ def check_video(name: str, out_dir: Path, n: int, shape) -> str:
     return f"GIF (no ffmpeg on the path): {len(delays)} frames of {w}×{h}, {want} cs a frame, loop 0, {len(data):,} bytes"
 
 
+def viewer_parts(records) -> list[dict]:
+    """Each ``/render`` request's host ms by part, from the viewer's spans,
+    in the order the requests ended."""
+    names = {"render.frame": "render", "viewer.to_host": "copy", "viewer.encode": "encode"}
+    parts = {r.id: {} for r in records if r.name == "viewer.request"}
+    for r in records:
+        if r.parent in parts and r.name in names:
+            parts[r.parent][names[r.name]] = r.host_ms
+    return list(parts.values())
+
+
 def phase20_cli(dev, bear, tmp: Path) -> dict:
     """The rest of the render CLI (interpolate, spiral, an ODS camera path
     with the nearest-camera probe, JPEG frames), the viewer serving a
@@ -3096,6 +3107,7 @@ def phase20_cli(dev, bear, tmp: Path) -> dict:
     from gaussctrl_exp_tpu_torch.data.dataparser import DataParserConfig, load_scene
     from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig
     from gaussctrl_exp_tpu_torch.ops import blend_cuda
+    from gaussctrl_exp_tpu_torch.utils import trace
 
     smi = smi_line()
     t_phase = time.perf_counter()
@@ -3205,6 +3217,8 @@ def phase20_cli(dev, bear, tmp: Path) -> dict:
     port = httpd.server_address[1]
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
+    trace.reset()
+    trace.enable()
     try:
         page = http(port, "/")
         status = json.loads(http(port, "/status"))
@@ -3217,8 +3231,9 @@ def phase20_cli(dev, bear, tmp: Path) -> dict:
             walls.append((time.perf_counter() - t0) * 1e3)
             images.append(native.decode_jpeg(body))
         b1 = blend_cuda.launches
-        timings = list(httpd.timings)
+        timings = viewer_parts(trace.records())
     finally:
+        trace.disable()
         httpd.shutdown()
         server.join(timeout=60)
     parts = {k: float(np.mean([t[k] for t in timings[1:]])) for k in ("render", "copy", "encode")}
@@ -3228,8 +3243,9 @@ def phase20_cli(dev, bear, tmp: Path) -> dict:
     print(f"    viewer on the checkpoint: / ({len(page):,} bytes), /status {status}, {VIEWER_REQUESTS} /render "
           f"requests at {S}² (rgb and depth in turns, quality {viewer.JPEG_QUALITY}): {np.mean(walls[1:]):.3f} ms "
           f"a request by host wall at the client (first {walls[0]:.3f} ms; min {min(walls):.3f}, max "
-          f"{max(walls):.3f}) = render {parts['render']:.3f} + device-to-host copy and colormap {parts['copy']:.3f} "
-          f"+ JPEG encode {parts['encode']:.3f} ms at the server (mean of requests 2-{VIEWER_REQUESTS}); "
+          f"{max(walls):.3f}); at the server, by the viewer's spans: render dispatch {parts['render']:.3f} + wait "
+          f"for the device, copy to the host and colormap {parts['copy']:.3f} + JPEG encode {parts['encode']:.3f} ms "
+          f"(mean of requests 2-{VIEWER_REQUESTS}); "
           f"blend_fwd launches {b1}")
     for kind, t in split.items():
         print(f"      {kind}: {t['wall']:.3f} ms a request at the client = render {t['render']:.3f} + copy"
@@ -3269,6 +3285,8 @@ def phase20_cli(dev, bear, tmp: Path) -> dict:
 
     dm_mod.DataManager = EditedDM
     blend_cuda.launches = blend_cuda.bwd_launches = 0
+    trace.reset()
+    trace.enable()  # the viewer's requests are its spans
     worker = threading.Thread(target=train)
     t0 = time.perf_counter()
     worker.start()
@@ -3287,13 +3305,15 @@ def phase20_cli(dev, bear, tmp: Path) -> dict:
         worker.join(timeout=600)
     finally:
         dm_mod.DataManager = real_dm
+        trace.disable()
     if errors:
         raise errors[0]
     trainer = result["trainer"]
     dm = dms[0]
     edited = dm.images[0].copy()
     reset = http(vport, "/reset", post=True)
-    n_view = len(trainer.viewer.timings)
+    n_view = sum(r.name == "viewer.request" for r in trace.records())
+    trace.reset()
     trainer.viewer.shutdown()
     wall = time.perf_counter() - t0
     steps = [p[0] for p in polls]
@@ -3592,6 +3612,7 @@ def main(argv=None) -> int:
     from gaussctrl_exp_tpu_torch.models.gaussians import PARAM_NAMES
     from gaussctrl_exp_tpu_torch.ops.blend import blend_vjp_plain
     from gaussctrl_exp_tpu_torch.ops.lpips import lpips_random
+    from gaussctrl_exp_tpu_torch.utils import trace
     from gaussctrl_exp_tpu_torch.utils.timing import device_window, kernel_time_ms, spare_launches
 
     t_start = time.perf_counter()
@@ -3806,32 +3827,29 @@ def main(argv=None) -> int:
         # ---- phase 8: timings of the train step (bear, 512², one fixed view, SH degree 3)
         st, gt0 = trainer.state, targets[0]
         stages = ("render", "loss", "backward", "optimizer", "stats")
-        marks: list = []
-
-        def mark(_name):
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            marks.append(e)
-
-        timed_step = make_train_step(train_cfg, on_stage=mark)
         plain_step = make_train_step(train_cfg)
         for _ in range(3):
             plain_step(st, cam0, gt0)
         iters = 20
-        per_stage = dict.fromkeys(stages, 0.0)
+        # each stage is the train step's device span "train.<stage>"; the
+        # step runs from an event before it to the end of its last stage
+        trace.reset()
+        trace.enable()
         step_total = 0.0
-        for _ in range(iters):
-            marks.clear()
-            torch.cuda.synchronize()
-            begin = torch.cuda.Event(enable_timing=True)
-            begin.record()
-            timed_step(st, cam0, gt0)
-            torch.cuda.synchronize()
-            prev = begin
-            for name, e in zip(stages, marks):
-                per_stage[name] += prev.elapsed_time(e) / iters
-                prev = e
-            step_total += begin.elapsed_time(marks[-1]) / iters
+        try:
+            for _ in range(iters):
+                torch.cuda.synchronize()
+                begin = torch.cuda.Event(enable_timing=True)
+                begin.record()
+                plain_step(st, cam0, gt0)
+                torch.cuda.synchronize()
+                last = next(r for r in reversed(trace.records()) if r.name == "train.stats")
+                step_total += begin.elapsed_time(last.events[1]) / iters
+        finally:
+            trace.disable()
+        spans = trace.summary()
+        trace.reset()
+        per_stage = {n: spans[f"train.{n}"]["device_ms_mean"] for n in stages}
         step_win = device_window(lambda: plain_step(st, cam0, gt0), calls=5)
         t_args, t_bins = blend_inputs(GaussianState(st.params, st.alive), cam0, 3)
         fwd_t = blend_cuda.blend_forward(*t_args, t_bins, S, S)
@@ -3854,7 +3872,7 @@ def main(argv=None) -> int:
         g_bwd_plain_ms = time_ms(lambda: blend_vjp_plain(*g_args, g_bins, gg_img, gg_T, S, S), iters=2, warmup=1)
         g_bwd_bound_ms, g_bwd_bound_by, g_bwd_work = blend_bound(g_args, g_bins, S, S, backward=True)
         print(f"[8] train step, bear {S}², capacity {TRAIN_CAPACITY}, {int(st.alive.sum())} alive, SH degree 3, "
-              f"one view (CUDA events, warm, mean of {iters}): {step_total:.4f} ms = "
+              f"one view (CUDA events, warm, mean of {iters}): {step_total:.4f} ms; stages (the train.* spans) "
               + " + ".join(f"{n} {per_stage[n]:.4f}" for n in stages))
         print(f"    backward {per_stage['backward']:.4f} ms, of which blend_bwd {bwd_ms:.4f} ms (timed alone "
               f"on this view's inputs, C=3, n_isects {t_bins.n_isects})")

@@ -25,6 +25,9 @@ Usage:
 ``--viewer-port`` attaches the live viewer (``cli/viewer.py``) to the
 trainer before the first step; ``run`` returns the trainer, whose
 ``viewer`` is the server (None without the flag), still serving.
+``--trace`` records the program's spans and counters (``utils/trace.py``)
+through the run and writes them to ``logs/spans.jsonl`` and
+``logs/trace_summary.json`` under the experiment's directory.
 """
 
 from __future__ import annotations
@@ -48,6 +51,25 @@ def main(argv=None):
 
 
 def run(cfg):
+    if not cfg.trace:
+        return _run(cfg)
+    from ..utils import trace
+
+    trace.reset()
+    trace.enable()
+    try:
+        trainer = _run(cfg)
+    finally:
+        trace.disable()
+    logs = Path(cfg.output_dir) / cfg.experiment_name / "logs"
+    trace.dump(logs / "spans.jsonl")
+    summary = dict(spans=trace.summary(), counters=trace.counters(), dropped=trace.dropped())
+    (logs / "trace_summary.json").write_text(json.dumps(summary, indent=1))
+    print(f"[trace] {sum(s['count'] + s['errors'] for s in summary['spans'].values())} spans in {logs}")
+    return trainer
+
+
+def _run(cfg):
     from ..data.datamanager import DataManager
     from ..device import resolve_device
     from ..engine.checkpoint import import_splatfacto_checkpoint, save_checkpoint

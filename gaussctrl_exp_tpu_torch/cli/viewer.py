@@ -23,11 +23,9 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import collections
 import json
 import sys
 import threading
-import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional
 from urllib.parse import parse_qs, urlparse
@@ -40,6 +38,7 @@ from ..device import resolve_device
 from ..models.gaussians import GaussianState
 from ..models.splat_model import SplatModelConfig, render_model
 from ..native import encode_jpeg
+from ..utils import trace
 from ..utils.colormaps import apply_depth_colormap
 
 RENDER_STEP = 30_000  # full SH degree
@@ -100,9 +99,10 @@ def serve(state: Optional[GaussianState] = None, model_cfg: Optional[SplatModelC
     (``Trainer.snapshot``), and optionally ``on_reset`` and ``status_fn``, a
     cheap (step, loss or None) for ``/status`` (``Trainer.status``; without
     it ``/status`` reads ``state_fn``). ``port`` 0 takes a
-    free port (``server_address[1]``). The server's ``timings`` keep the
-    last 1000 renders' host wall in ms: render (device work waited for),
-    the device-to-host copy and colormap, and the JPEG encode.
+    free port (``server_address[1]``). A ``/render`` request is the span
+    "viewer.request" (``utils/trace.py``) around the render, the copy to
+    the host and colormap ("viewer.to_host", where it waits for the device)
+    and the JPEG encode ("viewer.encode").
     """
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
@@ -119,26 +119,19 @@ def serve(state: Optional[GaussianState] = None, model_cfg: Optional[SplatModelC
     if status_fn is None:
         status_fn = lambda: state_fn()[1:]  # noqa: E731
     lock = threading.Lock()  # one render at a time
-    timings: collections.deque = collections.deque(maxlen=1000)
 
     def render_jpeg(az: float, el: float, r: float, want_depth: bool) -> bytes:
-        with lock, torch.no_grad():
-            t0 = time.perf_counter()
+        with trace.span("viewer.request"), lock, torch.no_grad():
             st, _, _ = state_fn()
             out = render_model(st, orbit_camera(az, el, r, center, size, device), RENDER_STEP, cfg)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            t1 = time.perf_counter()
-            if want_depth and out.depth is not None:
-                img = apply_depth_colormap(out.depth.cpu().numpy(), out.alpha.cpu().numpy())
-            else:
-                img = np.clip(out.rgb.cpu().numpy(), 0, 1)
-            img = (img * 255).astype(np.uint8)
-            t2 = time.perf_counter()
-            body = encode_jpeg(img, JPEG_QUALITY)
-            t3 = time.perf_counter()
-            timings.append({"render": (t1 - t0) * 1e3, "copy": (t2 - t1) * 1e3, "encode": (t3 - t2) * 1e3})
-            return body
+            with trace.span("viewer.to_host", sync=True):
+                if want_depth and out.depth is not None:
+                    img = apply_depth_colormap(out.depth.cpu().numpy(), out.alpha.cpu().numpy())
+                else:
+                    img = np.clip(out.rgb.cpu().numpy(), 0, 1)
+                img = (img * 255).astype(np.uint8)
+            with trace.span("viewer.encode"):
+                return encode_jpeg(img, JPEG_QUALITY)
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):
@@ -177,7 +170,6 @@ def serve(state: Optional[GaussianState] = None, model_cfg: Optional[SplatModelC
 
     httpd = ThreadingHTTPServer(("0.0.0.0", port), Handler)
     httpd.daemon_threads = True
-    httpd.timings = timings
     print(f"viewer at http://localhost:{httpd.server_address[1]}/")
     return httpd
 

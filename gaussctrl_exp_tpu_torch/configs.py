@@ -64,6 +64,9 @@ class GaussCtrlConfig:
     seed: int = 42
     capacity: int = 1 << 17
     viewer_port: int = 0  # >0: serve the live viewer during training
+    # record the program's spans and counters (utils/trace.py) through the
+    # run, written to logs/spans.jsonl and logs/trace_summary.json at its end
+    trace: bool = False
     device: str = "cuda"
     pipeline: PipelineConfig = PipelineConfig()
     train: TrainConfig = TrainConfig()

@@ -36,6 +36,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils import trace
 from .attention import make_cross_view_processor
 from .correspondence import build_correspondence_tables, make_multires_epipolar_processor
 from .geometry import depth_to_world_points, scaled_camera
@@ -168,7 +169,8 @@ class GaussCtrlEditPipeline:
 
     # ------------------------------------------------------------------
     def _encode(self, texts: list[str]) -> torch.Tensor:
-        return encode_prompt_ids(self.models, self.tokenize(texts))
+        with trace.span("sd.text"):
+            return encode_prompt_ids(self.models, self.tokenize(texts))
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
@@ -191,24 +193,30 @@ class GaussCtrlEditPipeline:
             if resume and self._try_resume_sidecars(datamanager, idx, root):
                 print(f"[render_reverse] view {idx+1}/{len(datamanager)} (sidecar)", end="\r")
                 continue
-            with torch.no_grad():
-                out = render_model(GaussianState(gs.params, gs.alive), datamanager.camera(idx),
-                                   EVAL_STEP, model_cfg)
-            rgb = np.clip(out.rgb.float().cpu().numpy(), 0, 1)
-            depth = out.depth[..., 0].float().cpu().numpy()
-            disparity = depth_to_disparity(depth)
-            latents = self.pipe.image_to_latent(self._tensor(rgb)[None])
-            z0 = self.pipe.invert(latents, rev_ctx, self._tensor(disparity)[None],
-                                  cfgp.num_inference_steps, cfgp.controlnet_conditioning_scale)
-            self.unedited[idx] = rgb
-            self.depths[idx] = depth
-            self.disparity[idx] = disparity
-            self.z0[idx] = z0[0].cpu().numpy()
-            self.n_inversions += 1
-            if self.mask_provider is not None and cfgp.langsam_obj:
-                self.masks[idx] = np.asarray(self.mask_provider(rgb, cfgp.langsam_obj), np.float32)
-            if root is not None:
-                self._write_sidecars(datamanager, idx, root, depth)
+            with trace.span("invert.view", unit=idx):
+                camera = datamanager.camera(idx)
+                with torch.no_grad():
+                    out = render_model(GaussianState(gs.params, gs.alive), camera, EVAL_STEP, model_cfg)
+                with trace.span("invert.to_host", unit=idx, sync=True):
+                    rgb = np.clip(out.rgb.float().cpu().numpy(), 0, 1)
+                    depth = out.depth[..., 0].float().cpu().numpy()
+                disparity = depth_to_disparity(depth)
+                latents = self.pipe.image_to_latent(self._tensor(rgb)[None])
+                z0 = self.pipe.invert(latents, rev_ctx, self._tensor(disparity)[None],
+                                      cfgp.num_inference_steps, cfgp.controlnet_conditioning_scale)
+                with trace.span("invert.z0_to_host", unit=idx, sync=True):
+                    self.z0[idx] = z0[0].cpu().numpy()
+                trace.count("invert.views")
+                self.unedited[idx] = rgb
+                self.depths[idx] = depth
+                self.disparity[idx] = disparity
+                self.n_inversions += 1
+                if self.mask_provider is not None and cfgp.langsam_obj:
+                    with trace.span("invert.mask", unit=idx):
+                        self.masks[idx] = np.asarray(self.mask_provider(rgb, cfgp.langsam_obj), np.float32)
+                if root is not None:
+                    with trace.span("invert.sidecars", unit=idx):
+                        self._write_sidecars(datamanager, idx, root, depth)
             print(f"[render_reverse] view {idx+1}/{len(datamanager)}", end="\r")
         print()
 
@@ -262,21 +270,28 @@ class GaussCtrlEditPipeline:
 
         for c0 in range(0, V, cfgp.chunk_size):
             chunk = list(range(c0, min(c0 + cfgp.chunk_size, V)))
-            z0 = self._tensor(np.concatenate([ref_z0, np.stack([self.z0[i] for i in chunk])]))
-            hint = self._tensor(np.concatenate([ref_disp, np.stack([self.disparity[i] for i in chunk])]))
-            B = z0.shape[0]
-            processor = self._make_processor(self._chunk_geometry(datamanager, ref_indices + chunk))
-            latents = self.pipe.generate(
-                z0, pos_ctx.expand(B, -1, -1), neg_ctx.expand(B, -1, -1), hint,
-                cfgp.guidance_scale, cfgp.num_inference_steps,
-                cfgp.controlnet_conditioning_scale, processor=processor,
-            )
-            images = self.pipe.latent_to_image(latents).float().cpu().numpy()[len(ref_indices):]
-            for bi, view in enumerate(chunk):
-                edited = images[bi]
-                if view in self.masks:
-                    m = self.masks[view][..., None]
-                    edited = edited * m + self.unedited[view] * (1 - m)
-                datamanager.write_back(view, edited)
+            ci = c0 // cfgp.chunk_size
+            with trace.span("edit.chunk", unit=ci):
+                with trace.span("edit.prepare", unit=ci):
+                    z0 = self._tensor(np.concatenate([ref_z0, np.stack([self.z0[i] for i in chunk])]))
+                    hint = self._tensor(np.concatenate([ref_disp, np.stack([self.disparity[i] for i in chunk])]))
+                    B = z0.shape[0]
+                    processor = self._make_processor(self._chunk_geometry(datamanager, ref_indices + chunk))
+                latents = self.pipe.generate(
+                    z0, pos_ctx.expand(B, -1, -1), neg_ctx.expand(B, -1, -1), hint,
+                    cfgp.guidance_scale, cfgp.num_inference_steps,
+                    cfgp.controlnet_conditioning_scale, processor=processor,
+                )
+                images = self.pipe.latent_to_image(latents)
+                with trace.span("edit.to_host", unit=ci, sync=True):
+                    images = images.float().cpu().numpy()[len(ref_indices):]
+                trace.count("edit.chunks")
+                with trace.span("edit.write_back", unit=ci):
+                    for bi, view in enumerate(chunk):
+                        edited = images[bi]
+                        if view in self.masks:
+                            m = self.masks[view][..., None]
+                            edited = edited * m + self.unedited[view] * (1 - m)
+                        datamanager.write_back(view, edited)
             print(f"[edit_images] {min(c0 + cfgp.chunk_size, V)}/{V} views", end="\r")
         print()

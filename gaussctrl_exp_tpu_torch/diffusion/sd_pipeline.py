@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..utils import trace
 from .controlnet import ControlNet
 from .layers import cast_keeping_norms
 from .schedulers import DDIMInverseScheduler, DDIMScheduler, SchedulerConfig
@@ -170,35 +171,41 @@ class SDControlNetPipeline:
     @torch.no_grad()
     def _eps(self, latents, t, ctx, hint, cond_scale, processor=None) -> torch.Tensor:
         """ε of the UNet with the ControlNet's residuals, NHWC in and out."""
-        lat, hint_c = _nchw(latents), _nchw(hint)
-        down_res, mid_res = self.m.controlnet(lat, t, ctx, hint_c, cond_scale, processor=processor)
-        eps = self.m.unet(lat, t, ctx, processor=processor, controlnet_residuals=(down_res, mid_res))
-        return _nhwc(eps)
+        with trace.span("sd.eps", device=latents.device):
+            lat, hint_c = _nchw(latents), _nchw(hint)
+            with trace.span("sd.controlnet"):
+                down_res, mid_res = self.m.controlnet(lat, t, ctx, hint_c, cond_scale, processor=processor)
+            with trace.span("sd.unet"):
+                eps = self.m.unet(lat, t, ctx, processor=processor, controlnet_residuals=(down_res, mid_res))
+            return _nhwc(eps)
 
     @torch.no_grad()
     def image_to_latent(self, images: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, H, W, 3) in [0, 1] → scaled latents (B, H/8, W/8, 4)."""
-        x = images.float() * 2.0 - 1.0
-        return _nhwc(self.m.vae.encode(_nchw(x), generator))
+        with trace.span("sd.encode", device=images.device):
+            x = images.float() * 2.0 - 1.0
+            return _nhwc(self.m.vae.encode(_nchw(x), generator))
 
     @torch.no_grad()
     def latent_to_image(self, latents: torch.Tensor) -> torch.Tensor:
         """(B, h, w, 4) latents → (B, 8h, 8w, 3) images in [0, 1], in the
         models' type."""
-        x = self.m.vae.decode(_nchw(latents))
-        return _nhwc(torch.clamp(x * 0.5 + 0.5, 0.0, 1.0))
+        with trace.span("sd.decode", device=latents.device):
+            x = self.m.vae.decode(_nchw(latents))
+            return _nhwc(torch.clamp(x * 0.5 + 0.5, 0.0, 1.0))
 
     @torch.no_grad()
     def invert(self, latents, ctx, hint, num_steps: int = 20, cond_scale: float = 1.0,
                processor=None) -> torch.Tensor:
         """DDIM inversion at guidance 0; float32 carry."""
         ts = self.inverse_scheduler.set_timesteps(num_steps)
-        lat = latents.float()
-        for t in ts:
-            tt = torch.full((lat.shape[0],), int(t), dtype=torch.long, device=lat.device)
-            eps = self._eps(lat, tt, ctx, hint, cond_scale, processor)
-            lat = self.inverse_scheduler.step(eps, int(t), lat)
-        return lat
+        with trace.span("sd.invert"):
+            lat = latents.float()
+            for t in ts:
+                tt = torch.full((lat.shape[0],), int(t), dtype=torch.long, device=lat.device)
+                eps = self._eps(lat, tt, ctx, hint, cond_scale, processor)
+                lat = self.inverse_scheduler.step(eps, int(t), lat)
+            return lat
 
     @torch.no_grad()
     def generate(self, latents, ctx_cond, ctx_uncond, hint, guidance_scale: float,
@@ -207,14 +214,15 @@ class SDControlNetPipeline:
         together (the doubled batch the cross-view processor's
         ``unet_chunk_size=2`` accounts for); float32 carry."""
         ts = self.scheduler.set_timesteps(num_steps)
-        lat = latents.float()
-        B = lat.shape[0]
-        ctx2 = torch.cat([ctx_uncond, ctx_cond], dim=0)
-        hint2 = torch.cat([hint, hint], dim=0)
-        for t in ts:
-            tt = torch.full((2 * B,), int(t), dtype=torch.long, device=lat.device)
-            eps2 = self._eps(torch.cat([lat, lat], dim=0), tt, ctx2, hint2, cond_scale, processor)
-            eps_u, eps_c = eps2.chunk(2, dim=0)
-            eps = eps_u + guidance_scale * (eps_c - eps_u)
-            lat = self.scheduler.step(eps, int(t), lat)
-        return lat
+        with trace.span("sd.generate"):
+            lat = latents.float()
+            B = lat.shape[0]
+            ctx2 = torch.cat([ctx_uncond, ctx_cond], dim=0)
+            hint2 = torch.cat([hint, hint], dim=0)
+            for t in ts:
+                tt = torch.full((2 * B,), int(t), dtype=torch.long, device=lat.device)
+                eps2 = self._eps(torch.cat([lat, lat], dim=0), tt, ctx2, hint2, cond_scale, processor)
+                eps_u, eps_c = eps2.chunk(2, dim=0)
+                eps = eps_u + guidance_scale * (eps_c - eps_u)
+                lat = self.scheduler.step(eps, int(t), lat)
+            return lat

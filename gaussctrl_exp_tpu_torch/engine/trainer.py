@@ -27,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import warnings
-from typing import Callable, Optional
+from typing import Optional
 
 import torch
 
@@ -37,6 +37,7 @@ from ..models.densify import DensifyConfig, DensifyStats, accumulate_stats, refi
 from ..models.gaussians import PARAM_NAMES, GaussianParams, GaussianState
 from ..models.splat_model import SplatModelConfig, render_model
 from ..ops.ssim import psnr, splatfacto_loss, ssim
+from ..utils import trace
 from .optimizers import MultiStepAdam, ScheduledAdam, exp_decay, make_gaussian_optimizer
 
 
@@ -111,17 +112,14 @@ def sample_patches(generator: torch.Generator, a: torch.Tensor, b: torch.Tensor,
     return a[iy, ix], b[iy, ix]
 
 
-def make_train_step(cfg: TrainConfig, lpips: Optional[torch.nn.Module] = None,
-                    on_stage: Optional[Callable[[str], None]] = None):
+def make_train_step(cfg: TrainConfig, lpips: Optional[torch.nn.Module] = None):
     """``lpips``: an optional ``ops.lpips.LPIPS`` (``load_lpips`` at
     deployment, ``lpips_random`` in tests) that enables the patch-LPIPS term
-    when ``cfg.use_lpips``. ``on_stage``: an optional callback, called with
-    the name of each stage as it ends ("render", "loss", "backward",
-    "optimizer", "stats"); ``chip_smoke.py`` records CUDA events there.
-    Returns ``train_step(state, camera, gt, view_idx)``, which updates
-    ``state`` in place and returns the step's metrics as 0-d tensors
-    (``n_isects`` as an int)."""
-    mark = on_stage or (lambda name: None)
+    when ``cfg.use_lpips``. Returns ``train_step(state, camera, gt,
+    view_idx)``, which updates ``state`` in place and returns the step's
+    metrics as 0-d tensors (``n_isects`` as an int). Its stages are the
+    device spans "train.render", "train.loss", "train.backward",
+    "train.optimizer" and "train.stats" (``utils/trace.py``)."""
     if cfg.use_lpips and lpips is None:
         warnings.warn(
             "use_lpips=True (the reference default) but no VGG/LPIPS weights "
@@ -139,38 +137,39 @@ def make_train_step(cfg: TrainConfig, lpips: Optional[torch.nn.Module] = None,
         if use_cam:
             state.cam_deltas.grad = None
 
-        out = render_model(GaussianState(params, state.alive), cam, state.step, cfg.model,
-                           training=True, generator=state.generator, xys_offset=xys_offset)
-        mark("render")
-        loss, metrics = splatfacto_loss(out.rgb, gt, cfg.ssim_lambda)
-        if cfg.use_lpips and lpips is not None:
-            pp, gp = sample_patches(state.generator, out.rgb, gt, cfg.patch_size, cfg.lpips_patches)
-            lp = lpips(pp, gp).mean()
-            loss = loss + cfg.lpips_loss_mult * lp
-            metrics = dict(metrics, lpips=lp, main_loss=loss)
-        mark("loss")
-        loss.backward()
-        mark("backward")
+        dev = params.means.device
+        with trace.span("train.render", unit=state.step, device=dev):
+            out = render_model(GaussianState(params, state.alive), cam, state.step, cfg.model,
+                               training=True, generator=state.generator, xys_offset=xys_offset)
+        with trace.span("train.loss", unit=state.step, device=dev):
+            loss, metrics = splatfacto_loss(out.rgb, gt, cfg.ssim_lambda)
+            if cfg.use_lpips and lpips is not None:
+                pp, gp = sample_patches(state.generator, out.rgb, gt, cfg.patch_size, cfg.lpips_patches)
+                lp = lpips(pp, gp).mean()
+                loss = loss + cfg.lpips_loss_mult * lp
+                metrics = dict(metrics, lpips=lp, main_loss=loss)
+        with trace.span("train.backward", unit=state.step, device=dev):
+            loss.backward()
 
-        # a group outside the graph (features_rest at sh_degree 0) still takes
-        # an Adam update with a zero gradient, as optax does
-        total_sq = 0.0
-        for name in PARAM_NAMES:
-            p = getattr(params, name)
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            sq = (p.grad * p.grad).sum()
-            metrics[f"Gradients/{name}"] = torch.sqrt(sq)
-            total_sq = total_sq + sq
-        metrics["Gradients/Total"] = torch.sqrt(total_sq)
-        state.optimizer.step()
-        if use_cam:
-            state.cam_optimizer.step()
-        mark("optimizer")
+        with trace.span("train.optimizer", unit=state.step, device=dev):
+            # a group outside the graph (features_rest at sh_degree 0) still
+            # takes an Adam update with a zero gradient, as optax does
+            total_sq = 0.0
+            for name in PARAM_NAMES:
+                p = getattr(params, name)
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                sq = (p.grad * p.grad).sum()
+                metrics[f"Gradients/{name}"] = torch.sqrt(sq)
+                total_sq = total_sq + sq
+            metrics["Gradients/Total"] = torch.sqrt(total_sq)
+            state.optimizer.step()
+            if use_cam:
+                state.cam_optimizer.step()
 
-        img_max_dim = float(max(camera.width, camera.height))
-        accumulate_stats(state.stats, xys_offset.grad, out.render.proj.radii, img_max_dim)
-        mark("stats")
+        with trace.span("train.stats", unit=state.step, device=dev):
+            img_max_dim = float(max(camera.width, camera.height))
+            accumulate_stats(state.stats, xys_offset.grad, out.render.proj.radii, img_max_dim)
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["n_isects"] = out.render.bins.n_isects
@@ -246,20 +245,21 @@ class Trainer:
         for _ in range(num_steps):
             with self._turn:  # waiting snapshots go first
                 self._turn.wait_for(lambda: self._readers == 0)
-            with self.lock:
+            dev = self.state.alive.device
+            with self.lock, trace.span("train.step", unit=self.step, device=dev):
                 metrics = self._step(d)
             if self.step % log_every == 0 or self.step == 1:
-                names = [k for k, v in metrics.items() if torch.is_tensor(v)]
-                values = torch.stack([metrics[k].float() for k in names] + [self.state.alive.sum().float()])
-                values = values.tolist()  # one device sync
-                m = dict(zip(names, values))
-                m["n_isects"] = metrics["n_isects"]
-                m["step"] = self.step
-                m["n_alive"] = int(values[-1])
-                dev = self.state.alive.device
-                if dev.type == "cuda":
-                    m["Device Memory (MB)"] = round(torch.cuda.memory_allocated(dev) / 2**20, 1)
-                self.history.append(m)
+                with trace.span("train.log", unit=self.step, sync=True):
+                    names = [k for k, v in metrics.items() if torch.is_tensor(v)]
+                    values = torch.stack([metrics[k].float() for k in names] + [self.state.alive.sum().float()])
+                    values = values.tolist()  # one device sync
+                    m = dict(zip(names, values))
+                    m["n_isects"] = metrics["n_isects"]
+                    m["step"] = self.step
+                    m["n_alive"] = int(values[-1])
+                    if dev.type == "cuda":
+                        m["Device Memory (MB)"] = round(torch.cuda.memory_allocated(dev) / 2**20, 1)
+                    self.history.append(m)
                 if callback:
                     callback(m)
         return self.state
@@ -279,12 +279,13 @@ class Trainer:
             reset_interval = d.reset_alpha_every * d.refine_every
             pos = self.step % reset_interval
             do_densify = self.step < d.stop_split_at and pos > len(self.dm) + d.refine_every
-            if do_densify:
-                self.refine_step(self.state)
-            elif self.step >= d.stop_split_at and d.continue_cull_post_densification:
-                self.refine_step(self.state)  # cull-only
+            dev = self.state.alive.device
+            if do_densify or (self.step >= d.stop_split_at and d.continue_cull_post_densification):
+                with trace.span("train.refine", unit=self.step, device=dev):  # cull-only after stop_split_at
+                    self.refine_step(self.state)
             if self.step < d.stop_split_at and pos == d.refine_every:
-                self.reset_opacity_step(self.state)
+                with trace.span("train.reset_opacity", unit=self.step, device=dev):
+                    self.reset_opacity_step(self.state)
         return metrics
 
     @torch.no_grad()

@@ -68,7 +68,8 @@ class EventWriter:
 
 class Profiler:
     """``torch.profiler`` wrapper: ``start``/``stop`` around a window writes
-    a Chrome trace to ``<log_dir>/profile/trace.json``."""
+    a Chrome trace to ``<log_dir>/profile/trace.json``, which holds the
+    program's spans as ``gc.<name>`` ranges (``utils/trace.py``)."""
 
     def __init__(self, log_dir: str | Path, enabled: bool = False):
         self.log_dir = Path(log_dir) / "profile"
@@ -91,8 +92,3 @@ class Profiler:
             self.log_dir.mkdir(parents=True, exist_ok=True)
             self._prof.export_chrome_trace(str(self.log_dir / "trace.json"))
             self._prof = None
-
-    def annotate(self, name: str):
-        import torch
-
-        return torch.profiler.record_function(name)

@@ -16,6 +16,7 @@ import torch
 from ..cameras import Camera, projection_matrix_ogl, view_matrix
 from ..ops.renderer import RenderConfig, RenderOutputs, render
 from ..ops.sh import eval_sh
+from ..utils import trace
 from .gaussians import GaussianParams, GaussianState
 
 
@@ -83,27 +84,30 @@ def render_model(
 ) -> ModelOutputs:
     params = state.params
     dev = params.means.device
-    background = (
-        background_override
-        if background_override is not None
-        else pick_background(cfg, training, generator, dev)
-    )
-    colors = model_colors(params, camera, step, cfg)
-    extra_mask = state.alive if crop_mask is None else (state.alive & crop_mask)
-    # the training loss reads only rgb, so training drops the depth channel
-    rcfg = dataclasses.replace(cfg.render, render_depth=False) if training else cfg.render
-    out = render(
-        params.means,
-        torch.exp(params.scales),
-        params.quats,
-        colors,
-        torch.sigmoid(params.opacities[:, 0]),
-        camera,
-        background,
-        rcfg,
-        extra_mask=extra_mask,
-        xys_offset=xys_offset,
-    )
+    with trace.span("render.frame", device=dev):
+        background = (
+            background_override
+            if background_override is not None
+            else pick_background(cfg, training, generator, dev)
+        )
+        with trace.span("render.sh"):
+            colors = model_colors(params, camera, step, cfg)
+        extra_mask = state.alive if crop_mask is None else (state.alive & crop_mask)
+        # the training loss reads only rgb, so training drops the depth channel
+        rcfg = dataclasses.replace(cfg.render, render_depth=False) if training else cfg.render
+        out = render(
+            params.means,
+            torch.exp(params.scales),
+            params.quats,
+            colors,
+            torch.sigmoid(params.opacities[:, 0]),
+            camera,
+            background,
+            rcfg,
+            extra_mask=extra_mask,
+            xys_offset=xys_offset,
+        )
+    trace.count("render.frames")
     return ModelOutputs(
         rgb=out.rgb,
         alpha=out.alpha,

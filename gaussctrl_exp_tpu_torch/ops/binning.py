@@ -22,6 +22,7 @@ import dataclasses
 
 import torch
 
+from ..utils import trace
 from .projection import ProjectedGaussians
 
 
@@ -46,7 +47,8 @@ def bin_gaussians(proj: ProjectedGaussians, tiles_x: int, tiles_y: int) -> TileB
     bbox = proj.tile_bbox[order].long()
 
     # one entry per (gaussian, tile), in depth-rank order, k-th tile row-major
-    rank = torch.repeat_interleave(torch.arange(N, device=dev), nt)
+    with trace.span("render.bin.sync", sync=True):  # the output's length is read back to the host
+        rank = torch.repeat_interleave(torch.arange(N, device=dev), nt)
     n_isects = rank.shape[0]
     first = torch.cumsum(nt, 0) - nt
     k = torch.arange(n_isects, device=dev) - first[rank]

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from ..cameras import Camera, camera_matrices
+from ..utils import trace
 from .binning import TileBins, bin_gaussians
 from .blend_cuda import rasterize_tiles
 from .projection import BLOCK, ProjectedGaussians, project_gaussians
@@ -54,21 +55,24 @@ def render(
     tiles_x = (W + BLOCK - 1) // BLOCK
     tiles_y = (H + BLOCK - 1) // BLOCK
 
-    viewmat, _, fullmat = camera_matrices(camera)
-    opacs = opacities.reshape(-1)
-    proj = project_gaussians(
-        means, scales, 1.0, quats, viewmat, fullmat,
-        camera.fx, camera.fy, camera.cx, camera.cy, H, W,
-        clip_thresh=cfg.clip_thresh, extra_mask=extra_mask, opacities=opacs,
-    )
-    bins = bin_gaussians(proj, tiles_x, tiles_y)
+    with trace.span("render.project"):
+        viewmat, _, fullmat = camera_matrices(camera)
+        opacs = opacities.reshape(-1)
+        proj = project_gaussians(
+            means, scales, 1.0, quats, viewmat, fullmat,
+            camera.fx, camera.fy, camera.cx, camera.cy, H, W,
+            clip_thresh=cfg.clip_thresh, extra_mask=extra_mask, opacities=opacs,
+        )
+    with trace.span("render.bin"):
+        bins = bin_gaussians(proj, tiles_x, tiles_y)
 
     xys = proj.xys if xys_offset is None else proj.xys + xys_offset
     chan = [colors]
     if cfg.render_depth:
         chan.append(proj.depths[:, None])
     chan = torch.cat(chan, dim=-1)
-    out = rasterize_tiles(xys, proj.conics, chan, opacs.contiguous(), bins, H, W)
+    with trace.span("render.blend", device=means.device):
+        out = rasterize_tiles(xys, proj.conics, chan, opacs.contiguous(), bins, H, W)
 
     final_T = out.final_T
     alpha = (1.0 - final_T)[..., None]

@@ -4,7 +4,8 @@ A copy of ``gaussctrl_exp_tpu/utils/cliconf.py``. The reference exposes
 every config field as a dotted flag (``--pipeline.datamanager.subset-num``)
 through tyro; this small reflection shim gives the same surface: nested
 dataclasses become dotted argparse options, underscores and dashes are
-interchangeable, and an unknown flag is refused.
+interchangeable, and an unknown flag is refused. A bool flag given alone
+(``--trace``) means True.
 """
 
 from __future__ import annotations
@@ -42,8 +43,8 @@ def add_dataclass_args(parser: argparse.ArgumentParser, cls, prefix: str = "") -
             base = _base_type(tp)
             flag = "--" + name.replace("_", "-")
             if base is bool:
-                parser.add_argument(flag, type=lambda s: s.lower() in ("1", "true", "yes"),
-                                    default=None, metavar="{True,False}")
+                parser.add_argument(flag, type=lambda s: s.lower() in ("1", "true", "yes"), nargs="?",
+                                    const=True, default=None, metavar="{True,False}")
             else:
                 parser.add_argument(flag, type=base if base is not Path else Path, default=None)
         # tuples/lists etc: skip (not used by the reference's flag surface)

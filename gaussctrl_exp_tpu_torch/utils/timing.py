@@ -17,6 +17,8 @@ from typing import Callable
 
 import torch
 
+from . import trace
+
 # H100 SXM (NVIDIA data sheet, dense rates): HBM3 bytes/s; bf16 on the
 # tensor cores and fp32 outside them, each with the SM clock it is rated at
 # (989e12 = 132 SMs × 4,096 operations a clock × 1.83 GHz, 67e12 = 132 ×
@@ -74,6 +76,15 @@ _spares = [16]
 calls_made = 0  # calls of timed functions that profile_window made, warm-ups included, since the caller set it to 0
 
 
+def device_ops(events) -> list:
+    """The profiler's device ops among ``events``: kernels, copies and sets,
+    and not the device-side marks of ``record_function`` ranges (the
+    window's, the profiler's steps, the tracer's spans)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in events if e.device_type == cuda and not getattr(e, "is_user_annotation", False)
+            and e.name != WINDOW and not e.name.startswith(("ProfilerStep", trace.PREFIX))]
+
+
 def profile_window(fn: Callable, calls: int = 1, prepare: Callable | None = None):
     """The device ops of ``calls`` calls of ``fn`` in one torch.profiler
     window that ends with a synchronize, after a warm-up cycle of the
@@ -109,10 +120,8 @@ def profile_window(fn: Callable, calls: int = 1, prepare: Callable | None = None
             torch.cuda.synchronize()
         time.sleep(PAD_S)
     events = prof.events()
-    cuda = torch.autograd.DeviceType.CUDA
-    win = next(e for e in events if e.name == WINDOW and e.device_type != cuda)
-    # the device-side marks of the window and of the profiler's step ranges are no device ops
-    dev = [e for e in events if e.device_type == cuda and e.name != WINDOW and not e.name.startswith("ProfilerStep")]
+    win = next(e for e in events if e.name == WINDOW and e.device_type != torch.autograd.DeviceType.CUDA)
+    dev = device_ops(events)
     return ([e for e in dev if SPARE not in e.name], (win.time_range.start, win.time_range.end),
             sum(SPARE in e.name for e in dev))
 

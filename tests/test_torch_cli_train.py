@@ -464,6 +464,30 @@ def test_unported_branches_raise(mini_scene, tmp_path, flag):
     assert train_cli.run(parse_config(GaussCtrlConfig, argv)[0]).viewer is None
 
 
+def test_trace_flag_writes_the_spans_and_their_summary(mini_scene, tmp_path):
+    """``--trace`` records the run's spans and counters and writes them to
+    logs/spans.jsonl and logs/trace_summary.json; the tracer is off after."""
+    from gaussctrl_exp_tpu_torch.utils import trace
+
+    argv = ["--data", str(mini_scene), "--output-dir", str(tmp_path), "--device", "cpu", *COMMON[:6],
+            "--capacity", "64", "--train.use-lpips", "False", "--experiment-name", "traced", "--trace"]
+    trainer = train_cli.main(argv)
+    assert not trace.recording()
+    logs = tmp_path / "traced" / "logs"
+    spans = [json.loads(line) for line in (logs / "spans.jsonl").read_text().splitlines()]
+    summary = json.loads((logs / "trace_summary.json").read_text())
+    steps = [s for s in spans if s["name"] == "train.step"]
+    assert [s["unit"] for s in steps] == list(range(trainer.step)) == [0, 1, 2, 3]
+    by_id = {s["id"]: s for s in spans}
+    renders = [s for s in spans if s["name"] == "train.render"]
+    assert len(renders) == 4 and all(by_id[s["parent"]]["name"] == "train.step" for s in renders)
+    assert summary["spans"]["train.step"]["count"] == 4 and summary["dropped"] == 0
+    # 4 steps, then 2 eval images and 2 × 3 eval views
+    assert summary["counters"]["render.frames"] == 4 + 2 + 2 * 3
+    assert summary["spans"]["train.log"]["count"] == 1  # step 1 (log_every 50)
+    trace.reset()
+
+
 def test_train_cli_refuses_a_missing_card(mini_scene, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present, so cuda is not refused")
@@ -516,9 +540,13 @@ def test_event_writer_and_profiler(tmp_path, monkeypatch):
     w.put_scalars(1, {"l1": 1.0})
     w.close()
 
+    # the Chrome trace holds the program's spans as gc.* ranges
+    from gaussctrl_exp_tpu_torch.utils import trace
+
     prof = Profiler(tmp_path / "logs", enabled=True)
     prof.start()
-    with prof.annotate("step"):
+    with trace.span("writer.test"):
         torch.ones(8).sum()
     prof.stop()
-    assert '"step"' in (tmp_path / "logs" / "profile" / "trace.json").read_text()
+    trace.reset()
+    assert '"gc.writer.test"' in (tmp_path / "logs" / "profile" / "trace.json").read_text()

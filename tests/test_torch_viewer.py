@@ -32,6 +32,7 @@ from gaussctrl_exp_tpu_torch.engine.trainer import TrainConfig, Trainer
 from gaussctrl_exp_tpu_torch.models.densify import DensifyConfig
 from gaussctrl_exp_tpu_torch.models.gaussians import PARAM_NAMES, GaussianState, params_from_numpy
 from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig, render_model
+from gaussctrl_exp_tpu_torch.utils import trace
 from test_torch_train import FakeDataManager
 from test_torch_render_cli import _params
 from torch_one_thread import one_torch_thread  # noqa: F401  (fixture)
@@ -67,6 +68,8 @@ def test_static_viewer_routes_match_the_render_and_the_jax_viewer():
     state = _state(arrays)
     httpd = viewer.serve(state, cfg, port=0, size=SIZE, device="cpu")
     port = httpd.server_address[1]
+    trace.reset()
+    trace.enable()
     jcfg = JModelConfig(background_color="white", render=JRenderConfig(impl="jnp", isect_capacity=1 << 14))
     import jax.numpy as jnp
 
@@ -100,8 +103,17 @@ def test_static_viewer_routes_match_the_render_and_the_jax_viewer():
             _get(port, "/nothing")
         with pytest.raises(urllib.error.HTTPError, match="404"):
             _post(port, "/reset")  # no on_reset in a checkpoint view
-        assert len(httpd.timings) == 2 and set(httpd.timings[0]) == {"render", "copy", "encode"}
+        # each /render request is a span around the render, the copy to the host and the encode
+        spans = trace.records()
+        requests = [r for r in spans if r.name == "viewer.request"]
+        assert len(requests) == 2 and not any(r.error for r in requests)
+        for req in requests:
+            kids = [r for r in spans if r.parent == req.id]
+            assert [r.name for r in kids] == ["render.frame", "viewer.to_host", "viewer.encode"]
+            assert kids[1].sync and sum(r.host_ms for r in kids) <= req.host_ms
     finally:
+        trace.disable()
+        trace.reset()
         httpd.shutdown()
         jhttpd.shutdown()
 
