@@ -6,10 +6,18 @@ Port of ``gaussctrl_exp_tpu/diffusion/sd_pipeline.py``. The JAX package's
 whatever the models' type. The public functions keep the JAX package's
 NHWC shapes (images (B, H, W, 3), latents (B, h, w, 4)); the models run NCHW
 inside. Every method runs without autograd.
+
+On the card, an ε evaluation with no attention processor (the inversion, the
+inpainting loop) replays a CUDA graph of the ControlNet + UNet captured once
+per input signature: at B = 1 a step is ~1,900 small launches, which the
+host dispatches slower than the device runs them. A call with a processor
+(the cross-view generation, whose processors are rebuilt per chunk) and
+every CPU call run eagerly.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable, Optional
 
@@ -18,6 +26,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..ops import attention_cuda
 from ..utils import trace
 from .controlnet import ControlNet
 from .layers import cast_keeping_norms
@@ -160,6 +169,60 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+EPS_GRAPHS = 4  # ε graphs a pipeline keeps: the inversion's B = 1, inpainting's CFG B = 2, two spare
+
+
+def eps_graphed(device: torch.device, processor) -> bool:
+    """Whether an ε evaluation on ``device`` with ``processor`` replays a
+    CUDA graph: only without a processor (one built per chunk may hold
+    per-chunk geometry) and on the card."""
+    return processor is None and device.type == "cuda"
+
+
+def eps_graph_key(latents, t, ctx, hint, cond_scale: float) -> tuple:
+    """What an ε graph is captured for: the device, the shape and dtype of
+    each input, the ControlNet's scale (baked into the graph), and the TF32
+    switches that choose the float32 convolutions and products."""
+    return (latents.device, *((tuple(x.shape), x.dtype) for x in (latents, t, ctx, hint)), float(cond_scale),
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+
+
+@dataclasses.dataclass
+class EpsGraph:
+    graph: "torch.cuda.CUDAGraph"
+    inputs: tuple  # the static latents, t, ctx and hint the graph reads
+    output: torch.Tensor  # the static NHWC ε it writes
+    launches: int  # B3 launches in the graph
+    copies: int  # inputs B3's wrapper copied in it
+
+
+class GraphCache:
+    """At most ``size`` graphs by key, the least recently used dropped
+    first, all in one memory pool. ``params`` fingerprints the parameters
+    the graphs read: when a lookup brings another, every graph is dropped."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.entries: collections.OrderedDict = collections.OrderedDict()
+        self.params = None
+        self.pool = None  # torch.cuda.graph_pool_handle(), taken at the first capture
+
+    def get(self, key, params):
+        if params != self.params:
+            self.entries.clear()
+            self.params, self.pool = params, None
+            return None
+        entry = self.entries.get(key)
+        if entry is not None:
+            self.entries.move_to_end(key)
+        return entry
+
+    def put(self, key, entry) -> None:
+        self.entries[key] = entry
+        if len(self.entries) > self.size:
+            self.entries.popitem(last=False)
+
+
 class SDControlNetPipeline:
     """Deterministic DDIM inversion + CFG generation with ControlNet hints."""
 
@@ -167,17 +230,78 @@ class SDControlNetPipeline:
         self.m = models
         self.scheduler = DDIMScheduler(sched_cfg)
         self.inverse_scheduler = DDIMInverseScheduler(sched_cfg)
+        self.graphs = GraphCache(EPS_GRAPHS)
+        self._params = (None, None, [])  # the UNet, the ControlNet and their parameters
+
+    def param_ptrs(self) -> tuple:
+        """The models and the storage of each of their parameters: what the
+        graphs read. A parameter moved or cast (``p.data = ...``, ``.to``)
+        or a model replaced changes it; weights copied in place
+        (``load_state_dict``) do not, and the graphs read them as they are."""
+        unet, cn = self.m.unet, self.m.controlnet
+        if self._params[0] is not unet or self._params[1] is not cn:
+            self._params = (unet, cn, [*unet.parameters(), *cn.parameters()])
+        return (id(unet), id(cn), *(p.data_ptr() for p in self._params[2]))
 
     @torch.no_grad()
     def _eps(self, latents, t, ctx, hint, cond_scale, processor=None) -> torch.Tensor:
-        """ε of the UNet with the ControlNet's residuals, NHWC in and out."""
+        """ε of the UNet with the ControlNet's residuals, NHWC in and out:
+        replayed from the graph of the inputs' signature where
+        ``eps_graphed``, captured at the signature's first call; else eager.
+        A replay returns a copy of the graph's output, so ε outlives the
+        next call."""
         with trace.span("sd.eps", device=latents.device):
-            lat, hint_c = _nchw(latents), _nchw(hint)
-            with trace.span("sd.controlnet"):
-                down_res, mid_res = self.m.controlnet(lat, t, ctx, hint_c, cond_scale, processor=processor)
-            with trace.span("sd.unet"):
-                eps = self.m.unet(lat, t, ctx, processor=processor, controlnet_residuals=(down_res, mid_res))
-            return _nhwc(eps)
+            if not eps_graphed(latents.device, processor):
+                trace.count("sd.eps.eager")
+                return self._eps_eager(latents, t, ctx, hint, cond_scale, processor)
+            key = eps_graph_key(latents, t, ctx, hint, cond_scale)
+            g = self.graphs.get(key, self.param_ptrs())
+            if g is None:
+                trace.count("sd.eps.graph_capture")
+                return self._capture(key, latents, t, ctx, hint, cond_scale)
+            trace.count("sd.eps.graph_replay")
+            for buf, x in zip(g.inputs, (latents, t, ctx, hint)):
+                buf.copy_(x)
+            g.graph.replay()
+            attention_cuda.launches += g.launches
+            attention_cuda.copies += g.copies
+            return g.output.clone()
+
+    def _eps_eager(self, latents, t, ctx, hint, cond_scale, processor=None) -> torch.Tensor:
+        lat, hint_c = _nchw(latents), _nchw(hint)
+        with trace.span("sd.controlnet"):
+            down_res, mid_res = self.m.controlnet(lat, t, ctx, hint_c, cond_scale, processor=processor)
+        with trace.span("sd.unet"):
+            eps = self.m.unet(lat, t, ctx, processor=processor, controlnet_residuals=(down_res, mid_res))
+        return _nhwc(eps)
+
+    def _capture(self, key, latents, t, ctx, hint, cond_scale) -> torch.Tensor:
+        """Warm up on a side stream (B3's library loaded, its kernel
+        attributes and every library's plans and workspaces set), capture
+        the evaluation of static copies of the inputs into the graphs'
+        pool, and return the warm-up's ε: B3's counters count only the
+        warm-up's launches, as an eager call's."""
+        dev = latents.device
+        inputs = tuple(x.clone(memory_format=torch.contiguous_format) for x in (latents, t, ctx, hint))
+        main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.device(dev), torch.cuda.stream(side):
+            eps = self._eps_eager(*inputs, cond_scale)
+            if self.graphs.pool is None:
+                self.graphs.pool = torch.cuda.graph_pool_handle()
+            launches, copies = attention_cuda.launches, attention_cuda.copies
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: the viewer's thread may render (allocate, copy to
+            # the host) while this one captures; "global" would fail its calls.
+            # No thread may draw from the default CUDA generator meanwhile:
+            # the capture takes it over (the viewer draws nothing)
+            with torch.cuda.graph(graph, pool=self.graphs.pool, stream=side, capture_error_mode="thread_local"):
+                out = self._eps_eager(*inputs, cond_scale)
+            captured = attention_cuda.launches - launches, attention_cuda.copies - copies
+            attention_cuda.launches, attention_cuda.copies = launches, copies
+        main.wait_stream(side)
+        self.graphs.put(key, EpsGraph(graph, inputs, out, *captured))
+        return eps
 
     @torch.no_grad()
     def image_to_latent(self, images: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Kernels B1 and B2 (the CUDA tile blend and its backward), B3 (the
 flash-attention forward), B4, B5 (its backward) and B1v (the blend-forward
-ablations) against their plain PyTorch versions.
+ablations) against their plain PyTorch versions; and the CUDA graph of the
+edit path's ControlNet + UNet evaluation against its eager calls.
 
 Needs an NVIDIA card and nvcc; without a card every test here skips, but
 for two host tests of the card machine's toolchain: the data loader's native
@@ -1144,3 +1145,168 @@ def test_jpeg_encoder_on_a_frame_read_back_from_the_card(cuda_device):
     assert data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
     back = native.decode_jpeg(data).astype(np.float64)
     assert 10 * np.log10(255.0**2 / np.mean((back - frame) ** 2)) >= 30.0
+
+
+# ------------------------------------- the CUDA graph of the ControlNet + UNet
+
+SD_TINY = dict(block_out=(32, 64), vae_block_out=(32, 32, 32, 32), heads=2, cross_dim=32, layers_per_block=1)
+
+
+@pytest.fixture
+def tracing():
+    from gaussctrl_exp_tpu_torch.utils import trace
+
+    trace.reset(trace.CAPACITY)
+    trace.enable()
+    yield trace
+    trace.disable()
+    trace.reset(trace.CAPACITY)
+
+
+def _sd_inputs(device, B=1, h=16, cross=32, seed=0):
+    """Latents (B, h, h, 4), t (B,), text states (B, 77, cross), hint (B, 8h, 8h, 3)."""
+    g = torch.Generator().manual_seed(seed)
+    lat = torch.randn((B, h, h, 4), generator=g).to(device)
+    t = torch.full((B,), 501, dtype=torch.long, device=device)
+    ctx = torch.randn((B, 77, cross), generator=g).to(device)
+    hint = torch.rand((B, 8 * h, 8 * h, 3), generator=g).to(device)
+    return lat, t, ctx, hint
+
+
+def _tiny_sd_pipe(device, dtype):
+    from gaussctrl_exp_tpu_torch.diffusion.sd_pipeline import SDControlNetPipeline, init_random_models
+
+    return SDControlNetPipeline(init_random_models(7, device, dtype, **SD_TINY))
+
+
+def _b3_launches(fn):
+    """``fn()`` and the B3 launches it counted, after the device finished."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    before = attention_cuda.launches
+    out = fn()
+    torch.cuda.synchronize()
+    return out, attention_cuda.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_eps_graph_invert_matches_eager_bit_for_bit(cuda_device, tracing, dtype):
+    """A 20-step inversion through the graph (captured at its first step,
+    replayed at the other 19) gives the eager inversion's z0 bit for bit
+    with as many B3 launches; a second view with new inputs replays the same
+    graph and matches too."""
+    from gaussctrl_exp_tpu_torch.diffusion.attention import default_processor
+
+    pipe = _tiny_sd_pipe(cuda_device, dtype)
+    lat, _, ctx, hint = _sd_inputs(cuda_device)
+    z_graph, n_graph = _b3_launches(lambda: pipe.invert(lat, ctx, hint, 20))
+    assert tracing.counters() == {"sd.eps.graph_capture": 1, "sd.eps.graph_replay": 19}
+    z_eager, n_eager = _b3_launches(lambda: pipe.invert(lat, ctx, hint, 20, processor=default_processor))
+    assert torch.equal(z_graph, z_eager)
+    assert n_graph == n_eager == 20 * 2 * (4 + 2)  # Transformer2D blocks: UNet 4, ControlNet 2; 2 calls each
+
+    tracing.reset()
+    lat2, _, _, hint2 = _sd_inputs(cuda_device, seed=1)
+    z2 = pipe.invert(lat2, ctx, hint2, 20)
+    assert tracing.counters() == {"sd.eps.graph_replay": 20} and len(pipe.graphs.entries) == 1
+    assert not torch.equal(z2, z_graph)
+    assert torch.equal(z2, pipe.invert(lat2, ctx, hint2, 20, processor=default_processor))
+
+
+@pytest.mark.cuda
+def test_eps_graph_recaptures_for_a_new_scale_batch_or_parameters(cuda_device, tracing):
+    from gaussctrl_exp_tpu_torch.diffusion.attention import default_processor
+
+    pipe = _tiny_sd_pipe(cuda_device, torch.bfloat16)
+    one, two = _sd_inputs(cuda_device), _sd_inputs(cuda_device, B=2, seed=2)
+    for args, scale in [(one, 1.0), (one, 1.0), (one, 0.5), (two, 1.0), (two, 1.0), (one, 0.5)]:
+        got = pipe._eps(*args, scale)
+        assert torch.equal(got, pipe._eps(*args, scale, default_processor))
+    c = tracing.counters()
+    assert (c["sd.eps.graph_capture"], c["sd.eps.graph_replay"]) == (3, 3) and len(pipe.graphs.entries) == 3
+
+    w = pipe.m.unet.conv_in.weight  # moved: the graphs read the old storage, so every one goes
+    w.data = w.data * 2
+    tracing.reset()
+    got = pipe._eps(*one, 1.0)
+    assert tracing.counters()["sd.eps.graph_capture"] == 1 and len(pipe.graphs.entries) == 1
+    got = pipe._eps(*one, 1.0)
+    assert tracing.counters()["sd.eps.graph_replay"] == 1
+    assert torch.equal(got, pipe._eps(*one, 1.0, default_processor))
+
+
+@pytest.mark.cuda
+def test_eps_graph_output_survives_the_next_replay(cuda_device):
+    pipe = _tiny_sd_pipe(cuda_device, torch.bfloat16)
+    a, b = _sd_inputs(cuda_device, seed=3), _sd_inputs(cuda_device, seed=4)
+    pipe._eps(*a, 1.0)  # capture
+    eps_a = pipe._eps(*a, 1.0)  # replay
+    kept = eps_a.clone()
+    eps_b = pipe._eps(*b, 1.0)  # replay over the same static output
+    torch.cuda.synchronize()
+    assert torch.equal(eps_a, kept) and not torch.equal(eps_a, eps_b)
+
+
+@pytest.mark.cuda
+def test_eps_graph_full_width_step_matches_eager(cuda_device):
+    """One inversion step of the SD 1.x stack at full width in bf16, B = 1
+    at 64² latents: the replay equals the eager call bit for bit, with as
+    many B3 launches (16 Transformer2D blocks in the UNet, 7 in the
+    ControlNet, 2 calls each)."""
+    from gaussctrl_exp_tpu_torch.diffusion.attention import default_processor
+    from gaussctrl_exp_tpu_torch.diffusion.sd_pipeline import SDControlNetPipeline, init_random_models
+
+    pipe = SDControlNetPipeline(init_random_models(7, cuda_device, torch.bfloat16))
+    args = _sd_inputs(cuda_device, h=64, cross=768, seed=5)
+    _, n_capture = _b3_launches(lambda: pipe._eps(*args, 1.0))
+    replay, n_replay = _b3_launches(lambda: pipe._eps(*args, 1.0))
+    eager, n_eager = _b3_launches(lambda: pipe._eps(*args, 1.0, default_processor))
+    assert torch.equal(replay, eager) and bool(torch.isfinite(eager).all())
+    assert n_capture == n_replay == n_eager == 2 * (16 + 7)
+
+
+@pytest.mark.cuda
+def test_eps_graph_captures_while_another_thread_renders(cuda_device):
+    """The viewer renders from its own thread while the edit phase inverts:
+    a thread that allocates fresh device memory, computes and copies to the
+    host all through a capture neither fails nor breaks the capture, whose
+    replays still match the eager call bit for bit. Like the viewer, it
+    draws nothing from the default CUDA generator, which every capture
+    takes over (a draw from another thread meanwhile raises)."""
+    import sys
+    import threading
+
+    from gaussctrl_exp_tpu_torch.diffusion.attention import default_processor
+
+    pipe = _tiny_sd_pipe(cuda_device, torch.bfloat16)
+    args = _sd_inputs(cuda_device, seed=6)
+    stop, errors, done = threading.Event(), [], [0]
+
+    def render_loop():
+        try:
+            while not stop.is_set():
+                mb = 1 + done[0] % 48  # sizes the allocator has not cached yet, on the first pass
+                x = torch.full((mb << 18,), 1.0 + done[0], device=cuda_device)
+                float((x * x).sum().cpu())
+                done[0] += 1
+        except Exception as e:  # reported by the main thread
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-4)
+    thread = threading.Thread(target=render_loop, daemon=True)
+    try:
+        thread.start()
+        while done[0] < 2:
+            pass
+        before = done[0]
+        pipe._eps(*args, 1.0)  # warm-up and capture
+        during = done[0] - before
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+        sys.setswitchinterval(interval)
+    assert not thread.is_alive() and not errors, errors
+    assert during > 0
+    assert torch.equal(pipe._eps(*args, 1.0), pipe._eps(*args, 1.0, default_processor))

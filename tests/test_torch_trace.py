@@ -274,7 +274,8 @@ def test_edit_loop_spans_and_counters():
     assert len(texts) == 3 and all(s.parent is None for s in texts)  # the reverse, edit and negative prompts
     assert {s.name for s in spans if s.sync} == {"invert.to_host", "invert.z0_to_host", "edit.to_host",
                                                  "render.bin.sync"}
-    assert trace.counters() == {"invert.views": VIEWS, "edit.chunks": 2, "render.frames": VIEWS}
+    assert trace.counters() == {"invert.views": VIEWS, "edit.chunks": 2, "render.frames": VIEWS,
+                                "sd.eps.eager": 2 * VIEWS + 2 * 2}  # CPU calls: no CUDA graph
     assert sorted(dm.written) == list(range(VIEWS))
 
 
