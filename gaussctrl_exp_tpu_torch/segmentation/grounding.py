@@ -13,8 +13,10 @@ the OWL-ViT recipe:
 
 The heat map and box code is the port's own copy of the JAX package's numpy
 (the same arithmetic, so the same boxes for the same embeddings). The
-encoders are pluggable callables; ``load_clip_grounder`` builds them on the
-port's ``clip_vision.CLIPModel``.
+encoders are pluggable callables; ``clip_grounder`` builds them on the
+port's ``clip_vision.CLIPModel`` (``load_clip_grounder``: from a checkpoint
+directory). Spans: ``seg.clip.patches`` (device), ``seg.clip.to_host``
+(sync) and ``seg.boxes``, inside ``LangSAM.predict``'s ``seg.ground``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.resize import pil_bilinear_uint8
 
 BoxResult = Tuple[np.ndarray, Sequence[str], np.ndarray]
@@ -124,8 +127,9 @@ class ClipPatchBoxProvider:
         if text not in self._text_cache:
             self._text_cache[text] = np.asarray(self.embed_text(text), np.float32)
         patch = np.asarray(self.embed_patches(image), np.float32)
-        heat = similarity_heatmap(patch, self._text_cache[text])
-        gboxes, scores = heatmap_to_boxes(heat, self.rel_threshold, self.min_area, self.max_boxes)
+        with trace.span("seg.boxes"):
+            heat = similarity_heatmap(patch, self._text_cache[text])
+            gboxes, scores = heatmap_to_boxes(heat, self.rel_threshold, self.min_area, self.max_boxes)
         H, W = image.shape[:2]
         gh, gw = heat.shape
         scale = np.array([W / gw, H / gh, W / gw, H / gh], np.float32)
@@ -140,6 +144,37 @@ def clip_pixels(image: np.ndarray, size: int) -> np.ndarray:
     return ((img - CLIP_MEAN) / CLIP_STD).transpose(2, 0, 1)[None]
 
 
+def clip_grounder(
+    model,
+    tokenize: Callable[[list], np.ndarray],
+    rel_threshold: float = 0.75,
+    min_area: int = 2,
+    max_boxes: int = 8,
+) -> ClipPatchBoxProvider:
+    """The provider on a ``clip_vision.CLIPModel``, run on its parameters'
+    device, with ``tokenize`` (a list of strings → (B, T) ids). The patch
+    embeddings are the vision tower's last-layer patch tokens through
+    ``visual_projection`` — the zero-shot OWL-ViT/MaskCLIP recipe."""
+    vcfg = model.vision_config
+    dev = model.visual_projection.weight.device
+
+    @torch.no_grad()
+    def embed_patches(image: np.ndarray) -> np.ndarray:
+        pixel = torch.as_tensor(clip_pixels(image, vcfg.image_size), device=dev)
+        with trace.span("seg.clip.patches", device=dev):
+            emb = model.patch_embeddings(pixel)[0]
+        with trace.span("seg.clip.to_host", sync=True):
+            emb = emb.cpu().numpy()
+        return emb.reshape(vcfg.grid, vcfg.grid, -1)
+
+    @torch.no_grad()
+    def embed_text(text: str) -> np.ndarray:
+        ids = torch.as_tensor(tokenize([text]), device=dev)
+        return model.get_text_features(ids)[0].cpu().numpy()
+
+    return ClipPatchBoxProvider(embed_patches, embed_text, rel_threshold, min_area, max_boxes)
+
+
 def load_clip_grounder(
     clip_dir: str,
     rel_threshold: float = 0.75,
@@ -147,28 +182,11 @@ def load_clip_grounder(
     max_boxes: int = 8,
     device: str | torch.device = "cuda",
 ) -> ClipPatchBoxProvider:
-    """The provider on a local CLIP checkpoint directory (transformers
+    """``clip_grounder`` on a local CLIP checkpoint directory (transformers
     layout — config.json + weights + vocab.json/merges.txt), run on
-    ``device``. The patch embeddings are the vision tower's last-layer patch
-    tokens through ``visual_projection`` — the zero-shot OWL-ViT/MaskCLIP
-    recipe."""
+    ``device``."""
     from ..diffusion.tokenizer import CLIPTokenizer
     from .clip_vision import load_clip
 
-    model = load_clip(clip_dir, device)
-    tok = CLIPTokenizer.from_pretrained(clip_dir)
-    vcfg = model.vision_config
-    dev = model.visual_projection.weight.device
-
-    @torch.no_grad()
-    def embed_patches(image: np.ndarray) -> np.ndarray:
-        pixel = torch.as_tensor(clip_pixels(image, vcfg.image_size), device=dev)
-        emb = model.patch_embeddings(pixel)[0].cpu().numpy()
-        return emb.reshape(vcfg.grid, vcfg.grid, -1)
-
-    @torch.no_grad()
-    def embed_text(text: str) -> np.ndarray:
-        ids = torch.as_tensor(tok([text]), device=dev)
-        return model.get_text_features(ids)[0].cpu().numpy()
-
-    return ClipPatchBoxProvider(embed_patches, embed_text, rel_threshold, min_area, max_boxes)
+    return clip_grounder(load_clip(clip_dir, device), CLIPTokenizer.from_pretrained(clip_dir), rel_threshold,
+                         min_area, max_boxes)

@@ -13,6 +13,13 @@ into masks); the text→box stage is a protocol here:
 (masks, boxes, phrases, logits), so the edit pipeline's mask compositing is
 provider-agnostic. SAM runs on the device its parameters are on; the image
 embedding is computed once per image and broadcast to every box.
+
+Spans (``utils/trace.py``): ``seg.ground`` (the box provider), then, where
+it found boxes, ``seg.sam.prep`` (the host resize, normalisation and
+upload), ``seg.sam.encode`` and ``seg.sam.decode`` (device),
+``seg.mask.upscale`` (device) and ``seg.mask.to_host`` (sync). Counters:
+``seg.images``, ``seg.boxes`` (boxes prompted), ``seg.no_box`` (images
+whose provider found none, so SAM did not run).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Optional, Protocol, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from .sam import SAM, postprocess_masks, preprocess_image
 
 BoxResult = Tuple[np.ndarray, Sequence[str], np.ndarray]  # boxes xyxy, phrases, logits
@@ -81,20 +89,32 @@ class LangSAM:
     def low_res_logits(self, image: np.ndarray, boxes: np.ndarray) -> tuple[torch.Tensor, float]:
         """SAM's (n_boxes, 1, 4·hw, 4·hw) mask logits for a uint8 image and
         its xyxy boxes in image pixels, with the image→model scale."""
-        batch, scale = preprocess_image(image, self.cfg.img_size)
-        emb = self.sam.encode_image(torch.as_tensor(batch, device=self.device))
-        emb = emb.expand(boxes.shape[0], *emb.shape[1:])
-        low_res, _iou = self.sam.predict_boxes(emb, torch.as_tensor(boxes * scale, device=self.device))
+        dev = self.device
+        with trace.span("seg.sam.prep"):
+            batch, scale = preprocess_image(image, self.cfg.img_size)
+            batch = torch.as_tensor(batch, device=dev)
+        with trace.span("seg.sam.encode", device=dev):
+            emb = self.sam.encode_image(batch)
+        with trace.span("seg.sam.decode", device=dev):
+            emb = emb.expand(boxes.shape[0], *emb.shape[1:])
+            low_res, _iou = self.sam.predict_boxes(emb, torch.as_tensor(boxes * scale, device=dev))
         return low_res, scale
 
     def predict(self, image: np.ndarray, text: str):
-        boxes, phrases, logits = self.box_provider(image, text)
+        trace.count("seg.images")
+        with trace.span("seg.ground"):
+            boxes, phrases, logits = self.box_provider(image, text)
         if boxes.shape[0] == 0:
+            trace.count("seg.no_box")
             h, w = image.shape[:2]
             return np.zeros((0, h, w), bool), boxes, phrases, logits
+        trace.count("seg.boxes", boxes.shape[0])
         low_res, scale = self.low_res_logits(image, boxes)
-        masks = postprocess_masks(low_res, scale, image.shape[:2], self.cfg.img_size)
-        return masks[:, 0].cpu().numpy(), boxes, phrases, logits
+        with trace.span("seg.mask.upscale", device=self.device):
+            masks = postprocess_masks(low_res, scale, image.shape[:2], self.cfg.img_size)
+        with trace.span("seg.mask.to_host", sync=True):
+            masks = masks[:, 0].cpu().numpy()
+        return masks, boxes, phrases, logits
 
     def as_mask_provider(self):
         """Adapter to the edit pipeline's ``mask_provider`` slot
