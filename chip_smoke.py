@@ -8,7 +8,7 @@ Run from the repository root, with one CUDA card visible:
     python3 chip_smoke.py --blend       # phases 3 and 6, then B1 and B2 alone
     python3 chip_smoke.py --generator   # phase 17 alone, on seeded latents
     python3 chip_smoke.py --variants    # phase 16's checks, then B1 and B1v alone
-    python3 chip_smoke.py --edit        # phases 9 to 11 alone: the edit path
+    python3 chip_smoke.py --edit        # phases 9 to 11 alone: the edit path, N1 with it
     python3 chip_smoke.py --train-cli   # phase 18 alone: the loader and the training CLI
     python3 chip_smoke.py --segment     # phase 19 alone: the CLI's edit with live segmentation
     python3 chip_smoke.py --cli         # phase 20 alone: the render CLI's subcommands and the viewer
@@ -16,8 +16,8 @@ Run from the repository root, with one CUDA card visible:
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN.
-  2. build kernels B1, B2, B3, B4/B5 and B1v (csrc/*.cu) with nvcc for sm_90a,
-     one process per source, all started together.
+  2. build kernels B1, B2, B3, B4/B5, B1v and N1 (csrc/*.cu) with nvcc for
+     sm_90a, one process per source, all started together.
   3. B1 against its plain PyTorch version on the same CUDA tensors: the
      bear-scale 512² frame (C = 4 and C = 3), a 300k-gaussian garden-scale
      frame, an all-zero-opacity scene and a 500×372 frame.
@@ -43,18 +43,27 @@ Phases (any failure exits non-zero):
      same CUDA tensors, bf16 and fp32, at the edit path's self- and
      cross-attention shapes, a ragged shape and a reference-view call as the
      cross-view processor builds it.
- 10. the edit path: ``GaussCtrlEditPipeline.render_reverse`` and
-     ``edit_images`` at the full SD1.x widths in bf16 (random weights from a
-     seed) on the bear-scale scene's 6 views at 512², then 20 fine-tune
-     steps of ``Trainer.train`` on the written-back images; B3's launches
-     are read around the edit; one full-width ``_eps`` in bf16 through B3 is
-     held against fp32 through ``sdpa_plain``, and the tiny-width fp32 edit
-     loop on the card against the same loop on the CPU.
+ 10. kernel N1 (csrc/group_norm_nhwc.cu, GroupNorm + optional SiLU of bf16
+     channels-last activations) against ``group_norm_plain`` on the same
+     CUDA tensors at the 14 norm shapes of the SD1.x UNet and ControlNet
+     (64² latents), B = 1 and 18, with SiLU (ε 1e-5, the resnets') and
+     without (ε 1e-6, Transformer2D's); then the edit path:
+     ``GaussCtrlEditPipeline.render_reverse`` and ``edit_images`` at the
+     full SD1.x widths in bf16 (random weights from a seed) on the
+     bear-scale scene's 6 views at 512², then 20 fine-tune steps of
+     ``Trainer.train`` on the written-back images; B3's and N1's launches
+     are read around the edit (N1: every GroupNorm of the UNet and the
+     ControlNet at every evaluation, graph replays included); one
+     full-width ``_eps`` in bf16 through B3 is held against fp32 through
+     ``sdpa_plain``, and the tiny-width fp32 edit loop on the card against
+     the same loop on the CPU.
  11. timings of the edit path by stage (CUDA events), the device busy share
      of a generation step and B3's share of it (torch.profiler), and B3 at
      every phase-9 shape, the inversion's and (fp32) the depth generator's
      against its three bounds and ``scaled_dot_product_attention``, by
-     device time with the SM clock read around each.
+     device time with the SM clock read around each; N1 at the inversion's
+     and the generation's largest norms against its bytes bound and the
+     old path (``group_norm_plain`` on the NCHW input), by device time.
  12. kernels B4 (dK, dV) and B5 (dQ) (csrc/flash_attn_bwd.cu) against
      autograd through ``sdpa_plain`` in fp32 on the same CUDA tensors, bf16
      and fp32, at the depth generator's training shapes (4 views, 64²
@@ -252,6 +261,18 @@ EPS_BF16_REL_L2 = 5e-2
 # path: renders differ by ~1e-6 and the 2-step loops carry that forward
 TINY_LOOP_REL_L2 = 1e-3
 SD_SEED = 0
+# N1 vs group_norm_plain (float32 statistics, one bf16 rounding): the sums'
+# order differs, so an output on a bf16 rounding boundary may round the other
+# way: at most this share of the outputs differ, by one bf16 step each
+# (tests/test_torch_kernels.py's limits)
+NORM_DIFFER_MAX, NORM_REL = 1e-2, 5e-4
+# (C, side) of the SD1.x UNet's and ControlNet's norms at 64² latents
+SD_NORMS = [(320, 64), (640, 64), (960, 64), (320, 32), (640, 32), (960, 32), (1280, 32), (1920, 32), (640, 16),
+            (1280, 16), (1920, 16), (2560, 16), (1280, 8), (2560, 8)]
+NORM_BATCHES = (1, CFG_BATCH)  # the inversion's and the generation's
+# N1 timed in phase 11: (B, C, side, SiLU); the first is the kernels line's row
+NORM_TIMED = [(CFG_BATCH, 960, 64, True), (CFG_BATCH, 320, 64, True), (CFG_BATCH, 2560, 8, True),
+              (1, 320, 64, True), (1, 960, 64, True), (1, 1280, 16, False)]
 FINETUNE_STEPS = 20
 EDIT_PROMPT, REVERSE_PROMPT = "a bronze statue of a bear", "a photo of a bear"
 # the tests' tiny SD stack (tests/test_diffusion.py TINY)
@@ -749,6 +770,81 @@ def count_transformers(module) -> int:
     return sum(isinstance(m, Transformer2D) for m in module.modules())
 
 
+def count_norms(module) -> int:
+    from gaussctrl_exp_tpu_torch.diffusion.layers import GroupNorm
+
+    return sum(isinstance(m, GroupNorm) for m in module.modules())
+
+
+def norm_inputs(dev, B, C, side, seed):
+    """bf16 (B, C, side, side) channels-last with per-channel offsets and
+    scales, and float32 scale and bias (tests/test_torch_kernels.py's)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, side, side, C), generator=g) * (0.5 + torch.rand(C, generator=g)) \
+        + 2 * torch.randn(C, generator=g)
+    w, b = 1.0 + 0.3 * torch.randn(C, generator=g), 0.2 * torch.randn(C, generator=g)
+    return x.bfloat16().to(dev).permute(0, 3, 1, 2), w.to(dev), b.to(dev)
+
+
+def check_norms(dev) -> float:
+    """N1 against ``group_norm_plain`` of the NCHW copy at every
+    ``SD_NORMS`` shape, B in ``NORM_BATCHES``, with SiLU (ε 1e-5) and without
+    (ε 1e-6); returns the largest |d|."""
+    from gaussctrl_exp_tpu_torch.ops import groupnorm_cuda
+
+    worst = dict(differ=0.0, rel=0.0, abs=0.0)
+    n = 0
+    for B in NORM_BATCHES:
+        for i, (C, side) in enumerate(SD_NORMS):
+            x, w, b = norm_inputs(dev, B, C, side, seed=100 * B + i)
+            for silu in (False, True):
+                eps = 1e-5 if silu else 1e-6
+                launched = groupnorm_cuda.launches
+                got = groupnorm_cuda.group_norm_nhwc(x, w, b, 32, eps, silu)
+                want = groupnorm_cuda.group_norm_plain(x.contiguous(), w, b, 32, eps, silu).float()
+                if groupnorm_cuda.launches != launched + 1 or got.dtype != torch.bfloat16 \
+                        or not got.is_contiguous(memory_format=torch.channels_last):
+                    raise SystemExit(f"FAIL: N1 at B = {B}, C = {C}, {side}² was not launched once, or its output "
+                                     f"is not bf16 channels-last")
+                d = got.float() - want
+                r = dict(differ=float((d != 0).float().mean()), rel=float(d.norm() / want.norm()),
+                         abs=float(d.abs().max()))
+                worst = {k: max(worst[k], r[k]) for k in worst}
+                n += 1
+                if r["differ"] > NORM_DIFFER_MAX or r["rel"] > NORM_REL:
+                    raise SystemExit(f"FAIL: N1 at B = {B}, C = {C}, {side}², silu {silu}: {r['differ']:.2e} of the "
+                                     f"outputs differ (limit {NORM_DIFFER_MAX}), relative L2 {r['rel']:.2e} (limit "
+                                     f"{NORM_REL})")
+    print(f"    N1 vs group_norm_plain at {n} cases ({len(SD_NORMS)} shapes × B {NORM_BATCHES} × SiLU or not): "
+          f"share of outputs that differ up to {worst['differ']:.2e} (limit {NORM_DIFFER_MAX}), relative L2 up to "
+          f"{worst['rel']:.2e} (limit {NORM_REL}), max |d| {worst['abs']:.3e}")
+    return worst["abs"]
+
+
+def norm_rows(dev) -> dict:
+    """N1 at each ``NORM_TIMED`` shape by device time (its two kernels),
+    against its bound (x read once and y written once at the data sheet's
+    bandwidth) and the old path: ``group_norm_plain`` on the NCHW input
+    (every device op: the float32 copy, torch's statistics and apply, the
+    cast, the SiLU). Returns the rows by shape."""
+    from gaussctrl_exp_tpu_torch.ops import groupnorm_cuda
+    from gaussctrl_exp_tpu_torch.utils.timing import kernel_time_ms
+
+    rows = {}
+    for B, C, side, silu in NORM_TIMED:
+        x, w, b = norm_inputs(dev, B, C, side, seed=7)
+        nchw = x.contiguous()
+        ms = kernel_time_ms(lambda: groupnorm_cuda.group_norm_nhwc(x, w, b, 32, 1e-5, silu), groupnorm_cuda.KERNEL)
+        plain_ms = kernel_time_ms(lambda: groupnorm_cuda.group_norm_plain(nchw, w, b, 32, 1e-5, silu), "")
+        bound_ms, bound_by = roofline(2 * x.numel() * x.element_size(), 0)
+        rows[(B, C, side, silu)] = dict(shape=f"B = {B}, {side}² × {C}, SiLU {silu}", ms=ms, plain_ms=plain_ms,
+                                        bound_ms=bound_ms, bound_by=bound_by)
+        print(f"    N1 B = {B} {side}² × {C}{' + SiLU' if silu else ''}: {ms * 1e3:.2f} µs device time (stats + apply); "
+              f"bound {bound_ms * 1e3:.2f} µs ({bound_by}, {bound_ms / ms:.3f} of N1); old path {plain_ms * 1e3:.2f} µs "
+              f"(every device op), N1 / old {ms / plain_ms:.3f}")
+    return rows
+
+
 def busy_text(w: dict) -> str:
     return (f"busy share {w['busy']:.3f} (device-op union {w['busy_ms']:.4f} ms over the {w['wall_ms']:.4f} ms "
             f"window timed inside torch.profiler; device time outside the window {w['outside_ms']:.4f} ms)")
@@ -799,14 +895,16 @@ def phase10_edit(dev, state, cams, targets) -> dict:
     from gaussctrl_exp_tpu_torch.engine.trainer import TrainConfig, Trainer
     from gaussctrl_exp_tpu_torch.models.gaussians import GaussianState
     from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig
-    from gaussctrl_exp_tpu_torch.ops import attention_cuda, blend_cuda
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda, blend_cuda, groupnorm_cuda
 
+    print("[10] kernel N1 (NHWC GroupNorm + SiLU) vs group_norm_plain on the same CUDA tensors")
+    norm_err = check_norms(dev)
     t0 = time.perf_counter()
     models = init_random_models(SD_SEED, dev, torch.bfloat16)
     torch.cuda.synchronize()
     n_params = {n: sum(p.numel() for p in getattr(models, n).parameters())
                 for n in ("unet", "controlnet", "vae", "text_encoder")}
-    print(f"[10] SD1.x stack, random weights (seed {SD_SEED}), bf16 (text encoder fp32), made on the card in "
+    print(f"    SD1.x stack, random weights (seed {SD_SEED}), bf16 (text encoder fp32), made on the card in "
           f"{time.perf_counter() - t0:.2f} s; parameters {n_params}")
     cfg = EditConfig(edit_prompt=EDIT_PROMPT, reverse_prompt=REVERSE_PROMPT)
     pipe = GaussCtrlEditPipeline(cfg, models=models, tokenizer=crc_tokenize)
@@ -816,7 +914,9 @@ def phase10_edit(dev, state, cams, targets) -> dict:
     n_chunks = -(-V // cfg.chunk_size)
     per_eval = count_transformers(models.unet) + count_transformers(models.controlnet)
     expected = V * steps * 2 * per_eval + n_chunks * steps * (2 + cfg.ref_view_num) * per_eval
-    attention_cuda.launches = 0
+    norms_eval = count_norms(models.unet) + count_norms(models.controlnet)
+    expected_norms = (V + n_chunks) * steps * norms_eval
+    attention_cuda.launches = groupnorm_cuda.launches = 0
     blend_cuda.launches = blend_cuda.bwd_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -827,7 +927,7 @@ def phase10_edit(dev, state, cams, targets) -> dict:
     pipe.edit_images(views)
     torch.cuda.synchronize()
     edit_wall = time.perf_counter() - t0
-    b3, b1 = attention_cuda.launches, blend_cuda.launches
+    b3, b1, n1 = attention_cuda.launches, blend_cuda.launches, groupnorm_cuda.launches
     print(f"    render_reverse {V} views at {S}² ({steps}-step inversion each) {reverse_wall:.3f} s; edit_images "
           f"{n_chunks} chunks of ≤ {cfg.chunk_size} views + {cfg.ref_view_num} references {edit_wall:.3f} s "
           f"(host wall, first calls included); reference views {select_reference_views(V, cfg.ref_view_num)}")
@@ -835,9 +935,11 @@ def phase10_edit(dev, state, cams, targets) -> dict:
           f"ControlNet evaluation; inversion {V}×{steps}×{2 * per_eval}, generation "
           f"{n_chunks}×{steps}×{(2 + cfg.ref_view_num) * per_eval}); blend_fwd launches {b1}; "
           f"inputs the B3 wrapper copied {attention_cuda.copies}")
-    if b3 != expected or b1 != V:
-        raise SystemExit(f"FAIL: the edit path launched B3 {b3} times (expected {expected}) and B1 {b1} times "
-                         f"(expected {V})")
+    print(f"    group_norm_nhwc (N1) launches {n1} (expected {expected_norms}: {norms_eval} GroupNorms per UNet + "
+          f"ControlNet evaluation; inversion {V}×{steps}, generation {n_chunks}×{steps} evaluations)")
+    if b3 != expected or b1 != V or n1 != expected_norms:
+        raise SystemExit(f"FAIL: the edit path launched B3 {b3} times (expected {expected}), B1 {b1} times "
+                         f"(expected {V}) and N1 {n1} times (expected {expected_norms})")
     z0s = [pipe.z0[i] for i in range(V)]
     if not all(z.shape == (S // 8, S // 8, 4) and np.isfinite(z).all() for z in z0s):
         raise SystemExit("FAIL: a z0 is not finite or not (64, 64, 4)")
@@ -897,7 +999,8 @@ def phase10_edit(dev, state, cams, targets) -> dict:
     if max(tiny_rel) > TINY_LOOP_REL_L2:
         raise SystemExit("FAIL: the tiny edit loop on the card disagrees with the CPU")
     return dict(pipe=pipe, views=views, cfg=cfg, model_cfg=model_cfg, ft=ft, ft_cfg=ft_cfg, rev_ctx=rev_ctx,
-                lat2=lat2, hint2=hint2, b3_launches=b3, edit_wall=edit_wall, reverse_wall=reverse_wall)
+                lat2=lat2, hint2=hint2, b3_launches=b3, n1_launches=n1, norm_err=norm_err, edit_wall=edit_wall,
+                reverse_wall=reverse_wall)
 
 
 def phase11_timings(dev, state, cams, edit, flash_cases) -> dict:
@@ -970,7 +1073,8 @@ def phase11_timings(dev, state, cams, edit, flash_cases) -> dict:
           f"{gen['ratio']:.3f}; at the data sheet's peaks bound {gen['rated']['bound_ms']:.5f} ms as 3×TF32 "
           f"({gen['rated']['bound_by']}, {gen['rated']['bound_ms'] / gen['ms']:.3f} of B3), "
           f"{gen['rated']['ops_ms']:.5f} ms at the fp32 FMA peak")
-    return dict(ms=main["ms"], plain_ms=plain_ms, bound_ms=main["rated"]["bound_ms"],
+    norms = norm_rows(dev)
+    return dict(ms=main["ms"], plain_ms=plain_ms, bound_ms=main["rated"]["bound_ms"], norm=norms[NORM_TIMED[0]],
                 bound_by=main["rated"]["bound_by"], library_ms=main["sdpa_ms"],
                 f32=dict(ms=gen["ms"], plain_ms=gen_plain_ms, bound_ms=gen["rated"]["bound_ms"],
                          bound_by=gen["rated"]["bound_by"], library_ms=gen["sdpa_ms"]))
@@ -2120,9 +2224,10 @@ def variants_only(dev) -> int:
 
 def edit_only(dev) -> int:
     """``--edit``: phases 9 to 11 alone: B3 checked, the edit path at full
-    width in bf16 on the bear-scale scene's 6 views (with its checks), then
-    its stages, a generation step's device time and B3's share, and B3 alone,
-    for a before/after comparison of the edit path within one chip call.
+    width in bf16 on the bear-scale scene's 6 views (with its checks and
+    N1's), then its stages, a generation step's device time and B3's share,
+    and B3 and N1 alone, for a before/after comparison of the edit path
+    within one chip call.
     Prints no kernels line and no result."""
     from gaussctrl_exp_tpu_torch.cli import render as cli
     from gaussctrl_exp_tpu_torch.engine.checkpoint import import_splatfacto_checkpoint
@@ -2134,7 +2239,7 @@ def edit_only(dev) -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(smi_line())
     t0 = time.perf_counter()
-    cuda_build.build(BLEND_SOURCES + ATTENTION_SOURCES)
+    cuda_build.build(BLEND_SOURCES + ATTENTION_SOURCES + ("group_norm_nhwc",))
     print(f"built B1 to B5 in {time.perf_counter() - t0:.2f} s")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         ckpt, path_json = write_inputs(Path(tmp), synthetic_params(N_BEAR, 0, 0.8, -4.2, 0.5))
@@ -3975,6 +4080,16 @@ def main(argv=None) -> int:
         "library_ms": flash["library_ms"],
         "segment_cli_launches": seg19["b3"],
         "sharded_generate_launches": par21["b3"],
+    }, {
+        "name": "group_norm_nhwc",
+        "route": "cuda",
+        "source": "gaussctrl_exp_tpu_torch/csrc/group_norm_nhwc.cu",
+        "replaces": "none: gaussctrl_exp_tpu/diffusion/unet.py:48 and attention.py:202 (flax nn.GroupNorm, left to "
+                    "XLA); added so that the UNet and the ControlNet run channels-last on the card",
+        "launches": edit["n1_launches"],
+        "max_abs_err": edit["norm_err"],
+        **flash["norm"],
+        "library_ms": None,
     }, {
         "name": "flash_attn_fwd_f32",
         "route": "cuda",

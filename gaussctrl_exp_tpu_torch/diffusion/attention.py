@@ -15,7 +15,7 @@ forward, B4 and B5 backward) when autograd records the call, else through
 ``flash_attn``. Every call on a CPU tensor goes to the plain version
 ``sdpa_plain``, which autograd differentiates.
 
-Modules are NCHW / (B, L, C) PyTorch modules whose attribute names mirror the
+Modules take (B, C, H, W) / (B, L, C) tensors whose attribute names mirror the
 Flax ones (``to_q``, ``to_out_0``, ``ff.proj``, ``transformer_blocks_0``), so
 that carrying weights across is a mechanical rename (``params.py``). Flax's
 defaults come across: LayerNorm ε = 1e-6, Transformer2D's GroupNorm ε = 1e-6,
@@ -144,7 +144,9 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    """GroupNorm → proj_in → transformer blocks → proj_out + residual, on NCHW."""
+    """GroupNorm → proj_in → transformer blocks → proj_out + residual, on
+    (B, C, H, W): the output keeps the input's layout; for a channels-last
+    input the moves to and from (B, HW, C) are views."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
                  cross_attention_dim: int = 768):
@@ -164,4 +166,4 @@ class Transformer2D(nn.Module):
         for i in range(self.depth):
             h = getattr(self, f"transformer_blocks_{i}")(h, context, processor)
         h = self.proj_out(h)
-        return h.reshape(B, H, W, C).permute(0, 3, 1, 2) + x
+        return x + h.reshape(B, H, W, C).permute(0, 3, 1, 2)  # x first: the sum keeps x's layout

@@ -15,7 +15,11 @@ its ``torch.nn`` parent, bit for bit. The state-dict names are the parent's.
 
 The edit path's bf16 stack (``cast_keeping_norms``) stores its Linear and
 Conv weights in bf16, which gives the bits of Flax's round-to-nearest cast at
-use, and keeps its norms' scale and bias float32, as Flax does.
+use, and keeps its norms' scale and bias float32, as Flax does. On the card
+its UNet and ControlNet also store their conv weights channels-last
+(``to_channels_last``), so that cuDNN's NHWC convolutions read them as they
+lie and the activations stay NHWC from conv to conv; ``GroupNorm`` then
+takes kernel N1 (``ops/groupnorm_cuda.py``), with the SiLU after it fused.
 """
 
 from __future__ import annotations
@@ -23,6 +27,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops import groupnorm_cuda
+from ..utils import trace
 
 
 def _like(p: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor | None:
@@ -41,6 +48,15 @@ def cast_keeping_norms(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     return module
 
 
+def to_channels_last(module: nn.Module) -> nn.Module:
+    """``module`` with every conv weight re-stored channels-last in place
+    (the parameters stay the same objects)."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            m.weight.data = m.weight.data.contiguous(memory_format=torch.channels_last)
+    return module
+
+
 class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, _like(self.weight, x), _like(self.bias, x))
@@ -52,10 +68,24 @@ class Conv2d(nn.Conv2d):
 
 
 class GroupNorm(nn.GroupNorm):
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    """``silu=True`` applies SiLU to the (rounded) output. A bf16
+    channels-last input with float32 scale and bias, which autograd does not
+    record, takes ``groupnorm_cuda.group_norm_nhwc`` (N1 on the card, its
+    plain version on the CPU) and counts ``sd.norm.nhwc``; every other input
+    the path below, where a CUDA one counts ``sd.norm.nchw``."""
+
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
+        if (x.dtype == torch.bfloat16 and self.weight.dtype == self.bias.dtype == torch.float32
+                and x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last)
+                and not (torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad))):
+            trace.count("sd.norm.nhwc")
+            return groupnorm_cuda.group_norm_nhwc(x, self.weight, self.bias, self.num_groups, self.eps, silu)
+        if x.device.type == "cuda":
+            trace.count("sd.norm.nchw")
         if self.weight.dtype == x.dtype:
-            return super().forward(x)
-        return F.group_norm(x.float(), self.num_groups, self.weight.float(), self.bias.float(), self.eps).to(x.dtype)
+            y = super().forward(x)
+            return F.silu(y) if silu else y
+        return groupnorm_cuda.group_norm_plain(x, self.weight, self.bias, self.num_groups, self.eps, silu)
 
 
 class LayerNorm(nn.LayerNorm):

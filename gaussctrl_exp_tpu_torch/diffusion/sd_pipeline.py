@@ -4,8 +4,13 @@ classifier-free-guided generation.
 Port of ``gaussctrl_exp_tpu/diffusion/sd_pipeline.py``. The JAX package's
 ``lax.scan`` loops are Python loops; the scheduler carry stays float32
 whatever the models' type. The public functions keep the JAX package's
-NHWC shapes (images (B, H, W, 3), latents (B, h, w, 4)); the models run NCHW
-inside. Every method runs without autograd.
+NHWC shapes (images (B, H, W, 3), latents (B, h, w, 4)); the models take
+(B, C, H, W) tensors. On the card the pipeline stores the UNet's and the
+ControlNet's conv weights channels-last (``layers.to_channels_last``) and
+hands them the NHWC latents and hint as channels-last views, so that the
+stack runs NHWC end to end, as cuDNN's Hopper convolutions and kernel N1
+(GroupNorm + SiLU) take it; the VAE stays NCHW. Every method runs without
+autograd.
 
 On the card, an ε evaluation with no attention processor (the inversion, the
 inpainting loop) replays a CUDA graph of the ControlNet + UNet captured once
@@ -26,10 +31,10 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..ops import attention_cuda
+from ..ops import attention_cuda, groupnorm_cuda
 from ..utils import trace
 from .controlnet import ControlNet
-from .layers import cast_keeping_norms
+from .layers import cast_keeping_norms, to_channels_last
 from .schedulers import DDIMInverseScheduler, DDIMScheduler, SchedulerConfig
 from .text_encoder import CLIPTextConfig, CLIPTextModel
 from .unet import UNet2DCondition
@@ -194,6 +199,8 @@ class EpsGraph:
     output: torch.Tensor  # the static NHWC ε it writes
     launches: int  # B3 launches in the graph
     copies: int  # inputs B3's wrapper copied in it
+    norm_launches: int  # N1 launches in it
+    counts: dict  # the tracer's counts its capture made (the norms' paths), which each replay counts again
 
 
 class GraphCache:
@@ -232,6 +239,12 @@ class SDControlNetPipeline:
         self.inverse_scheduler = DDIMInverseScheduler(sched_cfg)
         self.graphs = GraphCache(EPS_GRAPHS)
         self._params = (None, None, [])  # the UNet, the ControlNet and their parameters
+        # the layout the UNet and the ControlNet run in: where they live decides
+        self.layout = torch.contiguous_format
+        if models is not None and models.device.type == "cuda":
+            to_channels_last(models.unet)
+            to_channels_last(models.controlnet)
+            self.layout = torch.channels_last
 
     def param_ptrs(self) -> tuple:
         """The models and the storage of each of their parameters: what the
@@ -265,10 +278,14 @@ class SDControlNetPipeline:
             g.graph.replay()
             attention_cuda.launches += g.launches
             attention_cuda.copies += g.copies
+            groupnorm_cuda.launches += g.norm_launches
+            for name, n in g.counts.items():
+                trace.count(name, n)
             return g.output.clone()
 
     def _eps_eager(self, latents, t, ctx, hint, cond_scale, processor=None) -> torch.Tensor:
-        lat, hint_c = _nchw(latents), _nchw(hint)
+        # NHWC → (B, C, H, W): a view on the card (channels-last), a copy on the CPU
+        lat, hint_c = (x.permute(0, 3, 1, 2).contiguous(memory_format=self.layout) for x in (latents, hint))
         with trace.span("sd.controlnet"):
             down_res, mid_res = self.m.controlnet(lat, t, ctx, hint_c, cond_scale, processor=processor)
         with trace.span("sd.unet"):
@@ -279,8 +296,9 @@ class SDControlNetPipeline:
         """Warm up on a side stream (B3's library loaded, its kernel
         attributes and every library's plans and workspaces set), capture
         the evaluation of static copies of the inputs into the graphs'
-        pool, and return the warm-up's ε: B3's counters count only the
-        warm-up's launches, as an eager call's."""
+        pool, and return the warm-up's ε: B3's and N1's counters count only
+        the warm-up's launches, as an eager call's, and the tracer only its
+        counts."""
         dev = latents.device
         inputs = tuple(x.clone(memory_format=torch.contiguous_format) for x in (latents, t, ctx, hint))
         main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
@@ -289,18 +307,20 @@ class SDControlNetPipeline:
             eps = self._eps_eager(*inputs, cond_scale)
             if self.graphs.pool is None:
                 self.graphs.pool = torch.cuda.graph_pool_handle()
-            launches, copies = attention_cuda.launches, attention_cuda.copies
+            launches, copies, norms = attention_cuda.launches, attention_cuda.copies, groupnorm_cuda.launches
             graph = torch.cuda.CUDAGraph()
             # thread_local: the viewer's thread may render (allocate, copy to
             # the host) while this one captures; "global" would fail its calls.
             # No thread may draw from the default CUDA generator meanwhile:
             # the capture takes it over (the viewer draws nothing)
-            with torch.cuda.graph(graph, pool=self.graphs.pool, stream=side, capture_error_mode="thread_local"):
+            with trace.tally() as counts, torch.cuda.graph(graph, pool=self.graphs.pool, stream=side,
+                                                           capture_error_mode="thread_local"):
                 out = self._eps_eager(*inputs, cond_scale)
-            captured = attention_cuda.launches - launches, attention_cuda.copies - copies
-            attention_cuda.launches, attention_cuda.copies = launches, copies
+            captured = (attention_cuda.launches - launches, attention_cuda.copies - copies,
+                        groupnorm_cuda.launches - norms)
+            attention_cuda.launches, attention_cuda.copies, groupnorm_cuda.launches = launches, copies, norms
         main.wait_stream(side)
-        self.graphs.put(key, EpsGraph(graph, inputs, out, *captured))
+        self.graphs.put(key, EpsGraph(graph, inputs, out, *captured, counts))
         return eps
 
     @torch.no_grad()

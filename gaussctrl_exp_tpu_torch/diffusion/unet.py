@@ -3,7 +3,9 @@
 Port of ``gaussctrl_exp_tpu/diffusion/unet.py``: 4-channel latents, block
 channels (320, 640, 1280, 1280), 2 resnets per block, depth-1 transformers
 with 8 heads, cross-attention dim 768, SiLU + GroupNorm(32, ε = 1e-5).
-Modules run NCHW (cuDNN's layout); their names mirror the Flax ones
+Modules take (B, C, H, W) tensors in either memory layout and keep it; on the
+card the edit pipeline stores them channels-last (``layers.to_channels_last``),
+the layout of cuDNN's Hopper convolutions. Their names mirror the Flax ones
 (``down_0_resnet_1``, ``mid_attn_0``, ``up_2_upsample.conv``).
 ``controlnet_residuals`` takes the (down residuals, mid residual) pair of
 ``controlnet.py`` and adds them where diffusers adds them.
@@ -48,9 +50,9 @@ class ResnetBlock(nn.Module):
         self.conv_shortcut = Conv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
 
     def forward(self, x, temb):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(self.norm1(x, silu=True))
         h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(self.norm2(h, silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -174,4 +176,4 @@ class UNet2DCondition(nn.Module):
             if bi < n - 1:
                 h = getattr(self, f"up_{bi}_upsample")(h)
 
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(self.conv_norm_out(h, silu=True))

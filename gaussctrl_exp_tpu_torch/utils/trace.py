@@ -22,7 +22,9 @@ host wait for the device.
 The spans are kept in memory, the newest ``capacity`` of them (``dropped()``
 counts the others), safe under several threads: each thread nests its own
 spans. ``records()``, ``counters()``, ``summary()`` and ``dump(path)`` read
-them out; ``reset()`` forgets them.
+them out; ``reset()`` forgets them. Inside ``tally()`` a thread's counts go
+to the block's own dict instead, recording or not: what a CUDA graph's
+capture counts, for each replay to count again.
 """
 
 from __future__ import annotations
@@ -167,11 +169,28 @@ def span(name: str, unit=None, device: torch.device | None = None, sync: bool = 
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name`` (while recording)."""
+    """Add ``n`` to the counter ``name`` (while recording), or to the
+    innermost ``tally()`` of this thread."""
+    tallied = getattr(_local, "tally", None)
+    if tallied is not None:
+        tallied[name] = tallied.get(name, 0) + n
+        return
     if not (_enabled or _profiler._is_profiler_enabled):
         return
     with _lock:
         _counters[name] = _counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def tally():
+    """The counts this thread makes inside the block, as the dict it yields,
+    whether or not recording; they do not reach the counters."""
+    outer = getattr(_local, "tally", None)
+    _local.tally = counts = {}
+    try:
+        yield counts
+    finally:
+        _local.tally = outer
 
 
 def records() -> list[Span]:

@@ -1,7 +1,8 @@
 """Kernels B1 and B2 (the CUDA tile blend and its backward), B3 (the
-flash-attention forward), B4, B5 (its backward) and B1v (the blend-forward
-ablations) against their plain PyTorch versions; and the CUDA graph of the
-edit path's ControlNet + UNet evaluation against its eager calls.
+flash-attention forward), B4, B5 (its backward), B1v (the blend-forward
+ablations) and N1 (the NHWC GroupNorm + SiLU) against their plain PyTorch
+versions; and the CUDA graph of the edit path's channels-last ControlNet +
+UNet evaluation against its eager calls.
 
 Needs an NVIDIA card and nvcc; without a card every test here skips, but
 for two host tests of the card machine's toolchain: the data loader's native
@@ -1201,7 +1202,10 @@ def test_eps_graph_invert_matches_eager_bit_for_bit(cuda_device, tracing, dtype)
     pipe = _tiny_sd_pipe(cuda_device, dtype)
     lat, _, ctx, hint = _sd_inputs(cuda_device)
     z_graph, n_graph = _b3_launches(lambda: pipe.invert(lat, ctx, hint, 20))
-    assert tracing.counters() == {"sd.eps.graph_capture": 1, "sd.eps.graph_replay": 19}
+    # each of the 20 evaluations (the capture's warm-up, 19 replays) counts the tiny stack's 31 GroupNorms:
+    # N1 on the bf16 stack, the NCHW path on the float32 one (its norms' parameters share its type)
+    norms = "sd.norm.nhwc" if dtype == torch.bfloat16 else "sd.norm.nchw"
+    assert tracing.counters() == {"sd.eps.graph_capture": 1, "sd.eps.graph_replay": 19, norms: 20 * 31}
     z_eager, n_eager = _b3_launches(lambda: pipe.invert(lat, ctx, hint, 20, processor=default_processor))
     assert torch.equal(z_graph, z_eager)
     assert n_graph == n_eager == 20 * 2 * (4 + 2)  # Transformer2D blocks: UNet 4, ControlNet 2; 2 calls each
@@ -1209,7 +1213,7 @@ def test_eps_graph_invert_matches_eager_bit_for_bit(cuda_device, tracing, dtype)
     tracing.reset()
     lat2, _, _, hint2 = _sd_inputs(cuda_device, seed=1)
     z2 = pipe.invert(lat2, ctx, hint2, 20)
-    assert tracing.counters() == {"sd.eps.graph_replay": 20} and len(pipe.graphs.entries) == 1
+    assert tracing.counters() == {"sd.eps.graph_replay": 20, norms: 20 * 31} and len(pipe.graphs.entries) == 1
     assert not torch.equal(z2, z_graph)
     assert torch.equal(z2, pipe.invert(lat2, ctx, hint2, 20, processor=default_processor))
 
@@ -1257,13 +1261,19 @@ def test_eps_graph_full_width_step_matches_eager(cuda_device):
     from gaussctrl_exp_tpu_torch.diffusion.attention import default_processor
     from gaussctrl_exp_tpu_torch.diffusion.sd_pipeline import SDControlNetPipeline, init_random_models
 
+    from gaussctrl_exp_tpu_torch.ops import groupnorm_cuda
+
     pipe = SDControlNetPipeline(init_random_models(7, cuda_device, torch.bfloat16))
     args = _sd_inputs(cuda_device, h=64, cross=768, seed=5)
-    _, n_capture = _b3_launches(lambda: pipe._eps(*args, 1.0))
-    replay, n_replay = _b3_launches(lambda: pipe._eps(*args, 1.0))
-    eager, n_eager = _b3_launches(lambda: pipe._eps(*args, 1.0, default_processor))
+    norms = []
+    for call in (lambda: pipe._eps(*args, 1.0), lambda: pipe._eps(*args, 1.0),
+                 lambda: pipe._eps(*args, 1.0, default_processor)):
+        before = groupnorm_cuda.launches
+        norms.append(_b3_launches(call) + (groupnorm_cuda.launches - before,))
+    (_, n_capture, m_capture), (replay, n_replay, m_replay), (eager, n_eager, m_eager) = norms
     assert torch.equal(replay, eager) and bool(torch.isfinite(eager).all())
     assert n_capture == n_replay == n_eager == 2 * (16 + 7)
+    assert m_capture == m_replay == m_eager == 88  # every GroupNorm through N1: UNet 61, ControlNet 27
 
 
 @pytest.mark.cuda
@@ -1310,3 +1320,111 @@ def test_eps_graph_captures_while_another_thread_renders(cuda_device):
     assert not thread.is_alive() and not errors, errors
     assert during > 0
     assert torch.equal(pipe._eps(*args, 1.0), pipe._eps(*args, 1.0, default_processor))
+
+
+# ------------------------------------------- N1: the NHWC GroupNorm (+ SiLU)
+
+NORM_DIFFER_MAX, NORM_REL = 1e-2, 5e-4  # as tests/test_torch_sd_bf16.py
+# (C, side) of the SD 1.x UNet's and ControlNet's norms at 64² latents
+SD_NORMS = [(320, 64), (640, 64), (960, 64), (320, 32), (640, 32), (960, 32), (1280, 32), (1920, 32), (640, 16),
+            (1280, 16), (1920, 16), (2560, 16), (1280, 8), (2560, 8)]
+
+
+def _nhwc_activation(device, B, C, H, W, seed=0):
+    """bf16 (B, C, H, W) channels-last with per-channel offsets and scales;
+    float32 scale and bias."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, H, W, C), generator=g) * (0.5 + torch.rand(C, generator=g)) + 2 * torch.randn(C, generator=g)
+    w, b = 1.0 + 0.3 * torch.randn(C, generator=g), 0.2 * torch.randn(C, generator=g)
+    return x.bfloat16().to(device).permute(0, 3, 1, 2), w.to(device), b.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("B", [1, 2, 18])
+@pytest.mark.parametrize("C,side", SD_NORMS)
+def test_group_norm_nhwc_matches_plain(cuda_device, C, side, B, silu):
+    """N1 against float32 ``F.group_norm`` of the NCHW input rounded to
+    bf16 (and SiLU'd): at most ``NORM_DIFFER_MAX`` of the outputs differ."""
+    import torch.nn.functional as F
+
+    from gaussctrl_exp_tpu_torch.ops import groupnorm_cuda
+
+    eps = 1e-5 if C != 640 else 1e-6  # both of the stack's epsilons
+    x, w, b = _nhwc_activation(cuda_device, B, C, side, side, seed=C + B)
+    before = groupnorm_cuda.launches
+    got = groupnorm_cuda.group_norm_nhwc(x, w, b, 32, eps, silu)
+    want = F.group_norm(x.contiguous().float(), 32, w, b, eps).bfloat16()
+    want = F.silu(want) if silu else want
+    torch.cuda.synchronize()
+    assert groupnorm_cuda.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.is_contiguous(memory_format=torch.channels_last)
+    got, want = got.float(), want.float()
+    assert float((got != want).float().mean()) <= NORM_DIFFER_MAX
+    assert float((got - want).norm() / want.norm()) <= NORM_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,groups", [(32, 32), (64, 32), (96, 32), (8, 4), (4096, 32)])
+def test_group_norm_nhwc_narrow_and_wide_groups(cuda_device, C, groups):
+    """Groups of 1, 2 and 3 channels (a vector over 8, 4 or 3 groups), of 2
+    in 8 channels, and the widest C it takes, on ragged positions."""
+    import torch.nn.functional as F
+
+    from gaussctrl_exp_tpu_torch.ops import groupnorm_cuda
+
+    x, w, b = _nhwc_activation(cuda_device, 3, C, 7, 11, seed=C)
+    got = groupnorm_cuda.group_norm_nhwc(x, w, b, groups, 1e-5, True).float()
+    want = F.silu(F.group_norm(x.contiguous().float(), groups, w, b, 1e-5).bfloat16()).float()
+    assert float((got != want).float().mean()) <= NORM_DIFFER_MAX
+    assert float((got - want).norm() / want.norm()) <= NORM_REL
+
+
+@pytest.mark.cuda
+def test_group_norm_nhwc_repeats_bit_for_bit(cuda_device):
+    from gaussctrl_exp_tpu_torch.ops import groupnorm_cuda
+
+    x, w, b = _nhwc_activation(cuda_device, 18, 320, 64, 64)
+    first = groupnorm_cuda.group_norm_nhwc(x, w, b, 32, 1e-5, True)
+    assert all(torch.equal(first, groupnorm_cuda.group_norm_nhwc(x, w, b, 32, 1e-5, True)) for _ in range(3))
+
+
+@pytest.mark.cuda
+def test_group_norm_nhwc_refuses_what_it_does_not_take(cuda_device):
+    from gaussctrl_exp_tpu_torch.ops import groupnorm_cuda
+
+    x, w, b = _nhwc_activation(cuda_device, 1, 320, 8, 8)
+    for bad in (x.contiguous(), x.float(), x[:, :-8], torch.empty(1, 8192, 2, 2, device=cuda_device,
+                                                                     dtype=torch.bfloat16).permute(0, 3, 1, 2)):
+        with pytest.raises((ValueError, TypeError)):
+            groupnorm_cuda.group_norm_nhwc(bad, w[: bad.shape[1]], b[: bad.shape[1]], 32, 1e-5)
+    with pytest.raises(ValueError):
+        groupnorm_cuda.group_norm_nhwc(x, w.bfloat16(), b, 32, 1e-5)
+    with pytest.raises(ValueError):
+        groupnorm_cuda.group_norm_nhwc(x, w, b, 30, 1e-5)
+
+
+@pytest.mark.cuda
+def test_eps_step_runs_no_layout_conversion(cuda_device):
+    """One eager ε evaluation of the full-width bf16 stack at B = 1 (the
+    inversion's step, as a graph replays it) under torch.profiler: no cuDNN
+    layout conversion (``nchwToNhwc``, ``nhwcToNchw``) runs, every
+    GroupNorm is N1's two kernels, and torch's GroupNorm kernels never run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaussctrl_exp_tpu_torch.diffusion.attention import default_processor
+    from gaussctrl_exp_tpu_torch.diffusion.sd_pipeline import SDControlNetPipeline, init_random_models
+    from gaussctrl_exp_tpu_torch.ops import groupnorm_cuda
+
+    pipe = SDControlNetPipeline(init_random_models(7, cuda_device, torch.bfloat16))
+    args = _sd_inputs(cuda_device, h=64, cross=768, seed=5)
+    pipe._eps(*args, 1.0, default_processor)  # warm-up: libraries loaded, cuDNN's plans chosen
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pipe._eps(*args, 1.0, default_processor)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names
+    assert [n for n in names if "nchwToNhwc" in n or "nhwcToNchw" in n] == []
+    assert sum(groupnorm_cuda.KERNEL in n for n in names) == 2 * 88
+    assert not [n for n in names if "RowwiseMoments" in n or "GroupNorm" in n]

@@ -28,7 +28,12 @@ eagerly. Stated tolerances:
   bf16 outputs differ (by an ulp: Flax takes the variance as E[x²] − E[x]²)
   and the relative L2 is ≤ 5e-4 (measured at most 0.12% and 1.6e-4 over the
   101 norms). With the norms' parameters rounded to bf16, 24-36% of each
-  norm's outputs differ, at 2.2e-3 or more.
+  norm's outputs differ, at 2.2e-3 or more. A norm that the UNet or the
+  ControlNet calls with ``silu=True`` is held, under the same limits,
+  against SiLU of Flax's rounded norm;
+- both again with the UNet and the ControlNet channels-last, as the card's
+  pipeline keeps them (``layers.to_channels_last``): their norms then take
+  the NHWC path, whose plain version runs here.
 
 The tests take about 30 s, most of it JAX compiling the three modules.
 """
@@ -39,6 +44,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gaussctrl_exp_tpu.diffusion import controlnet as jcontrolnet
@@ -46,6 +52,7 @@ from gaussctrl_exp_tpu.diffusion import unet as junet
 from gaussctrl_exp_tpu.diffusion import vae as jvae
 from gaussctrl_exp_tpu_torch.diffusion import convert
 from gaussctrl_exp_tpu_torch.diffusion import params as P
+from gaussctrl_exp_tpu_torch.diffusion.layers import to_channels_last
 from gaussctrl_exp_tpu_torch.diffusion.sd_pipeline import init_random_models
 from torch_one_thread import one_torch_thread  # noqa: F401  (fixture)
 from torch_sd_tiny import TINY, rel_l2, toy_checkpoint
@@ -103,11 +110,9 @@ def _nhwc(t):
 
 
 @pytest.fixture(scope="module")
-def stacks():
-    """The JAX bf16 modules with seeded parameters and their outputs; the
-    port's bf16 stack from ``init_random_models`` carrying the same
-    parameters, its outputs, and every norm's input and output in its
-    forward."""
+def flax_side():
+    """The inputs; the JAX bf16 modules' seeded parameters as the port's
+    state dicts, and their outputs."""
     flax_mods, x = _flax_modules(), _inputs()
     key = jax.random.PRNGKey(0)
     lat, t, ctx, hint, img = (jnp.asarray(x[k]) for k in ("lat", "t", "ctx", "hint", "img"))
@@ -122,17 +127,27 @@ def stacks():
         controlnet=jax.jit(lambda p: jc.apply({"params": p}, lat, t, ctx, hint))(trees["controlnet"]),
         decode=jax.jit(lambda p: jv.apply({"params": p}, lat, method=jvae.AutoencoderKL.decode))(trees["vae"]),
         encode=jax.jit(lambda p: jv.apply({"params": p}, img, method=jvae.AutoencoderKL.encode))(trees["vae"]))
+    return x, {n: P.state_dict_from_flax(trees[n]) for n in MODULES}, want
 
+
+def _port_side(flax_side, channels_last: bool):
+    """The port's bf16 stack from ``init_random_models`` carrying the JAX
+    side's parameters, with the UNet and ControlNet channels-last as the
+    card's pipeline keeps them where ``channels_last``; its outputs, and
+    every norm's input, whether it applied SiLU, and its output."""
+    x, sds, want = flax_side
     models = init_random_models(0, "cpu", torch.bfloat16, **TINY)
-    sds = {n: P.state_dict_from_flax(trees[n]) for n in MODULES}
     for n in MODULES:
         getattr(models, n).load_state_dict(sds[n], strict=True)
-    seen = []  # (the norm, its float32 scale and bias from the tree, its input, its output)
+    if channels_last:
+        to_channels_last(models.unet)
+        to_channels_last(models.controlnet)
+    seen = []  # (the norm, its float32 scale and bias, its input, whether SiLU followed, its output)
 
     def hook(params):
-        return lambda m, args, out: seen.append((m, params, args[0], out))
+        return lambda m, args, kwargs, out: seen.append((m, params, args[0], kwargs.get("silu", False), out))
 
-    handles = [m.register_forward_hook(hook((sds[n][f"{name}.weight"], sds[n][f"{name}.bias"])))
+    handles = [m.register_forward_hook(hook((sds[n][f"{name}.weight"], sds[n][f"{name}.bias"])), with_kwargs=True)
                for n in MODULES for name, m in getattr(models, n).named_modules()
                if isinstance(m, (nn.GroupNorm, nn.LayerNorm))]
     with torch.no_grad():
@@ -143,6 +158,16 @@ def stacks():
     for h in handles:
         h.remove()
     return models, want, got, seen
+
+
+@pytest.fixture(scope="module")
+def stacks(flax_side):
+    return _port_side(flax_side, channels_last=False)
+
+
+@pytest.fixture(scope="module")
+def stacks_channels_last(flax_side):
+    return _port_side(flax_side, channels_last=True)
 
 
 def _norm_params(models):
@@ -173,8 +198,7 @@ def test_bf16_constructors_keep_norm_parameters_float32(tmp_path):
                 assert not torch.equal(v, v.to(torch.bfloat16).float()), k  # bf16 would have rounded it
 
 
-@pytest.mark.parametrize("which", ["unet", "controlnet", "decode", "encode"])
-def test_bf16_forward_matches_jax(stacks, which):
+def _check_forward(stacks, which):
     _, want, got, _ = stacks
     if which == "controlnet":
         pairs = list(zip(got[which][0] + [got[which][1]], list(want[which][0]) + [want[which][1]]))
@@ -184,6 +208,16 @@ def test_bf16_forward_matches_jax(stacks, which):
     for g, w in pairs:
         assert g.dtype == torch.bfloat16 and w.dtype == BF16
         assert rel_l2(_nhwc(g), np.asarray(w, np.float32)) <= FORWARD_REL
+
+
+@pytest.mark.parametrize("which", ["unet", "controlnet", "decode", "encode"])
+def test_bf16_forward_matches_jax(stacks, which):
+    _check_forward(stacks, which)
+
+
+@pytest.mark.parametrize("which", ["unet", "controlnet", "decode", "encode"])
+def test_bf16_forward_matches_jax_channels_last(stacks_channels_last, which):
+    _check_forward(stacks_channels_last, which)
 
 
 def _flax_norm(m, scale, bias, x):
@@ -199,13 +233,30 @@ def _flax_norm(m, scale, bias, x):
     return np.asarray(fnn.LayerNorm(epsilon=m.eps, dtype=BF16).apply(params, xj), np.float32)
 
 
-def test_every_norm_applies_float32_parameters_as_flax(stacks):
+def _check_norms(stacks):
     models, _, _, seen = stacks
     assert len(seen) == len(_norm_params(models)) // 2  # each norm ran once
-    for m, (scale, bias), x, out in seen:
+    for m, (scale, bias), x, silu, out in seen:
         assert x.dtype == out.dtype == torch.bfloat16
         want = _flax_norm(m, scale, bias, x)
+        if silu:  # the UNet's and ControlNet's resnets and conv_norm_out: SiLU of the rounded norm
+            want = F.silu(torch.tensor(want).bfloat16()).float().numpy()
         got = out.float().numpy()
         assert float((got != want).mean()) <= NORM_DIFFER_MAX, m
         assert rel_l2(got, want) <= NORM_REL, m
         assert m.weight.dtype == m.bias.dtype == torch.float32
+
+
+def test_every_norm_applies_float32_parameters_as_flax(stacks):
+    _check_norms(stacks)
+
+
+def test_every_norm_applies_float32_parameters_as_flax_channels_last(stacks_channels_last):
+    """The same with the UNet and the ControlNet channels-last: every one of
+    their GroupNorms receives a channels-last input, and so takes N1's path."""
+    _check_norms(stacks_channels_last)
+    models, _, _, seen = stacks_channels_last
+    stack = {id(m) for n in ("unet", "controlnet") for m in getattr(models, n).modules()}
+    norms = [x.is_contiguous(memory_format=torch.channels_last)
+             for m, _, x, _, _ in seen if isinstance(m, nn.GroupNorm) and id(m) in stack]
+    assert len(norms) == 31 and all(norms)  # the tiny UNet's 21 GroupNorms and the ControlNet's 10
