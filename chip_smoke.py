@@ -104,7 +104,7 @@ Phases (any failure exits non-zero):
      + B5's share of the backward, as phase 15.
  18. the scene loader and the training CLI: a 96-frame bear-scale scene at
      512² written as PNGs (B1 renders of the bear checkpoint in the
-     dataparser's frame, ``utils/png.write_png``) with a ``transforms.json``
+     dataparser's frame, saved by Pillow) with a ``transforms.json``
      and a binary ``sparse_pc.ply``; ``data.DataManager`` keeps 40 views
      (4 × 10) whose images equal the PNG bytes / 255, and an OPENCV copy's
      new K and ROI equal ``data/undistort.optimal_new_K``'s;
@@ -132,9 +132,10 @@ Phases (any failure exits non-zero):
  20. the rest of the render CLI on the bear-scale checkpoint in phase 18's
      scene: ``interpolate`` through an 8-view subset (every 12th frame; 21
      frames at 512²) and ``spiral`` (24 frames), each with its video (an mp4
-     where ``ffmpeg`` is on the path, else the port's GIF; which is printed
-     and checked); ``camera-path`` with an omnidirectional-stereo path, the
-     nearest-camera probe and its occlusion check; ``--fmt jpg``; B1
+     where ``ffmpeg`` is on the path, else Pillow's GIF, whose bytes are
+     checked; which is printed); ``camera-path`` with an omnidirectional-stereo path, the
+     nearest-camera probe and its occlusion check; ``--fmt jpg`` (each
+     file Pillow's JPEG of the frame, byte for byte); B1
      launches read around each (frames, eyes and 16² probes), frame 1 of each
      held against the CPU's plain path; then ``cli.viewer.serve`` on the
      checkpoint: ``/``, ``/status`` and 20 ``/render`` requests (rgb and
@@ -191,6 +192,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import io
 import json
 import re
 import shutil
@@ -2438,8 +2440,8 @@ def to_parsed_frame(arrays, transform, scale):
 
 
 def write_bear_scene(dev, bear, root: Path):
-    """The bear-shaped scene on disk, without PIL: ``SCENE_VIEWS`` PNG
-    frames at S² rendered by B1 from ``bear`` moved into the parsed frame,
+    """The bear-shaped scene on disk: ``SCENE_VIEWS`` PNG frames at S²
+    rendered by B1 from ``bear`` moved into the parsed frame, saved by Pillow,
     a ``transforms.json`` with global intrinsics and a binary
     ``sparse_pc.ply`` of the bear's means and colours. Returns (frames
     (uint8), the parsed outputs, the bear in the parsed frame)."""
@@ -2448,8 +2450,9 @@ def write_bear_scene(dev, bear, root: Path):
     from gaussctrl_exp_tpu_torch.data.dataparser import DataParserConfig, load_scene
     from gaussctrl_exp_tpu_torch.models.gaussians import GaussianState, params_from_numpy
     from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig, render_model
+    from PIL import Image
+
     from gaussctrl_exp_tpu_torch.ops.sh import SH_C0
-    from gaussctrl_exp_tpu_torch.utils.png import write_png
 
     (root / "images").mkdir(parents=True)
     f = S / (2 * np.tan(np.deg2rad(FOV_DEG) / 2))
@@ -2479,7 +2482,7 @@ def write_bear_scene(dev, bear, root: Path):
         for i, path in enumerate(parsed.image_filenames):
             cam = make_camera(c.c2w[i], c.fx[i], c.fy[i], c.cx[i], c.cy[i], c.width, c.height, device=dev)
             img = (render_model(state, cam, EVAL_STEP, cfg).rgb.clamp(0, 1).cpu().numpy() * 255).astype(np.uint8)
-            write_png(path, img)
+            Image.fromarray(img).save(path)
             images.append(img)
     return images, parsed, bear_p
 
@@ -2510,7 +2513,7 @@ def phase18_train_cli(dev, bear, tmp: Path) -> dict:
     scene = tmp / "bear_scene"
     t0 = time.perf_counter()
     images, parsed, bear_p = write_bear_scene(dev, bear, scene)
-    print(f"[18] wrote a {SCENE_VIEWS}-frame {S}² PNG scene (B1 renders, write_png) in "
+    print(f"[18] wrote a {SCENE_VIEWS}-frame {S}² PNG scene (B1 renders, saved by Pillow) in "
           f"{time.perf_counter() - t0:.2f} s; dataparser scale {parsed.dataparser_scale:.6f}, translation "
           f"{parsed.dataparser_transform[:, 3].tolist()}; {smi}")
 
@@ -3074,7 +3077,6 @@ LIVE_VIEW = 512  # cli/train.py attaches the viewer at its default size
 # one gaussian's weight (~0.02 here, 6 of 255 after rounding); over 1 of 255
 # at no more than 1% of the pixels; the probe's column the same view's pixels
 FRAME_MAX_DIFF, FRAME_FRAC = 6, 1e-2
-JPEG_MIN_PSNR = 30.0
 
 
 def free_port() -> int:
@@ -3092,11 +3094,6 @@ def http(port: int, path: str, post: bool = False) -> bytes:
                                  data=b"" if post else None)
     with urllib.request.urlopen(req, timeout=120) as r:
         return r.read()
-
-
-def psnr_u8(a, b) -> float:
-    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
-    return float("inf") if mse == 0 else 10 * np.log10(255.0**2 / mse)
 
 
 def subset_scene(src: Path, dst: Path, stride: int) -> None:
@@ -3137,56 +3134,27 @@ def run_cli(dev, argv: list, out_dir: Path) -> tuple[list, float, int]:
     return frames, time.perf_counter() - t0, blend_cuda.launches
 
 
-def gif_frames(data: bytes) -> tuple[int, int, int, list]:
-    """Walk a GIF's blocks: (width, height, loop count, each frame's delay
-    in centiseconds). Raises on a block it does not know."""
-    if not data.startswith(b"GIF89a"):
-        raise SystemExit("FAIL: not a GIF89a file")
-    w, h, packed = int.from_bytes(data[6:8], "little"), int.from_bytes(data[8:10], "little"), data[10]
-    pos = 13 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
-    loop, delays, delay = None, [], None
+def check_video(name: str, out_dir: Path, frames: list) -> str:
+    """The written video: an mp4 if ffmpeg made one, else a GIF holding
+    Pillow's bytes for ``frames`` (the JAX package's save call). Returns
+    which."""
+    from PIL import Image
 
-    def skip_sub_blocks(p):
-        while data[p]:
-            p += 1 + data[p]
-        return p + 1
-
-    while data[pos] != 0x3B:
-        if data[pos] == 0x21 and data[pos + 1] == 0xFF and data[pos + 3 : pos + 14] == b"NETSCAPE2.0":
-            loop = int.from_bytes(data[pos + 16 : pos + 18], "little")
-            pos = skip_sub_blocks(pos + 14)
-        elif data[pos] == 0x21 and data[pos + 1] == 0xF9:
-            delay = int.from_bytes(data[pos + 4 : pos + 6], "little")
-            pos = skip_sub_blocks(pos + 2)
-        elif data[pos] == 0x21:
-            pos = skip_sub_blocks(pos + 2)
-        elif data[pos] == 0x2C:
-            lpacked = data[pos + 9]
-            pos += 10 + (3 << ((lpacked & 7) + 1) if lpacked & 0x80 else 0)
-            pos = skip_sub_blocks(pos + 1)  # the LZW minimum code size, then the data
-            delays.append(delay)
-        else:
-            raise SystemExit(f"FAIL: an unknown GIF block 0x{data[pos]:02x} at byte {pos}")
-    return w, h, loop, delays
-
-
-def check_video(name: str, out_dir: Path, n: int, shape) -> str:
-    """The written video: an mp4 if ffmpeg made one, else a GIF whose frame
-    count, size, delays and loop are checked. Returns which."""
     mp4, gif = out_dir / "render.mp4", out_dir / "render.gif"
     if mp4.exists():
         if mp4.stat().st_size == 0:
             raise SystemExit(f"FAIL: {name}: an empty mp4")
         return f"mp4 through ffmpeg at {shutil.which('ffmpeg')} ({mp4.stat().st_size:,} bytes)"
-    if not gif.exists():
+    if not gif.exists() or shutil.which("ffmpeg"):
         raise SystemExit(f"FAIL: {name}: no video written")
+    buf = io.BytesIO()
+    imgs = [Image.fromarray(f) for f in frames]
+    imgs[0].save(buf, "GIF", save_all=True, append_images=imgs[1:], duration=int(1000 / CLI_FPS), loop=0)
     data = gif.read_bytes()
-    w, h, loop, delays = gif_frames(data)
-    want = int(1000 / CLI_FPS) // 10
-    if len(delays) != n or (h, w) != tuple(shape[:2]) or set(delays) != {want} or loop != 0 or shutil.which("ffmpeg"):
-        raise SystemExit(f"FAIL: {name}: the GIF holds {len(delays)} frames of {w}×{h}, delays {set(delays)} cs, "
-                         f"loop {loop}")
-    return f"GIF (no ffmpeg on the path): {len(delays)} frames of {w}×{h}, {want} cs a frame, loop 0, {len(data):,} bytes"
+    if data != buf.getvalue():
+        raise SystemExit(f"FAIL: {name}: the GIF is not Pillow's for its {len(frames)} frames")
+    h, w = frames[0].shape[:2]
+    return f"GIF (no ffmpeg on the path): Pillow's bytes for {len(frames)} frames of {w}×{h}, {len(data):,} bytes"
 
 
 def viewer_parts(records) -> list[dict]:
@@ -3204,7 +3172,8 @@ def phase20_cli(dev, bear, tmp: Path) -> dict:
     """The rest of the render CLI (interpolate, spiral, an ODS camera path
     with the nearest-camera probe, JPEG frames), the viewer serving a
     checkpoint, and the viewer attached to ``cli.train --viewer-port``."""
-    from gaussctrl_exp_tpu_torch import native
+    from PIL import Image
+
     from gaussctrl_exp_tpu_torch.cli import render as cli
     from gaussctrl_exp_tpu_torch.cli import train as train_cli
     from gaussctrl_exp_tpu_torch.cli import viewer
@@ -3238,7 +3207,7 @@ def phase20_cli(dev, bear, tmp: Path) -> dict:
     frames, wall, b1 = run_cli(dev, ["interpolate", "--data", str(small), "--ckpt", str(ckpt), "--steps",
                                                str(INTERP_STEPS), "--fps", str(CLI_FPS)], d)
     n = (len(parsed.image_filenames) - 1) * INTERP_STEPS
-    video = check_video("interpolate", d, n, (S, S))
+    video = check_video("interpolate", d, frames)
     print(f"    interpolate: {len(frames)} frames of {S}² ({INTERP_STEPS} steps × {n // INTERP_STEPS} transitions) in "
           f"{wall:.3f} s host wall ({wall / len(frames) * 1e3:.1f} ms a frame, PNG and video included); blend_fwd "
           f"launches {b1}; video: {video}")
@@ -3253,7 +3222,7 @@ def phase20_cli(dev, bear, tmp: Path) -> dict:
     d = tmp / "spiral"
     frames, wall, b1 = run_cli(dev, ["spiral", "--data", str(small), "--ckpt", str(ckpt), "--frames",
                                           str(SPIRAL_FRAMES), "--fps", str(CLI_FPS)], d)
-    video = check_video("spiral", d, SPIRAL_FRAMES, (S, S))
+    video = check_video("spiral", d, frames)
     print(f"    spiral: {len(frames)} frames of {S}² in {wall:.3f} s host wall ({wall / len(frames) * 1e3:.1f} ms a "
           f"frame); blend_fwd launches {b1}; video: {video}")
     if len(frames) != SPIRAL_FRAMES or b1 != SPIRAL_FRAMES:
@@ -3290,7 +3259,7 @@ def phase20_cli(dev, bear, tmp: Path) -> dict:
         cli.NearestCameraProbe = real_probe
     n_probe = probes[0].probes
     shape = (2 * S, S + 2 * S, 3)  # the eyes stacked, then the train view resized to 2S rows
-    video = check_video("camera-path", d, ODS_FRAMES, shape)
+    video = check_video("camera-path", d, frames)
     print(f"    camera-path, omni-directional stereo with --render-nearest-camera --check-occlusions: "
           f"{len(frames)} frames of {frames[0].shape[1]}×{frames[0].shape[0]} (eyes top-bottom + the nearest view) "
           f"in {wall:.3f} s host wall; blend_fwd launches {b1} = {2 * ODS_FRAMES} eye renders + {n_probe} 16² "
@@ -3307,10 +3276,15 @@ def phase20_cli(dev, bear, tmp: Path) -> dict:
     frames, wall, b1 = run_cli(dev, ["spiral", "--data", str(small), "--ckpt", str(ckpt), "--frames",
                                                     str(JPG_FRAMES), "--fmt", "jpg", "--fps", str(CLI_FPS)], d)
     jpgs = sorted(d.glob("frame_*.jpg"))
-    psnrs = [psnr_u8(native.read_jpeg(p), f) for p, f in zip(jpgs, frames)]
-    print(f"    spiral --fmt jpg: {len(jpgs)} JPEGs (quality {cli.JPEG_QUALITY}, 4:2:0) in {wall:.3f} s host wall; "
-          f"blend_fwd launches {b1}; decoded by the port's decoder, PSNR {min(psnrs):.2f}-{max(psnrs):.2f} dB")
-    if len(jpgs) != JPG_FRAMES or b1 != JPG_FRAMES or min(psnrs) < JPEG_MIN_PSNR or list(d.glob("frame_*.png")):
+    pillow = []
+    for f in frames:
+        buf = io.BytesIO()
+        Image.fromarray(f).save(buf, "JPEG")
+        pillow.append(buf.getvalue())
+    same = sum(p.read_bytes() == b for p, b in zip(jpgs, pillow))
+    print(f"    spiral --fmt jpg: {len(jpgs)} JPEGs (Pillow's default quality 75) in {wall:.3f} s host wall; "
+          f"blend_fwd launches {b1}; {same} of {len(jpgs)} equal Pillow's encode of the frame byte for byte")
+    if len(jpgs) != JPG_FRAMES or b1 != JPG_FRAMES or same != JPG_FRAMES or list(d.glob("frame_*.png")):
         raise SystemExit("FAIL: --fmt jpg")
     out["jpg"] = frame_vs_cpu("spiral --fmt jpg (the frame before encoding)", frames[0], cpu_frame1(
         cli.scene_camera(parsed, cli.spiral_poses(parsed, JPG_FRAMES)[0], 1, "cpu")))
@@ -3334,7 +3308,7 @@ def phase20_cli(dev, bear, tmp: Path) -> dict:
             t0 = time.perf_counter()
             body = http(port, q)
             walls.append((time.perf_counter() - t0) * 1e3)
-            images.append(native.decode_jpeg(body))
+            images.append(np.asarray(Image.open(io.BytesIO(body))))
         b1 = blend_cuda.launches
         timings = viewer_parts(trace.records())
     finally:
@@ -3404,7 +3378,7 @@ def phase20_cli(dev, bear, tmp: Path) -> dict:
                 time.sleep(0.2)
                 continue
             t1 = time.perf_counter()
-            img = native.decode_jpeg(http(vport, f"/render?az={0.1 * len(polls):.3f}&el=0.3&r=4.0"))
+            img = np.asarray(Image.open(io.BytesIO(http(vport, f"/render?az={0.1 * len(polls):.3f}&el=0.3&r=4.0"))))
             live_walls.append((time.perf_counter() - t1) * 1e3)
             polls.append((st["step"], st["loss"], img.shape))
         worker.join(timeout=600)
@@ -3702,6 +3676,8 @@ def main(argv=None) -> int:
         return cli_only(torch.device("cuda"))
     if args.parallel:
         return parallel_only(torch.device("cuda"))
+    from PIL import Image
+
     from gaussctrl_exp_tpu_torch.cameras import camera_matrices, make_camera
     from gaussctrl_exp_tpu_torch.cli import render as cli
     from gaussctrl_exp_tpu_torch.engine.checkpoint import import_splatfacto_checkpoint
@@ -3711,7 +3687,6 @@ def main(argv=None) -> int:
     from gaussctrl_exp_tpu_torch.ops.binning import bin_gaussians
     from gaussctrl_exp_tpu_torch.ops.blend import rasterize_tiles_plain
     from gaussctrl_exp_tpu_torch.ops.projection import project_gaussians
-    from gaussctrl_exp_tpu_torch.utils.png import read_png
     from gaussctrl_exp_tpu_torch.engine.trainer import TrainConfig, Trainer, make_train_step
     from gaussctrl_exp_tpu_torch.models.densify import DensifyConfig
     from gaussctrl_exp_tpu_torch.models.gaussians import PARAM_NAMES
@@ -3774,7 +3749,7 @@ def main(argv=None) -> int:
             raise SystemExit(f"FAIL: {len(pngs)} PNGs written, expected {FRAMES}")
         coverage = []
         for p, fr in zip(pngs, frames):
-            img = read_png(p)
+            img = np.asarray(Image.open(p))
             if img.shape != (S, 3 * S, 3) or not np.array_equal(img, fr):
                 raise SystemExit(f"FAIL: {p.name} does not hold the rendered frame")
             coverage.append(float((img[:, 2 * S:, 0] > 127).mean()))

@@ -5,8 +5,9 @@ Port of ``gaussctrl_exp_tpu/cli/render.py``. ``--ckpt`` is a splatfacto
 ``.ckpt`` or a training checkpoint directory written by ``cli/train.py``
 (its latest ``step-*``). Frames are rendered with a white background at
 step 30 000 (full SH degree) and written as ``frame_00001.png`` (or
-``.jpg`` with ``--fmt jpg``, PIL's default quality 75) into ``--out``; the
-requested outputs (rgb, depth, accumulation) are concatenated side by side.
+``.jpg`` with ``--fmt jpg``, at Pillow's default quality 75) into ``--out``;
+the requested outputs (rgb, depth, accumulation) are concatenated side by
+side.
 
 Subcommands (the reference's gc_render.py:875-888):
   dataset      every camera of a split; each frame's raw depth divided by
@@ -25,8 +26,8 @@ Subcommands (the reference's gc_render.py:875-888):
   spiral       a circle of cameras around the scene, then a video
 
 The video is an mp4 from the written ``frame_%05d.png`` through an
-``ffmpeg`` binary when one is on the path, else an animated GIF
-(``utils/gif.py``), the JAX package's order without its imageio step.
+``ffmpeg`` binary when one is on the path, else an animated GIF written by
+Pillow, the JAX package's order without its imageio step.
 
 Usage:
   python -m gaussctrl_exp_tpu_torch.cli.render dataset \\
@@ -57,15 +58,10 @@ from ..device import resolve_device
 from ..engine.checkpoint import import_splatfacto_checkpoint, load_gaussians
 from ..models.gaussians import GaussianState
 from ..models.splat_model import ModelOutputs, SplatModelConfig, render_model
-from ..native import encode_jpeg, read_jpeg
 from ..utils.colormaps import apply_depth_colormap
-from ..utils.gif import write_gif
-from ..utils.png import is_png, read_png, write_png
-from ..utils.resize import pil_bicubic_uint8
 from ..utils.video import insert_spherical_metadata, stack_stereo
 
 EVAL_STEP = 30_000  # past every SH degree step: renders at the full degree
-JPEG_QUALITY = 75  # PIL's default, which the JAX package's frames are saved at
 STEREO_TYPES = {
     "omni-directional-stereo": "ods",
     "omnidirectional": "ods",
@@ -99,19 +95,6 @@ def load_state(ckpt: str | Path, device) -> GaussianState:
     return load_gaussians(ckpt, device)[0]
 
 
-def write_frame(path: Path, frame: np.ndarray) -> None:
-    """A PNG, or a JPEG at PIL's default quality when ``path`` ends in .jpg."""
-    if path.suffix == ".jpg":
-        path.write_bytes(encode_jpeg(frame, JPEG_QUALITY))
-    else:
-        write_png(path, frame)
-
-
-def read_image(path: str | Path) -> np.ndarray:
-    """A PNG or baseline JPEG file as (H, W, 3) uint8 RGB."""
-    return read_png(path) if is_png(path) else read_jpeg(path)
-
-
 def write_video(out_dir: Path, frames: Sequence[np.ndarray], fps: int) -> Path:
     """``render.mp4`` from the written ``frame_%05d.png`` through an
     ``ffmpeg`` binary when one is on the path and succeeds, else
@@ -123,8 +106,11 @@ def write_video(out_dir: Path, frames: Sequence[np.ndarray], fps: int) -> Path:
                "-pix_fmt", "yuv420p", str(p)]
         if subprocess.run(cmd, capture_output=True).returncode == 0:
             return p
+    from PIL import Image
+
+    imgs = [Image.fromarray(f) for f in frames]
     p = out_dir / "render.gif"
-    write_gif(p, frames, duration_ms=int(1000 / fps), loop=0)
+    imgs[0].save(p, save_all=True, append_images=imgs[1:], duration=int(1000 / fps), loop=0)
     return p
 
 
@@ -194,11 +180,13 @@ class NearestCameraProbe:
         return best_i if best_i >= 0 else tbest_i
 
     def lookup(self, state: GaussianState, cam: Camera, height: int, cfg: SplatModelConfig) -> np.ndarray:
-        """The nearest view's image, resized to ``height`` rows as PIL's
-        default (bicubic) resize does."""
-        img = read_image(self.images[self.nearest_index(state, cam, cfg)])
+        """The nearest view's image, resized to ``height`` rows by PIL's
+        default (bicubic) filter."""
+        from PIL import Image
+
+        img = np.asarray(Image.open(self.images[self.nearest_index(state, cam, cfg)]).convert("RGB"))
         w = int(round(img.shape[1] * height / img.shape[0]))
-        return pil_bicubic_uint8(img, (w, height))
+        return np.asarray(Image.fromarray(img).resize((w, height)))
 
 
 def render_cameras(
@@ -222,6 +210,8 @@ def render_cameras(
     probe's train view is appended on the right; with ``depth_dir`` (mono
     only) each raw depth divided by ``dataparser_scale`` is saved as
     ``frame_00001.npy`` …; with ``video``, ``write_video`` follows."""
+    from PIL import Image
+
     cfg = cfg or SplatModelConfig(background_color="white")
     out_dir.mkdir(parents=True, exist_ok=True)
     if depth_dir is not None:
@@ -240,11 +230,11 @@ def render_cameras(
                     np.save(depth_dir / f"frame_{i + 1:05d}.npy", out.depth[..., 0].cpu().numpy() / dataparser_scale)
             if nearest is not None:
                 frame = np.concatenate([frame, nearest.lookup(state, cam, frame.shape[0], cfg)], axis=1)
-            write_frame(out_dir / f"frame_{i + 1:05d}.{fmt}", frame)
+            Image.fromarray(frame).save(out_dir / f"frame_{i + 1:05d}.{fmt}")
             frames.append(frame)
     if video:
         vp = write_video(out_dir, frames, fps)
-        print(f"video: {vp.name} ({'ffmpeg' if vp.suffix == '.mp4' else 'GIF writer'})")
+        print(f"video: {vp.name} ({'ffmpeg' if vp.suffix == '.mp4' else 'Pillow GIF'})")
         if vp.suffix == ".mp4" and stereo:
             insert_spherical_metadata(vp, {"ods": "top-bottom", "vr180": "left-right"}[stereo])
     return frames

@@ -23,6 +23,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import sys
 import threading
@@ -37,7 +38,6 @@ from ..cameras import look_at, make_camera
 from ..device import resolve_device
 from ..models.gaussians import GaussianState
 from ..models.splat_model import SplatModelConfig, render_model
-from ..native import encode_jpeg
 from ..utils import trace
 from ..utils.colormaps import apply_depth_colormap
 
@@ -104,6 +104,8 @@ def serve(state: Optional[GaussianState] = None, model_cfg: Optional[SplatModelC
     the host and colormap ("viewer.to_host", where it waits for the device)
     and the JPEG encode ("viewer.encode").
     """
+    from PIL import Image
+
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -131,7 +133,9 @@ def serve(state: Optional[GaussianState] = None, model_cfg: Optional[SplatModelC
                     img = np.clip(out.rgb.cpu().numpy(), 0, 1)
                 img = (img * 255).astype(np.uint8)
             with trace.span("viewer.encode"):
-                return encode_jpeg(img, JPEG_QUALITY)
+                buf = io.BytesIO()
+                Image.fromarray(img).save(buf, "JPEG", quality=JPEG_QUALITY)
+                return buf.getvalue()
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):

@@ -16,13 +16,12 @@ GaussCtrlDataManager (gc_datamanager.py):
 Images live as a host (V, H, W, 3) float32 numpy stack, as in the JAX
 package; ``camera(i)`` returns the port's ``Camera`` on ``device``.
 
-Decoding needs neither PIL nor OpenCV. JPEGs go through the native batch
-loader (``native/imageio.cpp``: baseline decode, integer box downscale,
-bilinear undistort remap, one thread a core). PNGs go through
-``utils/png.read_png``, the integer box filter of ``_fit_to`` and the native
-``undistort_f32``, as the JAX package treats a view its batch loader
-refuses. A file neither path reads, or an image whose size is not an integer
-multiple of the cameras', raises and names the file.
+Baseline JPEGs go through the native batch loader (``native/imageio.cpp``:
+decode, integer box downscale, bilinear undistort remap, one thread a core).
+Every view it refuses (a PNG, a progressive JPEG, a size that is not an
+integer multiple of the cameras') is decoded by Pillow, fitted by
+``_fit_to`` (the box filter at integer ratios, else Pillow's LANCZOS) and
+undistorted by the native ``undistort_f32``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,7 +37,6 @@ import torch
 from ..cameras import Camera, make_camera, stack_cameras
 from ..device import resolve_device
 from ..native import get_imageio
-from ..utils.png import is_png, read_png
 from .dataparser import DataParserConfig, DataparserOutputs, ParsedCameras, load_scene
 from .undistort import optimal_new_K
 
@@ -53,36 +51,33 @@ class DataManagerConfig:
 
 
 def _load_image(path: Path) -> np.ndarray:
-    """A PNG as (H, W, 3) float32 in [0, 1]: its bytes / 255."""
-    return read_png(path).astype(np.float32) / 255.0
+    """An image file as (H, W, 3) float32 in [0, 1]: Pillow's RGB / 255."""
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB"), dtype=np.float32) / 255.0
 
 
-def _fit_to(img: np.ndarray, H: int, W: int, path: Path) -> np.ndarray:
-    """Resize to the cameras' (downscaled) resolution with a box filter
-    (nerfstudio downscales with ffmpeg-area semantics); only integer ratios."""
+def _fit_to(img: np.ndarray, H: int, W: int) -> np.ndarray:
+    """Resize to the cameras' (downscaled) resolution: box filter for integer
+    ratios (nerfstudio downscales with ffmpeg-area semantics), PIL otherwise."""
     h, w = img.shape[:2]
     if (h, w) == (H, W) or not (H and W):
         return img
     if h % H == 0 and w % W == 0 and h // H == w // W:
         r = h // H
         return img.reshape(H, r, W, r, -1).mean(axis=(1, 3))
-    raise ValueError(f"{path}: a {w}×{h} image does not box-downscale to the cameras' {W}×{H}; "
-                     "only integer ratios are resized")
+    from PIL import Image
+
+    img8 = Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
+    return np.asarray(img8.resize((W, H), Image.LANCZOS), dtype=np.float32) / 255.0
 
 
 def _image_size(path: Path) -> tuple[int, int]:
-    """(W, H) of a PNG or of a JPEG the native decoder reads."""
-    if is_png(path):
-        h, w = read_png(path).shape[:2]
-        return w, h
-    lib = get_imageio()
-    handle = lib.img_open(str(path).encode())
-    if not handle:
-        raise ValueError(f"{path}: neither a PNG nor a baseline JPEG the native decoder reads")
-    try:
-        return lib.img_width(handle), lib.img_height(handle)
-    finally:
-        lib.img_close(handle)
+    """(W, H) of an image file."""
+    from PIL import Image
+
+    with Image.open(path) as img:
+        return img.size
 
 
 def _ptr(a: np.ndarray) -> ctypes.c_void_p:
@@ -114,13 +109,9 @@ def cache_images(paths: list, cams: ParsedCameras) -> tuple[np.ndarray, np.ndarr
     cpaths = (ctypes.c_char_p * V)(*[str(p).encode() for p in paths])
     n_ok = lib.load_undistort_batch(cpaths, V, H, W, _ptr(Ks), _ptr(dists), _ptr(newKs), _ptr(out),
                                     _ptr(failed), 0)
-    if n_ok < V:  # PNGs (and JPEGs the batch loader refuses, which raise)
+    if n_ok < V:  # non-JPEG / progressive views: PIL decode + native remap
         for i in sorted(failed[failed >= 0]):
-            path = Path(paths[i])
-            if not is_png(path):
-                raise ValueError(f"{path}: the native loader refused it (not a baseline JPEG, or its size "
-                                 f"is not an integer multiple of {W}×{H}), and it is not a PNG")
-            img = np.ascontiguousarray(_fit_to(_load_image(path), H, W, path), np.float32)
+            img = np.ascontiguousarray(_fit_to(_load_image(paths[i]), H, W), np.float32)
             if np.any(np.abs(dists[i]) > 0):
                 lib.undistort_f32(_ptr(img), H, W, 3, _ptr(Ks[i]), _ptr(dists[i]), _ptr(newKs[i]), _ptr(out[i]))
             else:

@@ -17,8 +17,6 @@ from pathlib import Path
 
 import numpy as np
 
-from ..utils.png import write_png
-
 
 class EventWriter:
     """Console + JSONL scalar writer with optional TensorBoard."""
@@ -55,8 +53,10 @@ class EventWriter:
             print(f"step {step:6d}  {body}")
 
     def put_image(self, step: int, name: str, image) -> None:
+        from PIL import Image
+
         img8 = (np.clip(np.asarray(image), 0, 1) * 255).astype("uint8")
-        write_png(self.log_dir / f"{name}_{step:06d}.png", img8)
+        Image.fromarray(img8).save(self.log_dir / f"{name}_{step:06d}.png")
         if self._tb is not None:
             self._tb.add_image(name, img8, step, dataformats="HWC")
 

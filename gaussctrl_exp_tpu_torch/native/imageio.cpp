@@ -7,14 +7,13 @@
 // (gc_datamanager.py:112-186, through nerfstudio's _undistort_image). One
 // `load_undistort_batch` call decodes + undistorts a whole scene's views on a
 // std::thread pool and writes the float32 (V,H,W,3) cache the DataManager
-// serves. The port adds the writers that PIL serves in the JAX package: a
-// baseline JPEG encoder (the render CLI's --fmt jpg, the viewer's /render)
-// and the GIF writer's LZW (utils/gif.py).
+// serves. Every other image read, write and resize of the port calls Pillow,
+// as the JAX package does.
 //
 //   * JPEG: baseline sequential (SOF0/SOF1), canonical Huffman, restart
 //     markers, 4:4:4 / 4:2:2 / 4:2:0 / grayscale, AAN float IDCT,
 //     center-aligned triangle chroma upsampling (libjpeg "fancy" equivalent).
-//     Progressive JPEGs return an error; the port's loader then raises.
+//     Progressive JPEGs return an error and the Python side falls back to PIL.
 //   * Undistort: inverse-map remap under the OPENCV rational model subset the
 //     scenes use — radial (1+k1r²+k2r⁴+k3r⁶)/(1+k4r²) + tangential p1,p2 —
 //     bilinear sampling, constant-black border (OpenCV undistort semantics).
@@ -22,7 +21,6 @@
 // Held against the JAX package's build of the same source in
 // tests/test_torch_data.py.
 
-#include <algorithm>
 #include <atomic>
 #include <cmath>
 #include <cstdint>
@@ -525,304 +523,6 @@ void undistort_into(const float* src, int H, int W, int C, const double K[9],
 
 }  // namespace
 
-namespace {
-
-// ---------------------------------------------------------------------------
-// JPEG baseline encoder (JFIF, 4:2:0, the standard tables)
-// ---------------------------------------------------------------------------
-//
-// What PIL's JPEG save writes by default: baseline sequential, the Annex K
-// quantisation tables scaled by libjpeg's quality rule, 2×2 subsampled
-// chroma, the Annex K Huffman tables (no optimisation). The colour
-// conversion is JFIF's, chroma is averaged over 2×2 pixels, the forward DCT
-// is the separable float DCT-II, coefficients are rounded to nearest after
-// quantisation; edges are padded by replicating the last row and column.
-// The bytes are not libjpeg's (its integer DCT and rounding differ); the
-// decoded pixels are held to a PSNR in tests/test_torch_video.py.
-
-const uint8_t kStdLumaQ[64] = {
-    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
-    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
-    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
-    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
-const uint8_t kStdChromaQ[64] = {
-    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
-    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
-    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
-    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
-
-const uint8_t kDcLumaBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
-const uint8_t kDcChromaBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
-const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
-const uint8_t kAcLumaBits[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
-const uint8_t kAcLumaVals[162] = {
-    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07,
-    0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0,
-    0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
-    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49,
-    0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69,
-    0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
-    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
-    0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5,
-    0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
-    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8,
-    0xf9, 0xfa};
-const uint8_t kAcChromaBits[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
-const uint8_t kAcChromaVals[162] = {
-    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71,
-    0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0,
-    0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
-    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48,
-    0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68,
-    0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
-    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
-    0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
-    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
-    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8,
-    0xf9, 0xfa};
-
-// canonical code (code, length) per symbol from a bits/vals table
-struct HuffCodes {
-  uint16_t code[256];
-  uint8_t len[256];
-  void build(const uint8_t bits[16], const uint8_t* vals) {
-    std::memset(len, 0, sizeof(len));
-    uint16_t c = 0;
-    int k = 0;
-    for (int l = 1; l <= 16; l++) {
-      for (int i = 0; i < bits[l - 1]; i++, k++) {
-        code[vals[k]] = c++;
-        len[vals[k]] = (uint8_t)l;
-      }
-      c <<= 1;
-    }
-  }
-};
-
-struct BitWriter {
-  std::vector<uint8_t>& out;
-  uint32_t buf = 0;
-  int cnt = 0;
-  explicit BitWriter(std::vector<uint8_t>& o) : out(o) {}
-  void put(uint32_t bits, int n) {  // n ≤ 16, most significant bit first
-    buf = (buf << n) | (bits & ((1u << n) - 1));
-    cnt += n;
-    while (cnt >= 8) {
-      uint8_t b = (uint8_t)(buf >> (cnt - 8));
-      out.push_back(b);
-      if (b == 0xFF) out.push_back(0x00);  // byte stuffing
-      cnt -= 8;
-    }
-    buf &= (1u << cnt) - 1;
-  }
-  void flush() {  // pad the last byte with ones
-    if (cnt > 0) put(0x7F, 8 - cnt);
-  }
-};
-
-void scale_quant(const uint8_t base[64], int quality, uint8_t out[64]) {
-  quality = std::max(1, std::min(100, quality));
-  int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
-  for (int i = 0; i < 64; i++) {
-    long t = ((long)base[i] * scale + 50) / 100;
-    out[i] = (uint8_t)std::max(1L, std::min(255L, t));
-  }
-}
-
-// separable float DCT-II of a level-shifted 8×8 block, JPEG's scaling
-void fdct8x8(const float in[64], float out[64]) {
-  static float c[8][8];
-  static bool init = false;
-  if (!init) {
-    for (int u = 0; u < 8; u++)
-      for (int x = 0; x < 8; x++)
-        c[u][x] = (u == 0 ? std::sqrt(0.125f) : 0.5f) * std::cos((2 * x + 1) * u * 3.14159265358979f / 16.0f);
-    init = true;
-  }
-  float tmp[64];
-  for (int y = 0; y < 8; y++)
-    for (int u = 0; u < 8; u++) {
-      float s = 0.f;
-      for (int x = 0; x < 8; x++) s += c[u][x] * in[y * 8 + x];
-      tmp[y * 8 + u] = s;
-    }
-  for (int v = 0; v < 8; v++)
-    for (int u = 0; u < 8; u++) {
-      float s = 0.f;
-      for (int y = 0; y < 8; y++) s += c[v][y] * tmp[y * 8 + u];
-      out[v * 8 + u] = s;
-    }
-}
-
-void encode_block(BitWriter& bw, const float blk[64], const uint8_t q[64], int& prev_dc, const HuffCodes& dc,
-                  const HuffCodes& ac) {
-  float f[64];
-  fdct8x8(blk, f);
-  int zz[64];
-  for (int i = 0; i < 64; i++) zz[i] = (int)std::lround(f[kZigzag[i]] / q[kZigzag[i]]);
-  auto magnitude = [](int v, int& nbits) -> uint32_t {
-    int a = v < 0 ? -v : v;
-    nbits = 0;
-    while (a) {
-      nbits++;
-      a >>= 1;
-    }
-    return (uint32_t)(v < 0 ? v - 1 : v);  // one's complement of |v| for negatives
-  };
-  int n;
-  uint32_t bits = magnitude(zz[0] - prev_dc, n);
-  prev_dc = zz[0];
-  bw.put(dc.code[n], dc.len[n]);
-  if (n) bw.put(bits, n);
-  int run = 0;
-  for (int i = 1; i < 64; i++) {
-    if (zz[i] == 0) {
-      run++;
-      continue;
-    }
-    while (run > 15) {
-      bw.put(ac.code[0xF0], ac.len[0xF0]);  // ZRL
-      run -= 16;
-    }
-    bits = magnitude(zz[i], n);
-    int sym = (run << 4) | n;
-    bw.put(ac.code[sym], ac.len[sym]);
-    bw.put(bits, n);
-    run = 0;
-  }
-  if (run) bw.put(ac.code[0x00], ac.len[0x00]);  // EOB
-}
-
-void put16(std::vector<uint8_t>& o, int v) {
-  o.push_back((uint8_t)(v >> 8));
-  o.push_back((uint8_t)v);
-}
-
-void put_dht(std::vector<uint8_t>& o, int cls_id, const uint8_t bits[16], const uint8_t* vals) {
-  int n = 0;
-  for (int i = 0; i < 16; i++) n += bits[i];
-  o.push_back(0xFF), o.push_back(0xC4);
-  put16(o, 2 + 1 + 16 + n);
-  o.push_back((uint8_t)cls_id);
-  o.insert(o.end(), bits, bits + 16);
-  o.insert(o.end(), vals, vals + n);
-}
-
-void encode_jpeg(const uint8_t* rgb, int w, int h, int quality, std::vector<uint8_t>& o) {
-  uint8_t ql[64], qc[64];
-  scale_quant(kStdLumaQ, quality, ql);
-  scale_quant(kStdChromaQ, quality, qc);
-  HuffCodes dcl, dcc, acl, acc;
-  dcl.build(kDcLumaBits, kDcVals);
-  dcc.build(kDcChromaBits, kDcVals);
-  acl.build(kAcLumaBits, kAcLumaVals);
-  acc.build(kAcChromaBits, kAcChromaVals);
-
-  const uint8_t soi_app0[] = {0xFF, 0xD8, 0xFF, 0xE0, 0x00, 0x10, 'J', 'F', 'I', 'F', 0x00,
-                              0x01, 0x01, 0x00, 0x00, 0x01, 0x00, 0x01, 0x00, 0x00};
-  o.insert(o.end(), soi_app0, soi_app0 + sizeof(soi_app0));
-  for (int t = 0; t < 2; t++) {  // DQT, zigzag order
-    const uint8_t* q = t ? qc : ql;
-    o.push_back(0xFF), o.push_back(0xDB);
-    put16(o, 67);
-    o.push_back((uint8_t)t);
-    for (int i = 0; i < 64; i++) o.push_back(q[kZigzag[i]]);
-  }
-  const uint8_t sof[] = {0xFF, 0xC0, 0x00, 0x11, 0x08};
-  o.insert(o.end(), sof, sof + sizeof(sof));
-  put16(o, h);
-  put16(o, w);
-  const uint8_t comps[] = {0x03, 0x01, 0x22, 0x00, 0x02, 0x11, 0x01, 0x03, 0x11, 0x01};
-  o.insert(o.end(), comps, comps + sizeof(comps));
-  put_dht(o, 0x00, kDcLumaBits, kDcVals);
-  put_dht(o, 0x10, kAcLumaBits, kAcLumaVals);
-  put_dht(o, 0x01, kDcChromaBits, kDcVals);
-  put_dht(o, 0x11, kAcChromaBits, kAcChromaVals);
-  const uint8_t sos[] = {0xFF, 0xDA, 0x00, 0x0C, 0x03, 0x01, 0x00, 0x02, 0x11, 0x03, 0x11, 0x00, 0x3F, 0x00};
-  o.insert(o.end(), sos, sos + sizeof(sos));
-
-  BitWriter bw(o);
-  int prev[3] = {0, 0, 0};
-  float Y[4][64], cb[64], cr[64];
-  for (int my = 0; my < (h + 15) / 16; my++)
-    for (int mx = 0; mx < (w + 15) / 16; mx++) {
-      std::memset(cb, 0, sizeof(cb));
-      std::memset(cr, 0, sizeof(cr));
-      for (int dy = 0; dy < 16; dy++)
-        for (int dx = 0; dx < 16; dx++) {
-          int y = std::min(my * 16 + dy, h - 1), x = std::min(mx * 16 + dx, w - 1);
-          const uint8_t* p = rgb + ((size_t)y * w + x) * 3;
-          float r = p[0], g = p[1], b = p[2];
-          Y[(dy / 8) * 2 + dx / 8][(dy % 8) * 8 + dx % 8] = 0.299f * r + 0.587f * g + 0.114f * b - 128.f;
-          int ci = (dy / 2) * 8 + dx / 2;
-          cb[ci] += 0.25f * (-0.168736f * r - 0.331264f * g + 0.5f * b);
-          cr[ci] += 0.25f * (0.5f * r - 0.418688f * g - 0.081312f * b);
-        }
-      for (int k = 0; k < 4; k++) encode_block(bw, Y[k], ql, prev[0], dcl, acl);
-      encode_block(bw, cb, qc, prev[1], dcc, acc);
-      encode_block(bw, cr, qc, prev[2], dcc, acc);
-    }
-  bw.flush();
-  o.push_back(0xFF), o.push_back(0xD9);
-}
-
-// ---------------------------------------------------------------------------
-// GIF LZW (variable-length codes up to 12 bits, least significant bit first)
-// ---------------------------------------------------------------------------
-
-void lzw_encode(const uint8_t* idx, size_t n, int min_code_size, std::vector<uint8_t>& o) {
-  const int clear = 1 << min_code_size, eoi = clear + 1;
-  std::vector<int32_t> table(4096 * 256);  // (prefix code, next index) -> code, -1 if absent
-  int next_code, code_size;
-  uint32_t buf = 0;
-  int cnt = 0;
-  auto emit = [&](int code) {
-    buf |= (uint32_t)code << cnt;
-    cnt += code_size;
-    while (cnt >= 8) {
-      o.push_back((uint8_t)buf);
-      buf >>= 8;
-      cnt -= 8;
-    }
-  };
-  auto reset = [&]() {
-    std::fill(table.begin(), table.end(), -1);
-    next_code = eoi + 1;
-    code_size = min_code_size + 1;
-  };
-  reset();
-  emit(clear);
-  if (n == 0) {
-    emit(eoi);
-    if (cnt) o.push_back((uint8_t)buf);
-    return;
-  }
-  int prefix = idx[0];
-  for (size_t i = 1; i < n; i++) {
-    int k = idx[i];
-    int32_t& slot = table[(size_t)prefix * 256 + k];
-    if (slot >= 0) {
-      prefix = slot;
-      continue;
-    }
-    emit(prefix);
-    if (next_code < 4096) {
-      slot = next_code++;
-      // the decoder widens one code later than the encoder adds the entry
-      if (next_code > (1 << code_size) && code_size < 12) code_size++;
-    } else {
-      emit(clear);
-      reset();
-    }
-    prefix = k;
-  }
-  emit(prefix);
-  emit(eoi);
-  if (cnt) o.push_back((uint8_t)buf);
-}
-
-}  // namespace
-
 // ---------------------------------------------------------------------------
 // C API
 // ---------------------------------------------------------------------------
@@ -854,42 +554,6 @@ void img_copy(void* h, uint8_t* dst) {
 
 void img_close(void* h) { delete (JpegImage*)h; }
 
-// Decode one JPEG held in memory (the same handle as img_open).
-void* img_decode(const uint8_t* buf, long n) {
-  auto* im = new JpegImage();
-  std::string err;
-  if (!decode_jpeg(buf, (size_t)n, *im, err)) {
-    delete im;
-    return nullptr;
-  }
-  return im;
-}
-
-// Encode an (h, w, 3) uint8 RGB image as a baseline JPEG; returns a byte
-// buffer handle (buf_size / buf_copy / buf_free).
-void* jpeg_encode(const uint8_t* rgb, int w, int h, int quality) {
-  auto* o = new std::vector<uint8_t>();
-  o->reserve((size_t)w * h / 4 + 1024);
-  encode_jpeg(rgb, w, h, quality, *o);
-  return o;
-}
-
-// LZW-compress n palette indices for a GIF image block (its code stream,
-// before the length-prefixed sub-blocks); returns a byte buffer handle.
-void* gif_lzw(const uint8_t* idx, long n, int min_code_size) {
-  auto* o = new std::vector<uint8_t>();
-  o->reserve((size_t)n / 2 + 16);
-  lzw_encode(idx, (size_t)n, min_code_size, *o);
-  return o;
-}
-
-long buf_size(void* h) { return (long)((std::vector<uint8_t>*)h)->size(); }
-void buf_copy(void* h, uint8_t* dst) {
-  auto* o = (std::vector<uint8_t>*)h;
-  std::memcpy(dst, o->data(), o->size());
-}
-void buf_free(void* h) { delete (std::vector<uint8_t>*)h; }
-
 // Undistort one float32 HxWxC image (standalone entry for tests/tools).
 void undistort_f32(const float* src, int H, int W, int C, const double* K,
                    const double* dist6, const double* newK, float* dst) {
@@ -900,7 +564,7 @@ void undistort_f32(const float* src, int H, int W, int C, const double* K,
 // float32 [n, H, W, 3] in [0,1]. Views whose dist6 is all-zero skip the remap.
 // Ks/dists/newKs: [n,9]/[n,6]/[n,9] row-major doubles. Returns the number of
 // successfully loaded views; failed views (decode error / size mismatch) get
-// index written into failed[] (caller-sized n) for the caller to handle.
+// index written into failed[] (caller-sized n) for a Python-side fallback.
 int load_undistort_batch(const char** paths, int n, int H, int W, const double* Ks,
                          const double* dists, const double* newKs, float* out,
                          int* failed, int nthreads) {

@@ -27,7 +27,6 @@ import numpy as np
 import torch
 
 from ..utils import trace
-from ..utils.resize import pil_bilinear_uint8
 
 BoxResult = Tuple[np.ndarray, Sequence[str], np.ndarray]
 
@@ -139,8 +138,10 @@ class ClipPatchBoxProvider:
 def clip_pixels(image: np.ndarray, size: int) -> np.ndarray:
     """An (H, W, 3) uint8 or [0, 1] float image → (1, 3, size, size) CLIP
     input: truncated to uint8, PIL's bilinear resize, CLIP's normalisation."""
+    from PIL import Image
+
     img = image if image.dtype == np.uint8 else (np.clip(image, 0, 1) * 255).astype(np.uint8)
-    img = pil_bilinear_uint8(img, (size, size)).astype(np.float32) / 255.0
+    img = np.asarray(Image.fromarray(img).resize((size, size), Image.BILINEAR), np.float32) / 255.0
     return ((img - CLIP_MEAN) / CLIP_STD).transpose(2, 0, 1)[None]
 
 

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils.resize import jax_resize_bilinear, pil_bilinear_uint8
+from ..utils.resize import jax_resize_bilinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -420,10 +420,12 @@ def preprocess_image(img_uint8: np.ndarray, img_size: int) -> tuple[np.ndarray, 
     """Resize longest side to img_size (PIL's bilinear), normalize, pad square
     (SamPredictor). Returns (batch (1, S, S, 3), scale factor original→model
     pixels)."""
+    from PIL import Image
+
     h, w = img_uint8.shape[:2]
     scale = img_size / max(h, w)
     nh, nw = int(round(h * scale)), int(round(w * scale))
-    resized = pil_bilinear_uint8(img_uint8, (nw, nh)).astype(np.float32)
+    resized = np.asarray(Image.fromarray(img_uint8).resize((nw, nh), Image.BILINEAR), np.float32)
     norm = (resized - PIXEL_MEAN) / PIXEL_STD
     out = np.zeros((img_size, img_size, 3), np.float32)
     out[:nh, :nw] = norm

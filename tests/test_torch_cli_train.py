@@ -516,8 +516,9 @@ def test_event_writer_and_profiler(tmp_path, monkeypatch):
     import sys
     import types
 
+    from PIL import Image
+
     from gaussctrl_exp_tpu_torch.engine.writer import EventWriter, Profiler
-    from gaussctrl_exp_tpu_torch.utils.png import read_png
 
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", types.SimpleNamespace(SummaryWriter=_FakeSummaryWriter))
     w = EventWriter(tmp_path / "logs", use_tensorboard=True, quiet=True)
@@ -530,7 +531,8 @@ def test_event_writer_and_profiler(tmp_path, monkeypatch):
     assert json.loads((tmp_path / "logs" / "config.json").read_text())["capacity"] == 1 << 17
     (rec,) = _events(tmp_path / "logs" / "events.jsonl")
     assert rec["step"] == 3 and rec["l1"] == 0.5 and rec["psnr"] == 20.0
-    np.testing.assert_array_equal(read_png(tmp_path / "logs" / "eval_000003.png"), (img * 255).astype(np.uint8))
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "logs" / "eval_000003.png")),
+                                  (img * 255).astype(np.uint8))
     assert tb.calls == [("init", "tb"), ("scalar", "l1", 0.5, 3), ("scalar", "psnr", 20.0, 3),
                         ("image", "eval", (4, 5, 3), 3, "HWC"), ("close",)]
     # without TensorBoard installed: JSONL and the console only

@@ -1,10 +1,10 @@
 """PyTorch port vs the JAX package: the scene loader.
 
 ``native/`` (the port's own g++ builds of the PLY reader and the image
-library), ``data/undistort.py``, ``data/ply.py``, ``utils/png.py``'s reader,
-``data/dataparser.py``, ``data/datamanager.py``, ``utils/cliconf.py`` and
-``configs.py``. Scenes are written to ``tmp_path`` from seeds
-(``tests/torch_data_scenes.py``). Everything before the cameras is numpy
+library), ``data/undistort.py``, ``data/ply.py``, ``data/dataparser.py``,
+``data/datamanager.py`` (its Pillow reads and resizes too), the PNG of
+``engine/writer.py``, ``utils/cliconf.py`` and ``configs.py``. Scenes are
+written to ``tmp_path`` from seeds (``tests/torch_data_scenes.py``). Everything before the cameras is numpy
 or the same C++ source, so the port must equal the JAX package bit for bit.
 """
 
@@ -27,6 +27,7 @@ from gaussctrl_exp_tpu.data import datamanager as jdm
 from gaussctrl_exp_tpu.data import dataparser as jdp
 from gaussctrl_exp_tpu.data import ply as jply
 from gaussctrl_exp_tpu.data import undistort as jund
+from gaussctrl_exp_tpu.engine.writer import EventWriter as JEventWriter
 from gaussctrl_exp_tpu.utils.cliconf import parse_config as jparse_config
 from gaussctrl_exp_tpu_torch import native
 from gaussctrl_exp_tpu_torch.cameras import camera_matrices
@@ -35,8 +36,8 @@ from gaussctrl_exp_tpu_torch.data import datamanager as tdm
 from gaussctrl_exp_tpu_torch.data import dataparser as tdp
 from gaussctrl_exp_tpu_torch.data import ply as tply
 from gaussctrl_exp_tpu_torch.data import undistort as tund
+from gaussctrl_exp_tpu_torch.engine.writer import EventWriter
 from gaussctrl_exp_tpu_torch.utils.cliconf import parse_config
-from gaussctrl_exp_tpu_torch.utils.png import read_png, write_png
 from torch_data_scenes import OPENCV, PLY_FORMATS, write_ply, write_scene
 from torch_one_thread import one_torch_thread  # noqa: F401  (fixture)
 
@@ -145,7 +146,7 @@ def test_ply_garbage_is_refused_by_both_packages(tmp_path):
         jply.read_ply_points(path)
 
 
-# ---------------------------------------------------------------- PNG
+# ---------------------------------------------------------------- PNG (Pillow in both packages)
 
 
 def _filter_rows(px: np.ndarray, ftypes) -> bytes:
@@ -179,12 +180,16 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
 
 
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
 def _png(path, px, ctype, ftypes, palette=None, depth=8, interlace=0):
     h, w = px.shape[:2]
     body = _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
     if palette is not None:
         body += _chunk(b"PLTE", palette.tobytes())
-    body += _chunk(b"IDAT", zlib.compress(_filter_rows(px, ftypes), 9))
+    passes = [px[y0::dy, x0::dx] for x0, y0, dx, dy in ADAM7] if interlace else [px]
+    body += _chunk(b"IDAT", zlib.compress(b"".join(_filter_rows(p, ftypes) for p in passes if p.size), 9))
     path.write_bytes(b"\x89PNG\r\n\x1a\n" + body + _chunk(b"IEND", b""))
 
 
@@ -194,7 +199,7 @@ CTYPES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 @pytest.mark.parametrize("ftypes", [(0,), (1,), (2,), (3,), (4,), (0, 1, 2, 3, 4)],
                          ids=["none", "sub", "up", "average", "paeth", "mixed"])
 @pytest.mark.parametrize("ctype", sorted(CTYPES))
-def test_png_reader_matches_pil(tmp_path, ctype, ftypes):
+def test_load_image_matches_jax_on_png_filters(tmp_path, ctype, ftypes):
     rng = np.random.default_rng(ctype * 10 + len(ftypes))
     h, w = 19, 23
     palette = None
@@ -205,38 +210,59 @@ def test_png_reader_matches_pil(tmp_path, ctype, ftypes):
         px = rng.integers(0, 256, (h, w, CTYPES[ctype])).astype(np.uint8)
     path = tmp_path / "t.png"
     _png(path, px, ctype, ftypes, palette)
-    want = np.asarray(Image.open(path).convert("RGB"))
-    np.testing.assert_array_equal(read_png(path), want)
+    got = tdm._load_image(path)
+    assert got.dtype == np.float32 and got.shape == (h, w, 3)
+    np.testing.assert_array_equal(got, jdm._load_image(path))
 
 
 @pytest.mark.parametrize("mode", ["L", "LA", "P", "RGB", "RGBA"])
-def test_png_reader_reads_what_pil_writes(tmp_path, mode):
+def test_load_image_matches_jax_on_what_pil_writes(tmp_path, mode):
     """PIL chooses the row filters itself (adaptively for 8-bit non-palette)."""
     from torch_data_scenes import smooth_image
 
     img = Image.fromarray(smooth_image(np.random.default_rng(5), 37, 41))
     img = img.quantize(64) if mode == "P" else img.convert(mode)
     img.save(tmp_path / "t.png")
-    np.testing.assert_array_equal(read_png(tmp_path / "t.png"), np.asarray(Image.open(tmp_path / "t.png").convert("RGB")))
+    np.testing.assert_array_equal(tdm._load_image(tmp_path / "t.png"), jdm._load_image(tmp_path / "t.png"))
 
 
-def test_png_reader_round_trips_the_writer(tmp_path):
-    img = np.random.default_rng(0).integers(0, 256, (17, 29, 3)).astype(np.uint8)
-    write_png(tmp_path / "w.png", img)
-    np.testing.assert_array_equal(read_png(tmp_path / "w.png"), img)
+def test_event_writer_png_round_trips(tmp_path):
+    """The eval image's PNG reads back as the quantised frame, and its bytes
+    are the JAX writer's."""
+    img = np.random.default_rng(0).uniform(0, 1, (17, 29, 3)).astype(np.float32)
+    for cls, sub in ((EventWriter, "port"), (JEventWriter, "jax")):
+        w = cls(tmp_path / sub, quiet=True)
+        w.put_image(3, "eval", img)
+        w.close()
+    got = tmp_path / "port" / "eval_000003.png"
+    np.testing.assert_array_equal(np.asarray(Image.open(got)), (img * 255).astype(np.uint8))
+    assert got.read_bytes() == (tmp_path / "jax" / "eval_000003.png").read_bytes()
 
 
-def test_png_reader_refuses_what_it_cannot_read(tmp_path):
-    px = np.zeros((4, 4, 3), np.uint8)
-    _png(tmp_path / "interlaced.png", px, 2, (0,), interlace=1)
-    Image.fromarray(np.zeros((4, 4), np.uint16)).save(tmp_path / "sixteen.png")
-    Image.fromarray(np.zeros((4, 4), bool)).save(tmp_path / "onebit.png")
+def test_load_image_and_fit_to_match_jax_where_the_reader_refused(tmp_path):
+    """Interlaced, 16-bit and one-bit PNGs load as the JAX package loads them,
+    a file Pillow cannot identify raises as it raises there, and a
+    non-integer downscale is the JAX package's LANCZOS."""
+    rng = np.random.default_rng(7)
+    _png(tmp_path / "interlaced.png", rng.integers(0, 256, (9, 11, 3)).astype(np.uint8), 2, (0,), interlace=1)
+    Image.fromarray(rng.integers(0, 65536, (9, 11)).astype(np.uint16)).save(tmp_path / "sixteen.png")
+    Image.fromarray(rng.integers(0, 2, (9, 11)).astype(bool)).save(tmp_path / "onebit.png")
     (tmp_path / "notpng.png").write_bytes(b"GIF89a")
     for name in ("interlaced.png", "sixteen.png", "onebit.png"):
-        with pytest.raises(ValueError, match=name):
-            read_png(tmp_path / name)
-    with pytest.raises(ValueError, match="not a PNG"):
-        read_png(tmp_path / "notpng.png")
+        got = tdm._load_image(tmp_path / name)
+        assert got.shape == (9, 11, 3), name
+        np.testing.assert_array_equal(got, jdm._load_image(tmp_path / name), err_msg=name)
+    errors = []
+    for mod in (tdm, jdm):
+        with pytest.raises(OSError, match="notpng.png") as e:
+            mod._load_image(tmp_path / "notpng.png")
+        errors.append(e.type)
+    assert errors[0] is errors[1]
+    img = tdm._load_image(tmp_path / "interlaced.png")
+    for H, W in ((4, 5), (13, 17), (9, 11), (3, 11)):
+        got = tdm._fit_to(img, H, W)
+        assert got.dtype == np.float32 and got.shape == (H, W, 3)
+        np.testing.assert_array_equal(got, jdm._fit_to(img, H, W))
 
 
 # ---------------------------------------------------------------- dataparser
@@ -378,19 +404,30 @@ def test_png_images_are_their_bytes_over_255(tmp_path):
 
 
 def test_datamanager_raises_and_names_the_file(tmp_path):
-    """No silent second decoder: a non-integer resize and a JPEG the native
-    decoder refuses (progressive) raise with the file's name."""
+    """A non-integer resize and a JPEG the native decoder refuses
+    (progressive) load as the JAX package loads them; a file Pillow cannot
+    read raises with the file's name, as it raises there."""
+    def managers(root):
+        return (tdm.DataManager(tdm.DataManagerConfig(dataparser=tdp.DataParserConfig(data=root)), device="cpu"),
+                jdm.DataManager(jdm.DataManagerConfig(dataparser=jdp.DataParserConfig(data=root))))
+
     root = write_scene(tmp_path / "odd", fmt="png", n=2)
     meta = json.loads((root / "transforms.json").read_text())
     meta["w"], meta["h"] = 21, 16  # 32×24 images, not an integer multiple
     (root / "transforms.json").write_text(json.dumps(meta))
-    with pytest.raises(ValueError, match="frame_00001.png.*integer"):
-        tdm.DataManager(tdm.DataManagerConfig(dataparser=tdp.DataParserConfig(data=root)), device="cpu")
+    got, want = managers(root)
+    assert got.images.shape == (2, 16, 21, 3)
+    np.testing.assert_array_equal(got.images, want.images)
 
     root = write_scene(tmp_path / "prog", fmt="jpg", n=2)
     Image.open(root / "images" / "frame_00002.jpg").save(root / "images" / "frame_00002.jpg", progressive=True)
-    with pytest.raises(ValueError, match="frame_00002.jpg"):
-        tdm.DataManager(tdm.DataManagerConfig(dataparser=tdp.DataParserConfig(data=root)), device="cpu")
+    got, want = managers(root)
+    np.testing.assert_array_equal(got.images, want.images)
+
+    (root / "images" / "frame_00002.jpg").write_bytes(b"not an image")
+    for mod, kw in ((tdm, dict(device="cpu")), (jdm, {})):
+        with pytest.raises(OSError, match="frame_00002.jpg"):
+            mod.DataManager(mod.DataManagerConfig(dataparser=mod.DataParserConfig(data=root)), **kw)
 
 
 def test_datamanager_refuses_a_missing_card(tmp_path):
@@ -456,10 +493,10 @@ def test_port_data_and_cli_import_no_jax_pil_cv2_orbax_or_flax():
                "gaussctrl_exp_tpu_torch.data", "gaussctrl_exp_tpu_torch.configs",
                "gaussctrl_exp_tpu_torch.engine.checkpoint", "gaussctrl_exp_tpu_torch.engine.writer",
                "gaussctrl_exp_tpu_torch.engine.trainer", "gaussctrl_exp_tpu_torch.native",
-               "gaussctrl_exp_tpu_torch.utils.cliconf", "gaussctrl_exp_tpu_torch.utils.png",
+               "gaussctrl_exp_tpu_torch.utils.cliconf",
                "gaussctrl_exp_tpu_torch.cli.viewer", "gaussctrl_exp_tpu_torch.parallel",
                "gaussctrl_exp_tpu_torch.parallel.distributed", "gaussctrl_exp_tpu_torch.parallel.edit_sharded",
-               "gaussctrl_exp_tpu_torch.utils.gif", "gaussctrl_exp_tpu_torch.utils.video"]
+               "gaussctrl_exp_tpu_torch.utils.video"]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")

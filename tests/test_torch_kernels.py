@@ -6,8 +6,8 @@ UNet evaluation against its eager calls.
 
 Needs an NVIDIA card and nvcc; without a card every test here skips, but
 for two host tests of the card machine's toolchain: the data loader's native
-libraries build with its g++, and the PNG reader round-trips the writer at
-512². The file imports neither JAX, PIL nor the JAX package and uses no
+libraries build with its g++, and the eval writer's PNG (Pillow) round-trips
+at 512². The file imports neither JAX nor the JAX package and uses no
 fixture of tests/conftest.py, so on a machine without JAX it runs with
 ``python -m pytest --noconftest tests/test_torch_kernels.py``.
 """
@@ -1068,12 +1068,20 @@ def test_native_libraries_build_with_gxx(tmp_path, monkeypatch):
     assert np.isfinite(out).all() and 0 < np.abs(out - src).max() < 1
 
 
-def test_png_reader_round_trips_the_writer_at_512(tmp_path):
-    from gaussctrl_exp_tpu_torch.utils.png import read_png, write_png
+def test_eval_png_round_trips_at_512(tmp_path):
+    """The eval image the writer saves reads back as the frame, in the bytes
+    of Pillow's own save of it."""
+    from PIL import Image
+
+    from gaussctrl_exp_tpu_torch.engine.writer import EventWriter
 
     img = np.random.default_rng(1).integers(0, 256, (512, 512, 3)).astype(np.uint8)
-    write_png(tmp_path / "f.png", img)
-    np.testing.assert_array_equal(read_png(tmp_path / "f.png"), img)
+    w = EventWriter(tmp_path, quiet=True)
+    w.put_image(1, "f", img / 255.0)
+    w.close()
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "f_000001.png")), img)
+    Image.fromarray(img).save(tmp_path / "want.png")
+    assert (tmp_path / "f_000001.png").read_bytes() == (tmp_path / "want.png").read_bytes()
 
 
 def _band_case(device, H=128, W=96, n=600, seed=3):
@@ -1133,19 +1141,47 @@ def test_band_blend_matches_the_full_frame(cuda_device, n_bands):
 
 
 @pytest.mark.cuda
-def test_jpeg_encoder_on_a_frame_read_back_from_the_card(cuda_device):
-    """A B1 render read back from the card, encoded at the viewer's quality
-    (90) and decoded by the port's decoder: PSNR ≥ 30 dB."""
-    from gaussctrl_exp_tpu_torch import native
+def test_viewer_jpeg_of_a_frame_read_back_from_the_card(cuda_device):
+    """The viewer's ``/render`` on the card: its body is Pillow's quality-90
+    encode (the JAX viewer's call) of the B1 render read back from the card."""
+    import io
+    import threading
+    import urllib.request
 
-    args, bins, H, W = _inputs(cuda_device, n=800, H=128, W=160, n_chan=3)
-    out = blend_cuda.rasterize_tiles(*args, bins, H, W)
-    frame = (out.img.clamp(0, 1).cpu().numpy() * 255).astype(np.uint8)
+    from PIL import Image
+
+    from gaussctrl_exp_tpu_torch.cli import viewer
+    from gaussctrl_exp_tpu_torch.models.gaussians import GaussianParams, GaussianState
+    from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig, render_model
+
+    rng = np.random.default_rng(4)
+    n, size = 800, 128
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=cuda_device)
+
+    params = GaussianParams(means=t(rng.normal(size=(n, 3)) * 0.5), scales=t(rng.normal(size=(n, 3)) * 0.3 - 3.0),
+                            quats=t(rng.normal(size=(n, 4))), features_dc=t(rng.normal(size=(n, 3))),
+                            features_rest=t(np.zeros((n, 15, 3))), opacities=t(rng.uniform(0, 3, (n, 1))))
+    state = GaussianState(params, torch.ones(n, dtype=torch.bool, device=cuda_device))
+    cfg = SplatModelConfig(background_color="white")
+    httpd = viewer.serve(state, cfg, port=0, size=size, device=cuda_device)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        with urllib.request.urlopen(f"http://localhost:{httpd.server_address[1]}/render?az=0.4&el=0.3&r=3.5",
+                                    timeout=120) as r:
+            body = r.read()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    with torch.no_grad():
+        out = render_model(state, viewer.orbit_camera(0.4, 0.3, 3.5, np.zeros(3), size, cuda_device),
+                           viewer.RENDER_STEP, cfg)
+    frame = (np.clip(out.rgb.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
     assert frame.std() > 5
-    data = native.encode_jpeg(frame, 90)
-    assert data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
-    back = native.decode_jpeg(data).astype(np.float64)
-    assert 10 * np.log10(255.0**2 / np.mean((back - frame) ** 2)) >= 30.0
+    buf = io.BytesIO()
+    Image.fromarray(frame).save(buf, "JPEG", quality=90)
+    assert body == buf.getvalue()
 
 
 # ------------------------------------- the CUDA graph of the ControlNet + UNet

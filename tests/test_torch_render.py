@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from gaussctrl_exp_tpu.cameras import look_at as jlook_at
 from gaussctrl_exp_tpu.cameras import make_camera as jmake_camera
@@ -35,7 +36,6 @@ from gaussctrl_exp_tpu_torch.models.gaussians import (
     params_from_numpy,
 )
 from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig, render_model
-from gaussctrl_exp_tpu_torch.utils.png import read_png, write_png
 from torch_one_thread import one_torch_thread  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -172,7 +172,7 @@ def test_camera_path_cli_cpu(tmp_path):
     pngs = sorted((tmp_path / "out").glob("frame_*.png"))
     assert [p.name for p in pngs] == ["frame_00001.png", "frame_00002.png"]
     for p, frame in zip(pngs, frames):
-        img = read_png(p)
+        img = np.asarray(Image.open(p))
         assert img.shape == (32, 3 * 48, 3)
         np.testing.assert_array_equal(img, frame)
     acc = frames[0][:, 2 * 48:, 0]
@@ -201,12 +201,16 @@ def test_cuda_refused_without_a_card(tmp_path):
     assert not (tmp_path / "o").exists()
 
 
-def test_png_round_trip(tmp_path):
+def test_png_round_trip(tmp_path, monkeypatch):
+    """The CLI's PNG frame reads back as the frame, in the bytes of the JAX
+    CLI's save call (its render stubbed to give the frame)."""
     img = np.random.default_rng(0).integers(0, 256, size=(7, 5, 3), dtype=np.uint8)
-    write_png(tmp_path / "a.png", img)
-    np.testing.assert_array_equal(read_png(tmp_path / "a.png"), img)
-    with pytest.raises(ValueError):
-        write_png(tmp_path / "b.png", img.astype(np.float32))
+    monkeypatch.setattr(cli, "render_model", lambda *a: None)
+    monkeypatch.setattr(cli, "frame_from_outputs", lambda *a: img)
+    cli.render_cameras(None, [None], tmp_path / "out")
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "out" / "frame_00001.png")), img)
+    Image.fromarray(img).save(tmp_path / "want.png")
+    assert (tmp_path / "out" / "frame_00001.png").read_bytes() == (tmp_path / "want.png").read_bytes()
 
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gaussctrl_exp_tpu")

@@ -6,8 +6,8 @@ The camera builders (``path_cameras`` for every camera type, ``offset_eye``,
 ``rotmat_to_quat``, ``interp_poses``, the spiral and interpolation cameras
 the subcommands build) equal the JAX functions' exactly (the same numpy and
 float32 arithmetic). The probe's appended column equals the JAX probe's bit
-for bit on a PNG scene (the same pixels, ``pil_bicubic_uint8`` is PIL's
-resize) with and without the occlusion check, on a scene whose nearest view
+for bit on a PNG scene (Pillow reads and resizes in both packages) with and
+without the occlusion check, on a scene whose nearest view
 a wall of gaussians hides. Whole frames from the CLIs are held to the JAX
 CLI's within 1 of 255 (the renders agree to ~1e-5, so a value near a
 quantisation step can round the other way). Torch on one thread.
@@ -30,7 +30,6 @@ from gaussctrl_exp_tpu_torch.cli import render as cli
 from gaussctrl_exp_tpu_torch.data.dataparser import DataParserConfig, load_scene
 from gaussctrl_exp_tpu_torch.engine.checkpoint import import_splatfacto_checkpoint
 from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig, render_model
-from gaussctrl_exp_tpu_torch.utils.png import read_png
 from torch_data_scenes import write_scene
 from torch_one_thread import one_torch_thread  # noqa: F401  (fixture)
 
@@ -190,12 +189,12 @@ def test_nearest_camera_probe_matches_jax(world, tmp_path):
         assert (probe.probes > 0) == check
     assert picks[False] == 0 and picks[True] != 0
     np.testing.assert_array_equal(probe.lookup(state, cam, 48, cfg),
-                                  cli.pil_bicubic_uint8(read_png(parsed.image_filenames[picks[True]]), (64, 48)))
+                                  np.asarray(Image.open(parsed.image_filenames[picks[True]]).resize((64, 48))))
 
 
 def _frames(d: Path, fmt="png"):
     files = sorted(d.glob(f"frame_*.{fmt}"))
-    return [read_png(p) if fmt == "png" else np.asarray(Image.open(p).convert("RGB")) for p in files]
+    return [np.asarray(Image.open(p).convert("RGB")) for p in files]
 
 
 @pytest.mark.parametrize("argv", [["spiral", "--frames", "3"], ["interpolate", "--steps", "2"]])
@@ -235,21 +234,18 @@ def test_stereo_camera_path_frames_match_jax_cli(world, tmp_path, ctype, shape):
 
 
 def test_fmt_jpg_frames(world, tmp_path):
-    """``--fmt jpg``: each frame a JPEG at PIL's default quality (75) that
-    PIL reads back within 0.5 dB of PIL's own encode of the frame."""
+    """``--fmt jpg``: each frame a JPEG at Pillow's default quality (75), the
+    bytes of the JAX CLI's frame on the same scene and Pillow's encode of
+    the frame the port returns."""
     import io
 
     root, _, ckpt = world
-    frames = cli.main(["spiral", "--data", str(root), "--ckpt", str(ckpt), "--frames", "2", "--fmt", "jpg",
-                       "--out", str(tmp_path / "t"), "--device", "cpu"])
-    got = _frames(tmp_path / "t", "jpg")
-    assert len(got) == 2 and not list((tmp_path / "t").glob("*.png"))
-    for g, f in zip(got, frames):
+    common = ["spiral", "--data", str(root), "--ckpt", str(ckpt), "--frames", "2", "--fmt", "jpg"]
+    jcli.main(common + ["--out", str(tmp_path / "j")])
+    frames = cli.main(common + ["--out", str(tmp_path / "t"), "--device", "cpu"])
+    got, want = (sorted((tmp_path / d).glob("frame_*.jpg")) for d in ("t", "j"))
+    assert len(got) == len(want) == 2 and not list((tmp_path / "t").glob("*.png"))
+    for g, w, f in zip(got, want, frames):
         buf = io.BytesIO()
         Image.fromarray(f).save(buf, "JPEG")
-        ref = np.asarray(Image.open(buf))
-
-        def psnr(a):
-            return 10 * np.log10(255.0**2 / max(np.mean((a.astype(np.float64) - f) ** 2), 1e-12))
-
-        assert psnr(g) >= psnr(ref) - 0.5
+        assert g.read_bytes() == w.read_bytes() == buf.getvalue()

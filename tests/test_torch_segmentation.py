@@ -1,6 +1,6 @@
-"""PyTorch port vs the JAX package: SAM, its checkpoint loader, the two
-resizes and LangSAM (``gaussctrl_exp_tpu_torch/segmentation/``,
-``utils/resize.py``).
+"""PyTorch port vs the JAX package: SAM, its checkpoint loader, its input
+preprocessing (Pillow's bilinear in both packages), the logits' resize and
+LangSAM (``gaussctrl_exp_tpu_torch/segmentation/``, ``utils/resize.py``).
 
 Seeded numpy inputs go through the JAX function and the port's, at tiny
 widths on one CPU thread. SAM's weights go across through
@@ -15,13 +15,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from PIL import Image
 
 from gaussctrl_exp_tpu.segmentation import lang_sam as jlang_sam
 from gaussctrl_exp_tpu.segmentation import sam as jsam
 from gaussctrl_exp_tpu_torch.segmentation import lang_sam, sam
 from gaussctrl_exp_tpu_torch.segmentation.convert import load_sam, sam_config_from_state_dict, sam_state_dict_from_flax
-from gaussctrl_exp_tpu_torch.utils.resize import jax_resize_bilinear, pil_bilinear_uint8
+from gaussctrl_exp_tpu_torch.utils.resize import jax_resize_bilinear
 from torch_one_thread import one_torch_thread  # noqa: F401  (fixture)
 from torch_seg_tiny import PADDED, TINY, jax_langsam_logits, jax_sam_params, jax_upscaled_logits, write_sam_pth
 
@@ -169,12 +168,14 @@ def test_load_sam_refuses_a_missing_card(models, tmp_path):
 
 @pytest.mark.parametrize("hw, size", [((512, 512), (1024, 1024)), ((512, 512), (224, 224)),
                                       ((375, 500), (1024, 768)), ((37, 53), (29, 71)), ((64, 48), (64, 17))])
-def test_pil_bilinear_uint8_is_pil_bit_for_bit(hw, size):
+def test_sam_preprocess_is_jax_bit_for_bit(hw, size):
+    """The longest side resized to the model input's (Pillow's bilinear,
+    up and down), normalised and padded, as the JAX package does."""
     img = np.random.default_rng(sum(hw)).integers(0, 256, (*hw, 3), dtype=np.uint8)
-    want = np.asarray(Image.fromarray(img).resize(size, Image.BILINEAR))
-    np.testing.assert_array_equal(pil_bilinear_uint8(img, size), want)
-    grey = img[..., 0]
-    np.testing.assert_array_equal(pil_bilinear_uint8(grey, size), np.asarray(Image.fromarray(grey).resize(size, Image.BILINEAR)))
+    want, want_scale = jsam.preprocess_image(img, max(size))
+    got, scale = sam.preprocess_image(img, max(size))
+    assert scale == want_scale and got.dtype == np.float32 and got.shape == (1, max(size), max(size), 3)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 128, 128), (2, 3, 20, 28), (2, 3, 32, 17), (2, 1, 7, 64)])

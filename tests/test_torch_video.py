@@ -1,44 +1,37 @@
-"""The port's image and video writers against PIL and the JAX package:
-``utils/video.py`` (its own copy), the native JPEG encoder, ``utils/gif.py``,
-``cli/render.write_video`` and ``utils/resize.pil_bicubic_uint8``.
+"""The port's image and video writers against the JAX package: the render
+CLI's JPEG frames, GIF and nearest-camera resize, the viewer's JPEG (Pillow
+in both packages, so the same bytes and pixels), and ``utils/video.py`` (its
+own copy).
 
-Tolerances, each against the source image:
-  * JPEG (quality 75 and 90, 4:2:0): decoded by PIL, a PSNR no more than
-    0.5 dB under that of PIL's own encode of the same image, decoded by PIL
-    (measured −0.06 to +0.57 dB); decoded by the port's decoder, no more
-    than 0.5 dB under PIL's encode decoded by the port's decoder (measured
-    −0.07 to +0.55 dB); at 512², PSNR ≥ 30 dB either way. The quantisation
-    tables equal PIL's exactly.
-  * GIF, decoded by PIL: a frame of ≤ 256 colours exactly; a smooth 512²
-    frame with noise PSNR ≥ 35 dB (measured 39.8); a 40×24 noisy frame of
-    more than 256 colours PSNR ≥ 35 dB (measured 38.8-38.9; PIL's own save
-    38.4-38.5).
-  * ``pil_bicubic_uint8`` equals PIL bit for bit.
+The JPEG cases drive the CLI's frame loop and the viewer's ``/render`` with
+the renders stubbed out, so both packages encode the same frame. The GIF
+cases hide ``imageio`` and ``ffmpeg`` from both packages, since the JAX
+package tries them first.
 """
 
 import io
 import os
 import stat
 import struct
+import sys
+import threading
+import urllib.request
 from pathlib import Path
+from types import SimpleNamespace
 
+import jax
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
+import gaussctrl_exp_tpu.models.splat_model as jsplat
+from gaussctrl_exp_tpu.cli import render as jcli
+from gaussctrl_exp_tpu.cli import viewer as jviewer
 from gaussctrl_exp_tpu.utils import video as jvideo
-from gaussctrl_exp_tpu_torch import native
 from gaussctrl_exp_tpu_torch.cli import render as cli
-from gaussctrl_exp_tpu_torch.utils import gif, video
-from gaussctrl_exp_tpu_torch.utils.resize import pil_bicubic_uint8
-
-JPEG_MIN_PSNR, JPEG_PIL_MARGIN = 30.0, 0.5  # the floor at 512²
-GIF_MIN_PSNR = 35.0
-
-
-def psnr(a, b) -> float:
-    mse = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)
-    return float("inf") if mse == 0 else 10 * np.log10(255.0**2 / mse)
+from gaussctrl_exp_tpu_torch.cli import viewer
+from gaussctrl_exp_tpu_torch.utils import video
 
 
 def smooth(h, w, seed=0, noise=5.0) -> np.ndarray:
@@ -48,76 +41,105 @@ def smooth(h, w, seed=0, noise=5.0) -> np.ndarray:
     return np.clip(base + rng.normal(0, noise, (h, w, 3)), 0, 255).astype(np.uint8)
 
 
+def cli_jpegs(tmp_path, monkeypatch, frame) -> tuple[bytes, bytes]:
+    """``frame`` written as ``--fmt jpg`` by the port's CLI and by the JAX
+    CLI's frame loop, the renders stubbed: (port bytes, JAX bytes)."""
+    monkeypatch.setattr(cli, "render_model", lambda *a: None)
+    monkeypatch.setattr(cli, "frame_from_outputs", lambda *a: frame)
+    monkeypatch.setattr(jcli, "_make_render_jit", lambda cfg=None: lambda *a: None)
+    monkeypatch.setattr(jcli, "_frame_from_outputs", lambda *a, **k: frame)
+    cli.render_cameras(None, [None], tmp_path / "port", fmt="jpg")
+    jcli._render_cameras(SimpleNamespace(params=None, alive=None), [None], tmp_path / "jax", "jpg", False)
+    return tuple((tmp_path / d / "frame_00001.jpg").read_bytes() for d in ("port", "jax"))
+
+
+def viewer_jpegs(monkeypatch, frame) -> tuple[bytes, bytes]:
+    """``/render`` of the port's viewer and of the JAX viewer, each render
+    stubbed to give ``frame`` / 255 as its rgb: (port body, JAX body)."""
+    rgb = frame.astype(np.float32) / 255.0
+    monkeypatch.setattr(viewer, "render_model", lambda *a: SimpleNamespace(rgb=torch.as_tensor(rgb), depth=None))
+    monkeypatch.setattr(jsplat, "render_model", lambda *a: SimpleNamespace(rgb=rgb, depth=None))
+    monkeypatch.setattr(jax, "jit", lambda f: f)
+    servers = [viewer.serve(state_fn=lambda: (None, 0, None), port=0, size=16, device="cpu"),
+               jviewer.serve(state_fn=lambda: (None, None, 0, None), port=0, size=16)]
+    for h in servers:
+        threading.Thread(target=h.serve_forever, daemon=True).start()
+    try:
+        bodies = []
+        for h in servers:
+            with urllib.request.urlopen(f"http://localhost:{h.server_address[1]}/render?az=0.3", timeout=60) as r:
+                assert r.headers.get("Content-Type") == "image/jpeg"
+                bodies.append(r.read())
+        return tuple(bodies)
+    finally:
+        for h in servers:
+            h.shutdown()
+            h.server_close()
+
+
 @pytest.mark.parametrize("quality", [75, 90])
 @pytest.mark.parametrize("shape", [(77, 101), (512, 512), (16, 16), (9, 33)])
-def test_jpeg_encoder_decodes_within_psnr(quality, shape):
+def test_jpeg_bytes_equal_jax(tmp_path, monkeypatch, quality, shape):
+    """Quality 75 is the CLI's ``--fmt jpg`` (Pillow's default), 90 the
+    viewer's ``/render``."""
     img = smooth(*shape)
-    data = native.encode_jpeg(img, quality)
-    pil = Image.open(io.BytesIO(data))
-    assert pil.format == "JPEG" and pil.size == (shape[1], shape[0]) and pil.mode == "RGB"
-    buf = io.BytesIO()
-    Image.fromarray(img).save(buf, "JPEG", quality=quality)
-    ref = Image.open(io.BytesIO(buf.getvalue()))
-    assert {k: list(v) for k, v in pil.quantization.items()} == {k: list(v) for k, v in ref.quantization.items()}
-    by_pil, by_port = psnr(np.asarray(pil.convert("RGB")), img), psnr(native.decode_jpeg(data), img)
-    assert by_pil >= psnr(np.asarray(ref), img) - JPEG_PIL_MARGIN
-    assert by_port >= psnr(native.decode_jpeg(buf.getvalue()), img) - JPEG_PIL_MARGIN
-    if shape == (512, 512):
-        assert min(by_pil, by_port) >= JPEG_MIN_PSNR
+    got, want = cli_jpegs(tmp_path, monkeypatch, img) if quality == 75 else viewer_jpegs(monkeypatch, img)
+    assert got == want
+    im = Image.open(io.BytesIO(got))
+    assert im.format == "JPEG" and im.size == (shape[1], shape[0]) and im.mode == "RGB"
 
 
-def test_jpeg_encoder_refuses_bad_input():
-    with pytest.raises(ValueError):
-        native.encode_jpeg(np.zeros((4, 4, 3), np.float32))
-    with pytest.raises(ValueError):
-        native.encode_jpeg(np.zeros((4, 4, 3), np.uint8), quality=0)
-    with pytest.raises(ValueError, match="baseline JPEG"):
-        native.decode_jpeg(b"not a jpeg")
+def test_jpeg_bytes_equal_jax_on_a_grey_frame(tmp_path, monkeypatch):
+    """A frame of one grey level, through both the CLI and the viewer."""
+    img = np.full((24, 40, 3), 128, np.uint8)
+    for got, want in (cli_jpegs(tmp_path, monkeypatch, img), viewer_jpegs(monkeypatch, img)):
+        assert got == want
+
+
+def gif_pair(tmp_path, monkeypatch, frames, fps) -> tuple[Path, Path]:
+    """``render.gif`` of the port's ``write_video`` and of the JAX
+    package's ``_write_video``, with ``imageio`` and ``ffmpeg`` hidden."""
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    monkeypatch.setitem(sys.modules, "imageio", None)
+    out = []
+    for name, fn in (("port", cli.write_video), ("jax", jcli._write_video)):
+        (tmp_path / name).mkdir()
+        out.append(fn(tmp_path / name, frames, fps))
+    assert [p.name for p in out] == ["render.gif", "render.gif"]
+    return out[0], out[1]
 
 
 @pytest.mark.parametrize("fps", [24, 2, 30])
-def test_gif_matches_pil_timing_and_frames(tmp_path, fps):
+def test_write_video_gif_equals_jax(tmp_path, monkeypatch, fps):
     frames = [smooth(512, 512, seed=i, noise=3.0) for i in range(3)]
     rng = np.random.default_rng(1)
     frames.append((rng.integers(0, 4, (512, 512, 3)) * 60).astype(np.uint8))  # 64 colours
-    gif.write_gif(tmp_path / "a.gif", frames, duration_ms=int(1000 / fps), loop=0)
-    Image.fromarray(frames[0]).save(tmp_path / "pil.gif", save_all=True, duration=int(1000 / fps), loop=0,
-                                    append_images=[Image.fromarray(f) for f in frames[1:]])
-    im, ref = Image.open(tmp_path / "a.gif"), Image.open(tmp_path / "pil.gif")
-    assert im.n_frames == len(frames) and im.size == (512, 512)
-    assert im.info["duration"] == ref.info["duration"] == int(int(1000 / fps) / 10) * 10
-    assert im.info["loop"] == ref.info["loop"] == 0
-    for i, f in enumerate(frames):
-        im.seek(i)
-        got = np.asarray(im.convert("RGB"))
-        if i == 3:
-            np.testing.assert_array_equal(got, f)
-        else:
-            assert psnr(got, f) >= GIF_MIN_PSNR
+    got, want = gif_pair(tmp_path, monkeypatch, frames, fps)
+    assert got.read_bytes() == want.read_bytes()
+    im = Image.open(got)
+    assert im.n_frames == len(frames) and im.size == (512, 512) and im.info["loop"] == 0
+    im.seek(3)
+    np.testing.assert_array_equal(np.asarray(im.convert("RGB")), frames[3])
 
 
-def test_gif_loop_count_and_small_frames(tmp_path):
-    """A finite loop count, and small frames of more than 256 colours (the
-    median cut on a few hundred distinct colours)."""
+def test_write_video_gif_equals_jax_on_small_frames(tmp_path, monkeypatch):
+    """Small frames of more than 256 colours (Pillow quantises them)."""
     frames = [smooth(40, 24, seed=i) for i in range(2)]
     assert all(len(np.unique(f.reshape(-1, 3), axis=0)) > 256 for f in frames)
-    gif.write_gif(tmp_path / "f.gif", frames, duration_ms=100, loop=3)
-    im = Image.open(tmp_path / "f.gif")
-    assert im.info["loop"] == 3 and im.info["duration"] == 100 and im.n_frames == 2
-    for i, f in enumerate(frames):
-        im.seek(i)
-        assert psnr(np.asarray(im.convert("RGB")), f) >= GIF_MIN_PSNR
+    got, want = gif_pair(tmp_path, monkeypatch, frames, 10)
+    assert got.read_bytes() == want.read_bytes()
+    assert Image.open(got).n_frames == 2
 
 
-def test_lzw_round_trip_through_pil_on_long_runs(tmp_path):
-    """Runs long enough to fill the 4096-entry table several times (the
-    clear code and 12-bit codes)."""
+def test_write_video_gif_equals_jax_on_long_runs(tmp_path, monkeypatch):
+    """Runs long enough to fill the LZW table several times."""
     rng = np.random.default_rng(2)
     idx = np.repeat(rng.integers(0, 6, 40_000), rng.integers(1, 9, 40_000))[: 300 * 301]
     pal = (np.arange(6)[:, None] * 40 + np.array([0, 10, 20])).astype(np.uint8)
     frame = pal[idx.reshape(300, 301)]
-    gif.write_gif(tmp_path / "l.gif", [frame], duration_ms=40)
-    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "l.gif").convert("RGB")), frame)
+    got, want = gif_pair(tmp_path, monkeypatch, [frame], 25)
+    assert got.read_bytes() == want.read_bytes()
+    np.testing.assert_array_equal(np.asarray(Image.open(got).convert("RGB")), frame)
 
 
 def _mini_mp4(path: Path) -> bytes:
@@ -155,11 +177,17 @@ def test_stack_stereo_matches_jax():
 
 @pytest.mark.parametrize("src,size", [((64, 64), (64, 32)), ((77, 101), (33, 25)), ((40, 50), (130, 90)),
                                       ((100, 100), (37, 100)), ((64, 48), (85, 64)), ((30, 40), (40, 30))])
-def test_pil_bicubic_matches_pil(src, size):
+def test_nearest_camera_resize_equals_jax(tmp_path, src, size):
+    """The probe's train view, read and resized to the frame's height
+    (Pillow's default bicubic), as the JAX probe gives it."""
     img = np.random.default_rng(sum(src)).integers(0, 256, (*src, 3)).astype(np.uint8)
-    np.testing.assert_array_equal(pil_bicubic_uint8(img, size), np.asarray(Image.fromarray(img).resize(size)))
-    np.testing.assert_array_equal(pil_bicubic_uint8(img[..., 0], size),
-                                  np.asarray(Image.fromarray(img[..., 0]).resize(size)))
+    Image.fromarray(img).save(tmp_path / "view.png")
+    parsed = SimpleNamespace(image_filenames=[tmp_path / "view.png"], cameras=SimpleNamespace(c2w=np.eye(4)[None, :3]))
+    height = size[1]
+    got = cli.NearestCameraProbe(parsed, False).lookup(None, SimpleNamespace(c2w=torch.eye(4)), height, None)
+    want = jcli.NearestCameraProbe(parsed, False).lookup(None, None, SimpleNamespace(c2w=np.eye(4)), height)
+    assert got.dtype == np.uint8 and got.shape == (height, int(round(src[1] * height / src[0])), 3)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_write_video_gif_without_ffmpeg(tmp_path, monkeypatch):

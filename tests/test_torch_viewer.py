@@ -4,10 +4,10 @@ the unedited images), renders read from ``Trainer.snapshot`` while the
 trainer runs on another thread, and ``cli.train --viewer-port``.
 
 A ``/render`` JPEG is held to the scene's render at the page's orbit pose:
-decoded by PIL, no more than 0.5 dB of PSNR under PIL's own quality-90
-encode of that render (the JAX viewer's encoder), and to the JAX viewer's
-response on the same checkpoint within 30 dB (two encoders, two
-renderers). Torch on one thread.
+its bytes are Pillow's quality-90 encode of that render (the JAX viewer's
+call), and it is within 30 dB of the JAX viewer's response on the same
+checkpoint (two renderers, which agree to ~1e-5 before quantisation).
+Torch on one thread.
 """
 
 import io
@@ -26,7 +26,6 @@ from gaussctrl_exp_tpu.models.gaussians import GaussianParams as JParams
 from gaussctrl_exp_tpu.models.gaussians import GaussianState as JState
 from gaussctrl_exp_tpu.models.splat_model import SplatModelConfig as JModelConfig
 from gaussctrl_exp_tpu.ops.renderer import RenderConfig as JRenderConfig
-from gaussctrl_exp_tpu_torch import native
 from gaussctrl_exp_tpu_torch.cli import viewer
 from gaussctrl_exp_tpu_torch.engine.trainer import TrainConfig, Trainer
 from gaussctrl_exp_tpu_torch.models.densify import DensifyConfig
@@ -40,7 +39,7 @@ from torch_one_thread import one_torch_thread  # noqa: F401  (fixture)
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SIZE = 48
-JPEG_MARGIN_DB, JAX_MIN_DB = 0.5, 30.0
+JAX_MIN_DB = 30.0
 
 
 def _get(port, path):
@@ -87,7 +86,6 @@ def test_static_viewer_routes_match_the_render_and_the_jax_viewer():
             assert kind == "image/jpeg"
             got = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
             assert got.shape == (SIZE, SIZE, 3)
-            np.testing.assert_array_equal(native.decode_jpeg(body).shape, got.shape)
             want = np.asarray(Image.open(io.BytesIO(_get(jhttpd.server_address[1], f"/render?{q}")[0])))
             assert _psnr(got, want) >= JAX_MIN_DB
             if not depth:
@@ -98,7 +96,7 @@ def test_static_viewer_routes_match_the_render_and_the_jax_viewer():
                 ref = (np.clip(out.rgb.numpy(), 0, 1) * 255).astype(np.uint8)
                 buf = io.BytesIO()
                 Image.fromarray(ref).save(buf, "JPEG", quality=90)
-                assert _psnr(got, ref) >= _psnr(np.asarray(Image.open(buf)), ref) - JPEG_MARGIN_DB
+                assert body == buf.getvalue()
         with pytest.raises(urllib.error.HTTPError, match="404"):
             _get(port, "/nothing")
         with pytest.raises(urllib.error.HTTPError, match="404"):
@@ -208,7 +206,7 @@ def test_snapshot_is_consistent_and_records_no_graph_while_training():
     httpd.shutdown()
     assert not errors and not t.is_alive() and refines == [9, 12]
     for b in bodies:
-        assert native.decode_jpeg(b).shape == (SIZE, SIZE, 3)
+        assert np.asarray(Image.open(io.BytesIO(b))).shape == (SIZE, SIZE, 3)
     assert len(taken) == len(bodies) == 8
     for snap, step, _ in taken:
         want = boundaries[step]
