@@ -42,7 +42,12 @@ Phases (any failure exits non-zero):
   9. kernel B3 (csrc/flash_attn_fwd.cu) against ``sdpa_plain`` in fp32 on the
      same CUDA tensors, bf16 and fp32, at the edit path's self- and
      cross-attention shapes, a ragged shape and a reference-view call as the
-     cross-view processor builds it.
+     cross-view processor builds it; then kernel B3a (AttnAlign's
+     self-attention, in the same source) against ``align_attn_plain`` at
+     generation's self-attention shapes, 7 views a group, one reference and
+     coefficient 1 (B3's output), in fp32 within B3's fp32 limit and in bf16
+     no farther than today's five-call composition plus one bf16 ulp, two
+     runs bit for bit, and B3a's CTAs an SM against B3's at D = 40, 80, 160.
  10. kernel N1 (csrc/group_norm_nhwc.cu, GroupNorm + optional SiLU of bf16
      channels-last activations) against ``group_norm_plain`` on the same
      CUDA tensors at the 14 norm shapes of the SD1.x UNet and ControlNet
@@ -53,12 +58,14 @@ Phases (any failure exits non-zero):
      bear-scale scene's 6 views at 512², then 20 fine-tune steps of
      ``Trainer.train`` on the written-back images; B3's and N1's launches
      are read around the edit (N1: every GroupNorm of the UNet and the
-     ControlNet at every evaluation, graph replays included); one
+     ControlNet at every evaluation, graph replays included; B3a's, one per
+     generation evaluation and block, B3 for the rest); one
      full-width ``_eps`` in bf16 through B3 is held against fp32 through
      ``sdpa_plain``, and the tiny-width fp32 edit loop on the card against
      the same loop on the CPU.
  11. timings of the edit path by stage (CUDA events), the device busy share
-     of a generation step and B3's share of it (torch.profiler), and B3 at
+     of a generation step and B3's share of it (torch.profiler), B3a at the
+     main shape against today's five-call composition, and B3 at
      every phase-9 shape, the inversion's and (fp32) the depth generator's
      against its three bounds and ``scaled_dot_product_attention``, by
      device time with the SM clock read around each; N1 at the inversion's
@@ -152,7 +159,8 @@ Phases (any failure exits non-zero):
      4-band split against the full frame's rows, forward (B1) and the bands'
      summed backward (B2); ``make_sharded_generate`` at the full SD1.x
      widths in bf16 on 6 views, 5 steps, against the same generation
-     through ``make_cross_view_processor``, B3 counted.
+     through the unsharded composition (``cross_view_attention``: five B3
+     calls and the combine, the sharded processor's math), B3 counted.
 
 ``--blend`` builds only B1 and B2 (ptxas registers and spills, and, where
 cuobjdump runs, the instructions by class of each loop of B1 at C = 4 and
@@ -247,6 +255,17 @@ FLASH_SHAPES = [
     ("cross 16²", (CFG_BATCH, 8, 256, 77, 160)),
     ("ragged", (2, 3, 100, 77, 24)),
 ]
+# B3a (AttnAlign's self-attention) against align_attn_plain at generation's
+# self-attention shapes (coefficient 0.6, 4 references, 2 CFG groups), then
+# an odd number of views, one reference and coefficient 1 (B3's output):
+# (name, (B, H, S, S, D), coefficient, references)
+ALIGN_COEFF, ALIGN_REFS = 0.6, 4
+ALIGN_CASES = [*((name, shape, ALIGN_COEFF, ALIGN_REFS) for name, shape in FLASH_SHAPES[:4]),
+               ("7 views a group", (14, 8, 1024, 1024, 80), ALIGN_COEFF, ALIGN_REFS),
+               ("1 reference", (CFG_BATCH, 8, 1024, 1024, 80), ALIGN_COEFF, 1),
+               ("coefficient 1, 64²", FLASH_MAIN, 1.0, ALIGN_REFS),
+               ("coefficient 1, 16²", (CFG_BATCH, 8, 256, 256, 160), 1.0, ALIGN_REFS)]
+ALIGN_WIDTHS = (40, 80, 160)  # the head widths AttnAlign meets in the SD1.x UNet and ControlNet
 # B3 vs sdpa_plain in fp32 on the upcast inputs. bf16: the kernel rounds its
 # output to bf16 (2^-8 relative) and its probabilities before P·V, as the
 # reference does, so max |d| ≤ 1e-2·max|plain| and relative L2 ≤ 5e-3; fp32:
@@ -713,6 +732,122 @@ def flash_inputs(shape, dtype, seed, dev):
                  for L in (S, T, T))
 
 
+def align_plain_f32(q, k, v, coeff, n_ref):
+    """``align_attn_plain`` in fp32 on the upcast inputs (2 CFG groups), one
+    head at a time (~1.2 GB of scores at 64²)."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    return torch.cat([attention_cuda.align_attn_plain(q[:, h:h + 1].float(), k[:, h:h + 1].float(),
+                                                      v[:, h:h + 1].float(), coeff, n_ref, 2)
+                      for h in range(q.shape[1])], 1)
+
+
+def align_passes(B, n_ref, groups=2) -> int:
+    """B3a's passes over a batch of ``groups`` CFG groups: a reference view
+    makes n_ref (its own and the other references), any other view n_ref + 1."""
+    V = B // groups
+    return groups * (n_ref * n_ref + (V - n_ref) * (n_ref + 1))
+
+
+def check_align(name, shape, dtype, coeff, n_ref, seed, dev) -> float:
+    """B3a against ``align_attn_plain`` in fp32 on the upcast inputs: fp32
+    within B3's fp32 limit; bf16 no farther (max |d|) than today's bf16
+    composition (``cross_view_attention``: five B3 calls and the combine)
+    plus one bf16 ulp of the largest output. K and V read in place, two runs
+    bit for bit, coefficient 1 B3's output (bit for bit where B3a's tiles are
+    B3's: all but bf16 D = 80). Returns max |d|."""
+    from gaussctrl_exp_tpu_torch.diffusion.attention import cross_view_attention
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    q, k, v = flash_inputs(shape, dtype, seed, dev)
+    copies, launches = attention_cuda.copies, attention_cuda.align_launches
+    got = attention_cuda.flash_attn_align(q, k, v, coeff, n_ref, 2)
+    again = attention_cuda.flash_attn_align(q, k, v, coeff, n_ref, 2)
+    torch.cuda.synchronize()
+    want = align_plain_f32(q, k, v, coeff, n_ref)
+    d = (got.float() - want).abs()
+    err, top, rel = float(d.max()), float(want.abs().max()), float(d.norm() / want.norm())
+    text = (f"  B3a {name} {str(dtype).split('.')[-1]} (B, H, S, S, D) = {shape}, coefficient {coeff}, {n_ref} "
+            f"references: max|d| {err:.3e} (max|plain| {top:.3e}) relative L2 {rel:.3e}")
+    ok = torch.equal(got, again) and attention_cuda.copies == copies and \
+        attention_cuda.align_launches == launches + 2 and got.shape == q.shape and got.dtype == q.dtype
+    if dtype == torch.bfloat16:
+        split = cross_view_attention(q, k, v, coeff, n_ref, 2)
+        ds = (split.float() - want).abs()
+        ulp = torch.finfo(torch.bfloat16).eps * 2.0 ** np.floor(np.log2(top))
+        text += (f"; today's composition max|d| {float(ds.max()):.3e} relative L2 {float(ds.norm() / want.norm()):.3e}, "
+                 f"one bf16 ulp at max|plain| {ulp:.3e}")
+        ok = ok and err <= float(ds.max()) + ulp
+    else:
+        ok = ok and rel <= FLASH_F32_REL_L2
+    if coeff == 1.0:
+        b3 = attention_cuda.flash_attn(q, k, v)
+        same = torch.equal(got, b3)
+        text += f"; B3's output bit for bit {same}"
+        if dtype == torch.float32 or shape[-1] != 80:
+            ok = ok and same
+    print(text, flush=True)
+    if not ok:
+        raise SystemExit(f"FAIL: B3a on {name} {dtype}")
+    return err
+
+
+def align_occupancy() -> dict:
+    """CTAs an SM of B3 and B3a at AttnAlign's head widths, bf16 and fp32,
+    by the CUDA occupancy calculator; B3a may not have fewer than B3."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    rows = {(D, bf16): (attention_cuda.ctas_per_sm(D, bf16, False), attention_cuda.ctas_per_sm(D, bf16, True))
+            for D in ALIGN_WIDTHS for bf16 in (True, False)}
+    print("  CTAs an SM, B3 / B3a: " + "; ".join(f"D = {D} {'bf16' if bf16 else 'fp32'} {b3} / {b3a}"
+                                                for (D, bf16), (b3, b3a) in rows.items()), flush=True)
+    if any(b3a < b3 or b3a < 1 for b3, b3a in rows.values()):
+        raise SystemExit("FAIL: B3a fits fewer CTAs an SM than B3")
+    return rows
+
+
+def align_row(dev) -> dict:
+    """B3a at generation's main shape against today's composition (five B3
+    calls and the combine: every device op) and its plain version, with the
+    exponentials' floor of its passes beside it; printed."""
+    from gaussctrl_exp_tpu_torch.diffusion.attention import cross_view_attention
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+    from gaussctrl_exp_tpu_torch.utils.timing import attention_bound, device_ops_ms, gpu_clocks, kernel_time_ms
+
+    q, k, v = flash_inputs(FLASH_MAIN, torch.bfloat16, 97, dev)
+    args = (ALIGN_COEFF, ALIGN_REFS, 2)
+    c0 = gpu_clocks()
+    ms = kernel_time_ms(lambda: attention_cuda.flash_attn_align(q, k, v, *args), attention_cuda.B3A_KERNEL,
+                        ATTN_LAUNCHES)
+    c1 = gpu_clocks()
+    split = device_ops_ms(lambda: cross_view_attention(q, k, v, *args), ATTN_LAUNCHES)
+    c2 = gpu_clocks()
+    plain_ms = time_ms(lambda: attention_cuda.align_attn_plain(q, k, v, *args), iters=1, warmup=1)
+    passes = align_passes(FLASH_MAIN[0], ALIGN_REFS)
+    rated = attention_bound((passes, *FLASH_MAIN[1:]), torch.bfloat16)
+    split_ms = sum(split.values())
+    b3_ms = sum(t for n, t in split.items() if attention_cuda.B3_KERNEL in n)
+    print(f"    B3a {FLASH_MAIN} bf16, coefficient {ALIGN_COEFF}, {ALIGN_REFS} references ({passes} passes): "
+          f"{ms:.4f} ms device time ({ATTN_LAUNCHES} launches, every record kept); today's composition "
+          f"{split_ms:.4f} ms (B3 {b3_ms:.4f}; every device op: {ops_text(split)}); B3a / composition "
+          f"{ms / split_ms:.3f}; align_attn_plain {plain_ms:.4f} ms (CUDA events); the exponentials' floor of its "
+          f"passes {rated['exp_ms']:.5f} ms at 1830 MHz ({rated['exp_ms'] / ms:.3f} of B3a), its products "
+          f"{rated['ops_ms']:.5f} ms; SM clock before / after B3a / after the composition: "
+          + " | ".join(clock_text(c) for c in (c0, c1, c2)), flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=rated["exp_ms"], bound_by="exponentials", library_ms=None,
+                composition_ms=split_ms)
+
+
+def edit_launches(V, cfg, per_eval) -> tuple[int, int]:
+    """B3 and B3a launches of ``render_reverse`` and ``edit_images`` over V
+    views: the inversion's self- and cross-attention (B3) in each of its V ×
+    steps evaluations, and per generation evaluation (chunks × steps) one
+    cross-attention (B3) and one AttnAlign self-attention (B3a) a block."""
+    n_chunks = -(-V // cfg.chunk_size)
+    gen = n_chunks * cfg.num_inference_steps * per_eval
+    return V * cfg.num_inference_steps * 2 * per_eval + gen, gen
+
+
 class EditViews(ViewSet):
     """``ViewSet`` that the edit loop writes back into: the fine-tune then
     trains on the edited images."""
@@ -886,6 +1021,11 @@ def phase9_flash(dev) -> tuple[dict, list]:
           f"scores (batch 0) {lse_err:.3e} (limit {FLASH_F32_LSE})")
     if not same or lse_err > FLASH_F32_LSE:
         raise SystemExit("FAIL: B3 in fp32 is not deterministic, or its log-sum-exp is off")
+    print("[9] kernel B3a (AttnAlign's self-attention) vs align_attn_plain (fp32 on the upcast inputs)")
+    align_occupancy()
+    for i, (name, shape, coeff, n_ref) in enumerate(ALIGN_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            errs.setdefault(("align", dtype), []).append(check_align(name, shape, dtype, coeff, n_ref, 700 + i, dev))
     return {dtype: max(e) for dtype, e in errs.items()}, cases
 
 
@@ -915,10 +1055,10 @@ def phase10_edit(dev, state, cams, targets) -> dict:
     V, steps = len(views), cfg.num_inference_steps
     n_chunks = -(-V // cfg.chunk_size)
     per_eval = count_transformers(models.unet) + count_transformers(models.controlnet)
-    expected = V * steps * 2 * per_eval + n_chunks * steps * (2 + cfg.ref_view_num) * per_eval
+    expected, expected_align = edit_launches(V, cfg, per_eval)
     norms_eval = count_norms(models.unet) + count_norms(models.controlnet)
     expected_norms = (V + n_chunks) * steps * norms_eval
-    attention_cuda.launches = groupnorm_cuda.launches = 0
+    attention_cuda.launches = attention_cuda.align_launches = attention_cuda.copies = groupnorm_cuda.launches = 0
     blend_cuda.launches = blend_cuda.bwd_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -929,19 +1069,20 @@ def phase10_edit(dev, state, cams, targets) -> dict:
     pipe.edit_images(views)
     torch.cuda.synchronize()
     edit_wall = time.perf_counter() - t0
-    b3, b1, n1 = attention_cuda.launches, blend_cuda.launches, groupnorm_cuda.launches
+    b3, b3a, b1, n1 = attention_cuda.launches, attention_cuda.align_launches, blend_cuda.launches, groupnorm_cuda.launches
     print(f"    render_reverse {V} views at {S}² ({steps}-step inversion each) {reverse_wall:.3f} s; edit_images "
           f"{n_chunks} chunks of ≤ {cfg.chunk_size} views + {cfg.ref_view_num} references {edit_wall:.3f} s "
           f"(host wall, first calls included); reference views {select_reference_views(V, cfg.ref_view_num)}")
     print(f"    flash_attn_fwd launches {b3} (expected {expected}: {per_eval} Transformer2D blocks per UNet + "
-          f"ControlNet evaluation; inversion {V}×{steps}×{2 * per_eval}, generation "
-          f"{n_chunks}×{steps}×{(2 + cfg.ref_view_num) * per_eval}); blend_fwd launches {b1}; "
-          f"inputs the B3 wrapper copied {attention_cuda.copies}")
+          f"ControlNet evaluation; inversion {V}×{steps}×{2 * per_eval}, generation's cross-attention "
+          f"{n_chunks}×{steps}×{per_eval}); B3a (AttnAlign) launches {b3a} (expected {expected_align}: generation "
+          f"{n_chunks}×{steps}×{per_eval}); blend_fwd launches {b1}; inputs the wrappers copied {attention_cuda.copies}")
     print(f"    group_norm_nhwc (N1) launches {n1} (expected {expected_norms}: {norms_eval} GroupNorms per UNet + "
           f"ControlNet evaluation; inversion {V}×{steps}, generation {n_chunks}×{steps} evaluations)")
-    if b3 != expected or b1 != V or n1 != expected_norms:
-        raise SystemExit(f"FAIL: the edit path launched B3 {b3} times (expected {expected}), B1 {b1} times "
-                         f"(expected {V}) and N1 {n1} times (expected {expected_norms})")
+    if b3 != expected or b3a != expected_align or b1 != V or n1 != expected_norms or attention_cuda.copies:
+        raise SystemExit(f"FAIL: the edit path launched B3 {b3} times (expected {expected}), B3a {b3a} times "
+                         f"(expected {expected_align}), B1 {b1} times (expected {V}) and N1 {n1} times (expected "
+                         f"{expected_norms}), and copied {attention_cuda.copies} inputs (expected 0)")
     z0s = [pipe.z0[i] for i in range(V)]
     if not all(z.shape == (S // 8, S // 8, 4) and np.isfinite(z).all() for z in z0s):
         raise SystemExit("FAIL: a z0 is not finite or not (64, 64, 4)")
@@ -1001,7 +1142,7 @@ def phase10_edit(dev, state, cams, targets) -> dict:
     if max(tiny_rel) > TINY_LOOP_REL_L2:
         raise SystemExit("FAIL: the tiny edit loop on the card disagrees with the CPU")
     return dict(pipe=pipe, views=views, cfg=cfg, model_cfg=model_cfg, ft=ft, ft_cfg=ft_cfg, rev_ctx=rev_ctx,
-                lat2=lat2, hint2=hint2, b3_launches=b3, n1_launches=n1, norm_err=norm_err, edit_wall=edit_wall,
+                lat2=lat2, hint2=hint2, b3_launches=b3, b3a_launches=b3a, n1_launches=n1, norm_err=norm_err, edit_wall=edit_wall,
                 reverse_wall=reverse_wall)
 
 
@@ -1067,6 +1208,7 @@ def phase11_timings(dev, state, cams, edit, flash_cases) -> dict:
           f"{plain_ms:.4f} ms (CUDA events); scaled_dot_product_attention {main['sdpa_ms']:.4f} ms device time; "
           f"B3 / SDPA {main['ratio']:.3f}; at the data sheet's peaks bound {main['rated']['bound_ms']:.5f} ms "
           f"({main['rated']['bound_by']}), exponentials {main['rated']['exp_ms']:.5f} ms")
+    align = align_row(dev)
     gen = rows[f"generator {MV_SHAPES[0][0]}"]
     q, k, v = flash_inputs(MV_MAIN, torch.float32, 98, dev)
     gen_plain_ms = time_ms(lambda: attention_cuda.sdpa_plain(q, k, v), iters=2, warmup=1)
@@ -1077,6 +1219,7 @@ def phase11_timings(dev, state, cams, edit, flash_cases) -> dict:
           f"{gen['rated']['ops_ms']:.5f} ms at the fp32 FMA peak")
     norms = norm_rows(dev)
     return dict(ms=main["ms"], plain_ms=plain_ms, bound_ms=main["rated"]["bound_ms"], norm=norms[NORM_TIMED[0]],
+                align=align,
                 bound_by=main["rated"]["bound_by"], library_ms=main["sdpa_ms"],
                 f32=dict(ms=gen["ms"], plain_ms=gen_plain_ms, bound_ms=gen["rated"]["bound_ms"],
                          bound_by=gen["rated"]["bound_by"], library_ms=gen["sdpa_ms"]))
@@ -1347,10 +1490,11 @@ def blend_rows(dev, cases) -> dict:
 
 
 def attention_only(dev) -> int:
-    """``--attention``: kernels B3, B4 and B5 built, B3 checked at phase 9's
-    shapes, then the three alone against SDPA by device time (the kernel rows
-    of phases 11 and 15), for a before/after comparison of the attention
-    kernels within one chip call. Prints no kernels line and no result."""
+    """``--attention``: kernels B3, B3a, B4 and B5 built, B3 and B3a checked at
+    phase 9's shapes, then each alone by device time (the kernel rows of
+    phases 11 and 15: B3, B4 and B5 against SDPA, B3a against today's
+    composition), for a before/after comparison of the attention kernels
+    within one chip call. Prints no kernels line and no result."""
     from gaussctrl_exp_tpu_torch.ops import cuda_build
     from gaussctrl_exp_tpu_torch.utils.timing import spare_launches
 
@@ -1362,6 +1506,7 @@ def attention_only(dev) -> int:
     _, flash_cases = phase9_flash(dev)
     print("[11] B3 alone, by device time")
     b3_rows(dev, flash_cases)
+    align_row(dev)
     print("[15] B4 and B5 alone, by device time")
     bwd_rows(dev)
     print(f"spare launches a profiled cycle at the end {spare_launches()}")
@@ -2935,13 +3080,13 @@ def phase19_segment(dev, bear, tmp: Path) -> dict:
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        attention_cuda.launches = 0
+        attention_cuda.launches = attention_cuda.align_launches = 0
         blend_cuda.launches = blend_cuda.bwd_launches = 0
         t0 = time.perf_counter()
         trainer = train_cli.main(argv)
         torch.cuda.synchronize()
         cli_wall = time.perf_counter() - t0
-        launches = (blend_cuda.launches, blend_cuda.bwd_launches, attention_cuda.launches)
+        launches = (blend_cuda.launches, blend_cuda.bwd_launches, attention_cuda.launches, attention_cuda.align_launches)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finally:
         sd_convert.load_sd_models = real["load_sd"]
@@ -2953,8 +3098,7 @@ def phase19_segment(dev, bear, tmp: Path) -> dict:
     pipe, dm = seen["pipe"], trainer.dm
     V, cfg = len(dm), pipe.cfg
     n_chunks = -(-V // cfg.chunk_size)
-    want_b3 = V * cfg.num_inference_steps * 2 * per_eval + n_chunks * cfg.num_inference_steps * \
-        (2 + cfg.ref_view_num) * per_eval
+    want_b3, want_b3a = edit_launches(V, cfg, per_eval)
     want_b1 = V + SEG_FINETUNE_STEPS + 1 + len(dm.eval_indices())
     print(f"    cli.train: {V} views at {dm.width}², edit \"{EDIT_PROMPT}\" with masks of \"{SEG_OBJ}\", "
           f"{cfg.num_inference_steps} inference steps, then {SEG_FINETUNE_STEPS} fine-tune steps: {cli_wall:.2f} s "
@@ -2965,10 +3109,11 @@ def phase19_segment(dev, bear, tmp: Path) -> dict:
           f"load_clip {seen['clip_load_s']:.2f} s")
     print(f"    launches: blend_fwd {launches[0]} (expected {want_b1} = {V} renders + {SEG_FINETUNE_STEPS} steps + 1 eval "
           f"image + {len(dm.eval_indices())} evaluate views), blend_bwd {launches[1]} (expected {SEG_FINETUNE_STEPS}), "
-          f"flash_attn_fwd {launches[2]} (expected {want_b3}: phase 10's formula at {V} views, {per_eval} "
+          f"flash_attn_fwd {launches[2]} and B3a {launches[3]} (expected {want_b3} and {want_b3a}: phase 10's formula "
+          f"at {V} views, {per_eval} "
           f"Transformer2D blocks an evaluation)")
-    if launches != (want_b1, SEG_FINETUNE_STEPS, want_b3):
-        raise SystemExit(f"FAIL: launches {launches}, expected {(want_b1, SEG_FINETUNE_STEPS, want_b3)}")
+    if launches != (want_b1, SEG_FINETUNE_STEPS, want_b3, want_b3a):
+        raise SystemExit(f"FAIL: launches {launches}, expected {(want_b1, SEG_FINETUNE_STEPS, want_b3, want_b3a)}")
 
     # ---- the masks and the composite
     cover = []
@@ -3042,7 +3187,7 @@ def phase19_segment(dev, bear, tmp: Path) -> dict:
     torch.cuda.empty_cache()
     phase_s = time.perf_counter() - t_phase
     print(f"    phase 19 wall {phase_s:.1f} s (scene, checkpoints, the CLI run, timings and the CPU check)")
-    return dict(b1=launches[0], b2=launches[1], b3=launches[2])
+    return dict(b1=launches[0], b2=launches[1], b3=launches[2], b3a=launches[3])
 
 
 def segment_only(dev) -> int:
@@ -3447,8 +3592,9 @@ SHARDED_LOSS_RTOL, SHARDED_GRAD_REL_L2 = 1e-5, 1e-4
 # first row, so a pair at the 1/255 alpha edge or a pixel at the stop can
 # round the other way (one gaussian's weight at most)
 BAND_MAX, BAND_FRAC, BAND_GRAD_REL_L2 = 1e-2, 1e-2, 1e-4
-# the sharded generation at world size 1 against make_cross_view_processor:
-# the one-hot placement and the sum over one rank are exact
+# the sharded generation at world size 1 against the unsharded composition
+# (cross_view_attention): the one-hot placement and the sum over one rank
+# are exact
 GEN_REL_L2 = 1e-3
 
 
@@ -3461,7 +3607,7 @@ def phase21_parallel(dev, bear, tmp: Path) -> dict:
 
     from gaussctrl_exp_tpu_torch.cameras import stack_cameras
     from gaussctrl_exp_tpu_torch.cli import render as cli
-    from gaussctrl_exp_tpu_torch.diffusion.attention import make_cross_view_processor
+    from gaussctrl_exp_tpu_torch.diffusion.attention import _sdpa, cross_view_attention
     from gaussctrl_exp_tpu_torch.diffusion.pipeline import depth_to_disparity
     from gaussctrl_exp_tpu_torch.diffusion.sd_pipeline import SDControlNetPipeline, encode_prompt_ids, init_random_models
     from gaussctrl_exp_tpu_torch.models.gaussians import PARAM_NAMES, GaussianParams, GaussianState, params_from_numpy
@@ -3597,13 +3743,15 @@ def phase21_parallel(dev, bear, tmp: Path) -> dict:
         gen_s = time.perf_counter() - t0
         b3 = attention_cuda.launches
         t0 = time.perf_counter()
-        want = pipe.generate(lat, cc, cu, hint, 7.5, num_steps=GEN_STEPS, processor=make_cross_view_processor(0.6))
+        want = pipe.generate(lat, cc, cu, hint, 7.5, num_steps=GEN_STEPS,
+                             processor=lambda q, k, v, is_cross: _sdpa(q, k, v) if is_cross else
+                             cross_view_attention(q, k, v, 0.6))
         torch.cuda.synchronize()
         ref_s = time.perf_counter() - t0
         gen_rel = rel_l2(got, want)
         print(f"    make_sharded_generate, {GEN_VIEWS} views ({GEN_VIEWS} on this rank, references 0-3) at "
               f"{S // 8}² latents, full SD1.x widths in bf16, {GEN_STEPS} steps: {gen_s:.3f} s host wall (first "
-              f"call), make_cross_view_processor's generation {ref_s:.3f} s; relative L2 {gen_rel:.3e} (limit "
+              f"call), the unsharded composition's generation {ref_s:.3f} s; relative L2 {gen_rel:.3e} (limit "
               f"{GEN_REL_L2}); flash_attn_fwd launches {b3} (expected {expected} = {GEN_STEPS} steps × 6 per block "
               f"× {per_eval} blocks)")
         if gen_rel > GEN_REL_L2 or b3 != expected or not bool(torch.isfinite(got).all()):
@@ -4055,6 +4203,16 @@ def main(argv=None) -> int:
         "library_ms": flash["library_ms"],
         "segment_cli_launches": seg19["b3"],
         "sharded_generate_launches": par21["b3"],
+    }, {
+        "name": "flash_attn_align",
+        "route": "cuda",
+        "source": "gaussctrl_exp_tpu_torch/csrc/flash_attn_fwd.cu",
+        "replaces": "none: gaussctrl_exp_tpu/diffusion/attention.py make_cross_view_processor's five _sdpa calls "
+                    "and combine (XLA); added so that AttnAlign's self-attention is one launch on the card",
+        "launches": edit["b3a_launches"],
+        "max_abs_err": flash_errs[("align", torch.bfloat16)],
+        **flash["align"],
+        "segment_cli_launches": seg19["b3a"],
     }, {
         "name": "group_norm_nhwc",
         "route": "cuda",

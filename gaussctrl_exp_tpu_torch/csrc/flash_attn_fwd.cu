@@ -108,11 +108,46 @@
 // (flash_attn_bwd.cu) recompute P = exp(S - lse) from it. The output does not
 // depend on whether it is written, and no launch depends on another's order:
 // two runs give the same bits.
+//
+// Kernel B3a: AttnAlign's self-attention in one launch. It replaces no TPU
+// kernel: the JAX package's cross-view processor
+// (gaussctrl_exp_tpu/diffusion/attention.py `make_cross_view_processor`)
+// makes five `_sdpa` calls (the view's own keys, then reference views 0..3
+// of its CFG group, broadcast to every view) and combines them,
+// coeff·self + (1 − coeff)·mean(refs), in XLA. On the card that was five B3
+// launches, eight copies of the references' K and V to every batch entry
+// (the broadcast cannot be a view), a stack, a mean and three scalings, each
+// rounding to bf16: ~36 outputs' bytes a call outside B3. B3a computes, for
+// batch entry b = group·V + view,
+//   O = w_self·attn(Q, K_b, V_b) + Σ_r w_ref·attn(Q, K_{group·V + r}, V_{…})
+// with one CTA per (query tile, head, batch entry) as B3: Q is staged once
+// and read by every pass; each pass runs B3's ring loop (`attend`) over its
+// source's K and V read in place through their strides; after each pass
+// the CTA adds w·acc/l into an fp32 sum and stores the total once, rounded
+// to the input's type, in B3's (B, S, H, D) layout. A reference view's pass
+// over its own keys repeats its self pass bit for bit, so it is left out and
+// its weight, (1 − coeff)/n_ref, joins the self pass's: per CFG group of 9
+// views and 4 references, 41 passes where the composition made 45.
+// What bounds it: B3's per pass. At the edit path's main shape, (18, 8, 4096,
+// 4096, 40), 82 passes of B·H·S·T/18 exponentials each, 4.5 times B3's, so
+// 2.85 ms at 132 SMs and 1.83 GHz; the products 1.78 ms; the bytes of q and
+// o once and K, V per pass (they stay in L2) 0.16 ms.
+// Design: B3's tiles, per-tile code and arithmetic (bf16 on mma.sync, fp32 as
+// 3×TF32), and as many CTAs an SM as B3 at each width. The fp32 sum of the
+// passes is each thread's own fragments, kept in dynamic shared memory as
+// [element][thread] (conflict-free, no barrier): BQ·D·4 bytes, 20 KB at D =
+// 40; the registers are B3's. At D = 80 the sum, Q and a 32-key ring would
+// not fit three CTAs an SM, so B3a takes 16-key ring stages there. One
+// barrier between passes frees the ring. Coefficient 1 gives B3's output
+// bits where the tiles are B3's (every width but bf16 D = 80): the reference
+// passes still run, with weight 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tf32_mma.cuh"
 
@@ -126,19 +161,20 @@ struct Strides {
   long long b, h, s;
 };
 
-// the bf16 tiling for head width DT (D ≤ DT, both multiples of 8)
-template <int DT>
+// the bf16 tiling for head width DT (D ≤ DT, both multiples of 8), with BKEYS
+// keys a ring stage
+template <int DT, int BKEYS = (DT <= 40 ? 64 : 32)>
 struct Tile {
   static constexpr int WARPS = 4;
   static constexpr int MT = DT <= 80 ? 2 : 1;            // 16-row mma blocks per warp
   static constexpr int BQ = WARPS * 16 * MT;             // query rows per CTA
-  static constexpr int BK = DT <= 40 ? 64 : 32;          // keys per ring stage
+  static constexpr int BK = BKEYS;                       // keys per ring stage
   static constexpr int STAGES = 2;
   static constexpr bool QS = MT == 2;                    // Q in shared memory, not registers
   static constexpr int PITCH = (DT / 8) % 2 ? DT : DT + 8;  // smem row pitch (elements)
   static constexpr int K16 = DT / 16;                    // 16-wide steps of Q·Kᵀ over D
   static constexpr bool K8 = DT % 16 != 0;               // and a last 8-wide one
-  static constexpr int NT = DT / 8;                      // 8-wide n-tiles of P·V over D
+  static constexpr int NT = DT / 8;                      // 8-wide n-tiles of P·V over D, 16-byte chunks a row
 };
 
 __device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
@@ -204,20 +240,19 @@ __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* base, long lo
   return *reinterpret_cast<const uint32_t*>(base + (long long)r * row_stride + c);
 }
 
-template <int DT>
-using QFrag = uint32_t[Tile<DT>::MT][Tile<DT>::K16][4];  // Q's A fragments
-template <int DT>
-using SFrag = float[Tile<DT>::MT][Tile<DT>::BK / 8][4];  // a tile's scores (C fragments)
-template <int DT>
-using PFrag = uint32_t[Tile<DT>::MT][Tile<DT>::BK / 16][4];  // its probabilities (A fragments)
-template <int DT>
-using OFrag = float[Tile<DT>::MT][Tile<DT>::NT][4];  // the output accumulators
+template <class P>
+using QFrag = uint32_t[P::MT][P::K16][4];  // Q's A fragments
+template <class P>
+using SFrag = float[P::MT][P::BK / 8][4];  // a tile's scores (C fragments)
+template <class P>
+using PFrag = uint32_t[P::MT][P::BK / 16][4];  // its probabilities (A fragments)
+template <class P>
+using OFrag = float[P::MT][P::NT][4];  // the output accumulators
 
 // s = Q·Kᵀ of this warp's MT·16 query rows against the BK keys of tile Ks
-template <int DT>
-__device__ __forceinline__ void scores(const uint16_t* __restrict__ Ks, int lane, const QFrag<DT>& q_regs,
-                                       const uint16_t* __restrict__ qrow, SFrag<DT>& s) {
-  using P = Tile<DT>;
+template <class P>
+__device__ __forceinline__ void scores(const uint16_t* __restrict__ Ks, int lane, const QFrag<P>& q_regs,
+                                       const uint16_t* __restrict__ qrow, SFrag<P>& s) {
   constexpr int MT = P::MT, BK = P::BK, PITCH = P::PITCH;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
@@ -270,10 +305,9 @@ __device__ __forceinline__ void scores(const uint16_t* __restrict__ Ks, int lane
 // the new running max m (raw-score units), the rescale of l and acc, and the
 // probabilities as P·V's A fragments. MASK: the tile holds keys past T (the
 // last, ragged one).
-template <int DT, bool MASK>
-__device__ __forceinline__ void softmax(SFrag<DT>& s, int k0, int T, int lane, float sl2, OFrag<DT>& acc,
-                                        float (&m)[Tile<DT>::MT][2], float (&l)[Tile<DT>::MT][2], PFrag<DT>& pa) {
-  using P = Tile<DT>;
+template <class P, bool MASK>
+__device__ __forceinline__ void softmax(SFrag<P>& s, int k0, int T, int lane, float sl2, OFrag<P>& acc,
+                                        float (&m)[P::MT][2], float (&l)[P::MT][2], PFrag<P>& pa) {
   constexpr int MT = P::MT, BK = P::BK, NT = P::NT;
   if constexpr (MASK) {
     const int tq = lane & 3;
@@ -338,10 +372,9 @@ __device__ __forceinline__ void softmax(SFrag<DT>& s, int k0, int T, int lane, f
 }
 
 // acc += P·V over the BK keys of tile Vs
-template <int DT>
-__device__ __forceinline__ void accumulate(const uint16_t* __restrict__ Vs, int lane, const PFrag<DT>& pa,
-                                           OFrag<DT>& acc) {
-  using P = Tile<DT>;
+template <class P>
+__device__ __forceinline__ void accumulate(const uint16_t* __restrict__ Vs, int lane, const PFrag<P>& pa,
+                                           OFrag<P>& acc) {
   constexpr int MT = P::MT, BK = P::BK, PITCH = P::PITCH, NT = P::NT;
   // ldmatrix.x4.trans block b holds keys + (b % 2)·8, dims + (b / 2)·8
   const uint16_t* vrow = Vs + (((lane >> 3) & 1) * 8 + (lane & 7)) * PITCH + (lane >> 4) * 8;
@@ -366,28 +399,53 @@ __device__ __forceinline__ void accumulate(const uint16_t* __restrict__ Vs, int 
   }
 }
 
-template <int DT>
-__global__ void __launch_bounds__(Tile<DT>::WARPS * 32)
-    gctorch_attn_fwd_b3_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                             float* __restrict__ lse, int H, int S, int T, int D, Strides qs, Strides ks,
-                             Strides vs, Strides os, float sl2) {
-  using P = Tile<DT>;
+// The CTA's Q rows, where the tiling keeps Q: their copies into Qs issued
+// and not committed (they land with the first ring tile), or this warp's A
+// fragments in qa. r0: the warp's first row.
+template <class P>
+__device__ __forceinline__ void stage_q(const __nv_bfloat16* __restrict__ qb, long long q_ss, int S, int D,
+                                        int r0, int lane, uint16_t* Qs, QFrag<P>& qa) {
+  constexpr int MT = P::MT, PITCH = P::PITCH, THREADS = P::WARPS * 32, CHUNKS = P::NT;
+  const int g = lane >> 2, tq = lane & 3;
+  if constexpr (P::QS) {  // the CTA's Q rows into Qs
+#pragma unroll
+    for (int e0 = 0; e0 < P::BQ * CHUNKS; e0 += THREADS) {
+      const int e = e0 + threadIdx.x;
+      if (P::BQ * CHUNKS % THREADS == 0 || e < P::BQ * CHUNKS) {
+        const int r = e / CHUNKS, c = (e % CHUNKS) * 8, row = blockIdx.x * P::BQ + r;
+        const bool ok = row < S && c < D;
+        cp_async16(&Qs[r * PITCH + c], ok ? qb + row * q_ss + c : qb, ok);
+      }
+    }
+  } else {  // as A fragments in registers
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int ra = r0 + 16 * i + g, rb = ra + 8;
+#pragma unroll
+      for (int kk = 0; kk < P::K16; ++kk) {
+        const int c0 = kk * 16 + tq * 2, c1 = c0 + 8;
+        qa[i][kk][0] = load_pair(qb, q_ss, ra, c0, S, D);
+        qa[i][kk][1] = load_pair(qb, q_ss, rb, c0, S, D);
+        qa[i][kk][2] = load_pair(qb, q_ss, ra, c1, S, D);
+        qa[i][kk][3] = load_pair(qb, q_ss, rb, c1, S, D);
+      }
+    }
+  }
+}
+
+// One pass of the K/V ring over the T keys at kb and vb: the output
+// accumulators, running max and sums of this warp's rows against them,
+// from zero. Q is staged (stage_q) before the first pass.
+template <class P>
+__device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ kb, const __nv_bfloat16* __restrict__ vb,
+                                       long long k_ss, long long v_ss, int T, int D, float sl2, int lane,
+                                       uint16_t (&Ks)[P::STAGES][P::BK * P::PITCH],
+                                       uint16_t (&Vs)[P::STAGES][P::BK * P::PITCH], const QFrag<P>& qa,
+                                       const uint16_t* qrow, OFrag<P>& acc, float (&m)[P::MT][2],
+                                       float (&l)[P::MT][2]) {
   constexpr int MT = P::MT, BK = P::BK, PITCH = P::PITCH, NT = P::NT, STAGES = P::STAGES;
-  constexpr int THREADS = P::WARPS * 32, CHUNKS = DT / 8;  // 16-byte chunks per row
+  constexpr int THREADS = P::WARPS * 32, CHUNKS = P::NT;
   static_assert(BK % (P::K8 ? 32 : 16) == 0, "Q·Kᵀ takes keys 16 at a time, its last 8 dims 32 at a time");
-  __shared__ __align__(128) uint16_t Ks[STAGES][BK * PITCH];
-  __shared__ __align__(128) uint16_t Vs[STAGES][BK * PITCH];
-  __shared__ __align__(128) uint16_t Qs[P::QS ? P::BQ * PITCH : 8];
-
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;  // mma fragment row group and column pair
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
-  __nv_bfloat16* ob = o + b * os.b + h * os.h;
-
   const int n_tiles = (T + BK - 1) / BK;
   auto load_tile = [&](int tile) {  // one commit group per tile, empty past the last
     if (tile < n_tiles) {
@@ -398,47 +456,16 @@ __global__ void __launch_bounds__(Tile<DT>::WARPS * 32)
         if (BK * CHUNKS % THREADS == 0 || e < BK * CHUNKS) {
           const int r = e / CHUNKS, c = (e % CHUNKS) * 8, key = k0 + r;
           const bool ok = key < T && c < D;
-          cp_async16(&Ks[st][r * PITCH + c], ok ? kb + key * ks.s + c : kb, ok);
-          cp_async16(&Vs[st][r * PITCH + c], ok ? vb + key * vs.s + c : vb, ok);
+          cp_async16(&Ks[st][r * PITCH + c], ok ? kb + key * k_ss + c : kb, ok);
+          cp_async16(&Vs[st][r * PITCH + c], ok ? vb + key * v_ss + c : vb, ok);
         }
       }
     }
     cp_commit();
   };
-  // this warp's query rows: block i covers rows r0 + 16·i + {g, g + 8}
-  const int r0 = blockIdx.x * P::BQ + warp * 16 * MT;
-  QFrag<DT> qa;
-  if constexpr (P::QS) {  // the CTA's Q rows into Qs, in tile 0's copy group
-#pragma unroll
-    for (int e0 = 0; e0 < P::BQ * CHUNKS; e0 += THREADS) {
-      const int e = e0 + threadIdx.x;
-      if (P::BQ * CHUNKS % THREADS == 0 || e < P::BQ * CHUNKS) {
-        const int r = e / CHUNKS, c = (e % CHUNKS) * 8, row = blockIdx.x * P::BQ + r;
-        const bool ok = row < S && c < D;
-        cp_async16(&Qs[r * PITCH + c], ok ? qb + row * qs.s + c : qb, ok);
-      }
-    }
-  } else {  // as A fragments in registers
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int ra = r0 + 16 * i + g, rb = ra + 8;
-#pragma unroll
-      for (int kk = 0; kk < P::K16; ++kk) {
-        const int c0 = kk * 16 + tq * 2, c1 = c0 + 8;
-        qa[i][kk][0] = load_pair(qb, qs.s, ra, c0, S, D);
-        qa[i][kk][1] = load_pair(qb, qs.s, rb, c0, S, D);
-        qa[i][kk][2] = load_pair(qb, qs.s, ra, c1, S, D);
-        qa[i][kk][3] = load_pair(qb, qs.s, rb, c1, S, D);
-      }
-    }
-  }
 #pragma unroll
   for (int t = 0; t < STAGES - 1; ++t) load_tile(t);
-  // ldmatrix.x4 of Q: lanes 0-15 give rows 0-15 at column 0, lanes 16-31 at column 8
-  const uint16_t* qrow = Qs + (warp * 16 * MT + (lane & 15)) * PITCH + (lane >> 4) * 8;
 
-  OFrag<DT> acc;
-  float m[MT][2], l[MT][2];  // running max (raw scores) and this thread's share of the sums
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
 #pragma unroll
@@ -449,33 +476,66 @@ __global__ void __launch_bounds__(Tile<DT>::WARPS * 32)
 
   // Tile j + 1's copy is in flight while tile j is computed. Every tile before
   // the last is full; the last may be ragged and is finished after the loop.
-  SFrag<DT> s;
-  PFrag<DT> pa;
+  SFrag<P> s;
+  PFrag<P> pa;
   for (int j = 0; j + 1 < n_tiles; ++j) {
     cp_wait<STAGES - 2>();  // tile j has landed for this thread ...
     __syncthreads();        // ... and for all; every warp is done with tile j − 1
     load_tile(j + STAGES - 1);
-    scores<DT>(Ks[j % STAGES], lane, qa, qrow, s);
-    softmax<DT, false>(s, j * BK, T, lane, sl2, acc, m, l, pa);
-    accumulate<DT>(Vs[j % STAGES], lane, pa, acc);
+    scores<P>(Ks[j % STAGES], lane, qa, qrow, s);
+    softmax<P, false>(s, j * BK, T, lane, sl2, acc, m, l, pa);
+    accumulate<P>(Vs[j % STAGES], lane, pa, acc);
   }
   cp_wait<0>();
   __syncthreads();
-  scores<DT>(Ks[(n_tiles - 1) % STAGES], lane, qa, qrow, s);
+  scores<P>(Ks[(n_tiles - 1) % STAGES], lane, qa, qrow, s);
   const int last = n_tiles - 1;
   if (T % BK)
-    softmax<DT, true>(s, last * BK, T, lane, sl2, acc, m, l, pa);
+    softmax<P, true>(s, last * BK, T, lane, sl2, acc, m, l, pa);
   else
-    softmax<DT, false>(s, last * BK, T, lane, sl2, acc, m, l, pa);
-  accumulate<DT>(Vs[last % STAGES], lane, pa, acc);
+    softmax<P, false>(s, last * BK, T, lane, sl2, acc, m, l, pa);
+  accumulate<P>(Vs[last % STAGES], lane, pa, acc);
+}
+
+// the sum of a row's share of l over the quad of lanes that holds the row
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+template <int DT>
+__global__ void __launch_bounds__(Tile<DT>::WARPS * 32)
+    gctorch_attn_fwd_b3_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                             float* __restrict__ lse, int H, int S, int T, int D, Strides qs, Strides ks,
+                             Strides vs, Strides os, float sl2) {
+  using P = Tile<DT>;
+  constexpr int MT = P::MT, BK = P::BK, PITCH = P::PITCH, NT = P::NT, STAGES = P::STAGES;
+  __shared__ __align__(128) uint16_t Ks[STAGES][BK * PITCH];
+  __shared__ __align__(128) uint16_t Vs[STAGES][BK * PITCH];
+  __shared__ __align__(128) uint16_t Qs[P::QS ? P::BQ * PITCH : 8];
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;  // mma fragment row group and column pair
+  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+
+  // this warp's query rows: block i covers rows r0 + 16·i + {g, g + 8}
+  const int r0 = blockIdx.x * P::BQ + warp * 16 * MT;
+  QFrag<P> qa;
+  stage_q<P>(qb, qs.s, S, D, r0, lane, Qs, qa);
+  // ldmatrix.x4 of Q: lanes 0-15 give rows 0-15 at column 0, lanes 16-31 at column 8
+  const uint16_t* qrow = Qs + (warp * 16 * MT + (lane & 15)) * PITCH + (lane >> 4) * 8;
+
+  OFrag<P> acc;
+  float m[MT][2], l[MT][2];  // running max (raw scores) and this thread's share of the sums
+  attend<P>(k + b * ks.b + h * ks.h, v + b * vs.b + h * vs.h, ks.s, vs.s, T, D, sl2, lane, Ks, Vs, qa, qrow, acc,
+            m, l);
 
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
-    float l0 = l[i][0], l1 = l[i][1];
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float l0 = quad_sum(l[i][0]), l1 = quad_sum(l[i][1]);
     const float inv0 = 1.f / l0, inv1 = 1.f / l1;
     const int ra = r0 + 16 * i + g, rb = ra + 8;
     if (lse != nullptr && tq == 0) {  // m·scale + ln l = (m·scale·log2 e + log2 l)·ln 2
@@ -492,6 +552,109 @@ __global__ void __launch_bounds__(Tile<DT>::WARPS * 32)
       if (rb < S)
         *reinterpret_cast<uint32_t*>(ob + (long long)rb * os.s + c) =
             pack_bf16(acc[i][nt][2] * inv1, acc[i][nt][3] * inv1);
+    }
+  }
+}
+
+// ------------------------------------------------------- B3a, AttnAlign
+
+// AttnAlign's weights, fp32: the view's own pass (coeff), its own pass where
+// the view is a reference too (coeff + (1 − coeff)/n_ref, the duplicate
+// reference pass folded in), and each other reference's ((1 − coeff)/n_ref)
+struct Weights {
+  float self, dup, ref;
+};
+
+// B3a's sources: pass 0 is the view itself; pass p > 0 is reference view
+// r of its group, the references 0 .. n_ref − 1 in order but the view's own
+__device__ __forceinline__ int align_source(int p, int b, int V, int view) {
+  const int r = p - 1 + (p - 1 >= view);
+  return p == 0 ? b : (b - view) + r;
+}
+
+// The weighted sum of a CTA's passes in fp32, each thread's own elements:
+// x, a pass's acc·w/l, is added to the sum of the passes before it, kept in
+// osum as [element][thread] (each warp's accesses in 32 banks), and the sum
+// is stored there, or, after the last pass, left in x.
+template <int THREADS, int M, int N>
+__device__ __forceinline__ void combine(float (&x)[M][N][4], float* __restrict__ osum, bool first, bool last) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float* slot = osum + ((i * N + n) * 4 + e) * THREADS + threadIdx.x;
+        if (!first) x[i][n][e] = *slot + x[i][n][e];
+        if (!last) *slot = x[i][n][e];
+      }
+}
+
+// B3a's bf16 tiling: B3's, but for D = 80 with 16-key ring stages, so that
+// the fp32 sum (BQ·D·4 bytes of dynamic shared memory) fits as many CTAs an
+// SM as B3 has: CTAS, by B3's registers (ptxas; the head comment)
+template <int DT>
+struct AlignTile : Tile<DT, DT == 80 ? 16 : (DT <= 40 ? 64 : 32)> {
+  static constexpr int CTAS = DT == 160 ? 2 : (DT == 16 || DT == 48 || DT == 96) ? 4 : 3;
+  static constexpr int SUM_BYTES = Tile<DT>::BQ * DT * 4;
+};
+
+template <int DT>
+__global__ void __launch_bounds__(Tile<DT>::WARPS * 32, AlignTile<DT>::CTAS)
+    gctorch_attn_fwd_b3a_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H, int S,
+                              int D, int V, int n_ref, Strides qs, Strides ks, Strides vs, Strides os, float sl2,
+                              Weights w) {
+  using P = AlignTile<DT>;
+  constexpr int MT = P::MT, BK = P::BK, PITCH = P::PITCH, NT = P::NT, STAGES = P::STAGES;
+  __shared__ __align__(128) uint16_t Ks[STAGES][BK * PITCH];
+  __shared__ __align__(128) uint16_t Vs[STAGES][BK * PITCH];
+  __shared__ __align__(128) uint16_t Qs[P::QS ? P::BQ * PITCH : 8];
+  extern __shared__ __align__(16) float osum[];  // the passes' weighted sum, [MT·NT·4][threads]
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H, view = b % V;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+  const int r0 = blockIdx.x * P::BQ + warp * 16 * MT;
+  QFrag<P> qa;
+  stage_q<P>(q + b * qs.b + h * qs.h, qs.s, S, D, r0, lane, Qs, qa);
+  const uint16_t* qrow = Qs + (warp * 16 * MT + (lane & 15)) * PITCH + (lane >> 4) * 8;
+
+  OFrag<P> acc;
+  float m[MT][2], l[MT][2];
+  const int passes = 1 + n_ref - (view < n_ref);
+  for (int p = 0; p < passes; ++p) {
+    const int src = align_source(p, b, V, view);
+    attend<P>(k + src * ks.b + h * ks.h, v + src * vs.b + h * vs.h, ks.s, vs.s, S, D, sl2, lane, Ks, Vs, qa,
+              qrow, acc, m, l);
+    const float wp = p > 0 ? w.ref : view < n_ref ? w.dup : w.self;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const float w0 = wp * (1.f / quad_sum(l[i][0])), w1 = wp * (1.f / quad_sum(l[i][1]));
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        acc[i][nt][0] *= w0;
+        acc[i][nt][1] *= w0;
+        acc[i][nt][2] *= w1;
+        acc[i][nt][3] *= w1;
+      }
+    }
+    combine<P::WARPS * 32>(acc, osum, p == 0, p + 1 == passes);
+    if (p + 1 < passes) __syncthreads();  // every warp is done with the ring before the next pass fills it
+  }
+
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int ra = r0 + 16 * i + g, rb = ra + 8;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = nt * 8 + tq * 2;
+      if (c >= D) continue;
+      if (ra < S)
+        *reinterpret_cast<uint32_t*>(ob + (long long)ra * os.s + c) = pack_bf16(acc[i][nt][0], acc[i][nt][1]);
+      if (rb < S)
+        *reinterpret_cast<uint32_t*>(ob + (long long)rb * os.s + c) = pack_bf16(acc[i][nt][2], acc[i][nt][3]);
     }
   }
 }
@@ -618,42 +781,30 @@ __device__ __forceinline__ void softmax_f32(F32Scores<P>& s, int k0, int T, int 
   }
 }
 
-template <int DT>
-__global__ void __launch_bounds__(F32Tile<DT>::THREADS, F32Tile<DT>::CTAS)
-    gctorch_attn_fwd_b3_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                            float* __restrict__ o, float* __restrict__ lse, int H, int S, int T, int D,
-                            Strides qs, Strides ks, Strides vs, Strides os, float sl2) {
-  using P = F32Tile<DT>;
+// One pass of the fp32 ring over the T keys at kb and vb: the output
+// accumulators, running max and sums of this warp's rows against them, from
+// zero. r0: the warp's first row in the CTA's plus its fragment row g (block
+// i covers rows r0 + 16·i and r0 + 16·i + 8; rows past S run on zeros and
+// store nothing). Q's copies into Qs (stage_f32, uncommitted: they land with
+// tile 0) are split at tile 0 where split_q, in the first pass.
+template <class P>
+__device__ __forceinline__ void attend_f32(const float* __restrict__ kb, const float* __restrict__ vb,
+                                           long long k_ss, long long v_ss, int T, int D, float sl2, int r0,
+                                           int lane, float* Qs, float* ring, bool split_q, F32Acc<P>& acc,
+                                           float (&m)[P::MT][2], float (&l)[P::MT][2]) {
   constexpr int MT = P::MT, BN = P::BN, PITCH = P::PITCH, KD = P::KD, NB = P::NB;
-  extern __shared__ __align__(16) float fsm[];
-  float* Qs = fsm;                // the CTA's Q rows [ROWS][PITCH] (hi, then lo)
-  float* ring = fsm + P::FIXED;  // a stage: K, V [BN][PITCH] (hi, then lo)
-
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
-  const int row0 = blockIdx.x * P::ROWS;
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* kb = k + b * ks.b + h * ks.h;
-  const float* vb = v + b * vs.b + h * vs.h;
-
-  stage_f32<P, P::ROWS>(Qs, qb, qs.s, row0, S, D);
   const int n_k = (T + BN - 1) / BN;
   auto load_tile = [&](int t) {  // one commit group a tile, empty past the last
     if (t < n_k) {
       float* st = ring + (t & 1) * P::STAGE;
-      stage_f32<P, BN>(st, kb, ks.s, t * BN, T, D);
-      stage_f32<P, BN>(st + BN * PITCH, vb, vs.s, t * BN, T, D);
+      stage_f32<P, BN>(st, kb, k_ss, t * BN, T, D);
+      stage_f32<P, BN>(st + BN * PITCH, vb, v_ss, t * BN, T, D);
     }
     cp_commit();
   };
   load_tile(0);  // Q lands with the first tile
 
-  // this warp's query rows: block i covers rows r0 + 16·i (fragment row g)
-  // and r0 + 16·i + 8 of the CTA's; rows past S run on zeros and store nothing
-  const int r0 = warp * 16 * MT + g;
-  F32Acc<P> acc;
-  float m[MT][2], l[MT][2];  // running max (raw scores) and this thread's share of the sums
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
 #pragma unroll
@@ -671,7 +822,7 @@ __global__ void __launch_bounds__(F32Tile<DT>::THREADS, F32Tile<DT>::CTAS)
     float* Kt = ring + (t & 1) * P::STAGE;
     split_own<P, BN>(Kt, P::LO);
     split_own<P, BN>(Kt + BN * PITCH, P::LO);
-    if (t == 0) split_own<P, P::ROWS>(Qs, P::OWN_LO);
+    if (split_q && t == 0) split_own<P, P::ROWS>(Qs, P::OWN_LO);
     __syncthreads();  // tile t is split for all; every warp is done with tile t − 1
     load_tile(t + 1);
     const float* Vt = Kt + BN * PITCH;
@@ -726,15 +877,34 @@ __global__ void __launch_bounds__(F32Tile<DT>::THREADS, F32Tile<DT>::CTAS)
         for (int j = 0; j < 4; ++j) acc[i][nd][j] += u[i][j];
     }
   }
+}
+
+template <int DT>
+__global__ void __launch_bounds__(F32Tile<DT>::THREADS, F32Tile<DT>::CTAS)
+    gctorch_attn_fwd_b3_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                            float* __restrict__ o, float* __restrict__ lse, int H, int S, int T, int D,
+                            Strides qs, Strides ks, Strides vs, Strides os, float sl2) {
+  using P = F32Tile<DT>;
+  constexpr int MT = P::MT, KD = P::KD;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                // the CTA's Q rows [ROWS][PITCH] (hi, then lo)
+  float* ring = fsm + P::FIXED;  // a stage: K, V [BN][PITCH] (hi, then lo)
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int row0 = blockIdx.x * P::ROWS;
+  stage_f32<P, P::ROWS>(Qs, q + b * qs.b + h * qs.h, qs.s, row0, S, D);
+  const int r0 = warp * 16 * MT + g;  // this warp's rows: r0 + 16·i and r0 + 16·i + 8 of the CTA's
+  F32Acc<P> acc;
+  float m[MT][2], l[MT][2];  // running max (raw scores) and this thread's share of the sums
+  attend_f32<P>(k + b * ks.b + h * ks.h, v + b * vs.b + h * vs.h, ks.s, vs.s, T, D, sl2, r0, lane, Qs, ring,
+                true, acc, m, l);
 
   float* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
-    float l0 = l[i][0], l1 = l[i][1];
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float l0 = quad_sum(l[i][0]), l1 = quad_sum(l[i][1]);
     const float inv0 = 1.f / l0, inv1 = 1.f / l1;
     const int ra = row0 + r0 + 16 * i, rb = ra + 8;
     if (lse != nullptr && tq == 0) {  // m·scale + ln l = (m·scale·log2 e + log2 l)·ln 2
@@ -755,32 +925,112 @@ __global__ void __launch_bounds__(F32Tile<DT>::THREADS, F32Tile<DT>::CTAS)
   }
 }
 
+// B3a's fp32 layout: B3's, with the passes' fp32 sum after the ring
+// (ROWS·DT·4 bytes); CTAs an SM by shared memory, at most 3
 template <int DT>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-                        int S, int T, int D, Strides qs, Strides ks, Strides vs, Strides os, float sl2,
-                        cudaStream_t st) {
-  using P = Tile<DT>;
-  const dim3 grid((S + P::BQ - 1) / P::BQ, B * H);
-  gctorch_attn_fwd_b3_bf16<DT><<<grid, P::WARPS * 32, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, S, T, D, qs, ks,
-      vs, os, sl2);
-  return cudaGetLastError();
-}
+struct F32AlignTile : F32Tile<DT> {
+  static constexpr size_t SUM_BYTES = F32Tile<DT>::ROWS * DT * sizeof(float);
+  static constexpr size_t BYTES = F32Tile<DT>::BYTES + SUM_BYTES;
+  static constexpr int SMEM_CTAS = 232448 / (BYTES + 1024);
+  static constexpr int CTAS = SMEM_CTAS < 3 ? SMEM_CTAS : 3;
+};
 
 template <int DT>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-                       int S, int T, int D, Strides qs, Strides ks, Strides vs, Strides os, float sl2,
-                       cudaStream_t st) {
+__global__ void __launch_bounds__(F32Tile<DT>::THREADS, F32AlignTile<DT>::CTAS)
+    gctorch_attn_fwd_b3a_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                             float* __restrict__ o, int H, int S, int D, int V, int n_ref, Strides qs, Strides ks,
+                             Strides vs, Strides os, float sl2, Weights w) {
   using P = F32Tile<DT>;
-  const int bytes = static_cast<int>(P::BYTES);
-  const cudaError_t e =
-      cudaFuncSetAttribute(gctorch_attn_fwd_b3_f32<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return e;
-  gctorch_attn_fwd_b3_f32<DT><<<dim3((S + P::ROWS - 1) / P::ROWS, B * H), P::THREADS, bytes, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, H, S, T, D, qs, ks, vs, os, sl2);
-  return cudaGetLastError();
+  constexpr int MT = P::MT, KD = P::KD;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;
+  float* ring = fsm + P::FIXED;
+  float* osum = ring + 2 * P::STAGE;  // the passes' weighted sum, [MT·KD·4][threads]
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H, view = b % V;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int row0 = blockIdx.x * P::ROWS;
+  stage_f32<P, P::ROWS>(Qs, q + b * qs.b + h * qs.h, qs.s, row0, S, D);
+  const int r0 = warp * 16 * MT + g;
+  F32Acc<P> acc;
+  float m[MT][2], l[MT][2];
+  const int passes = 1 + n_ref - (view < n_ref);
+  for (int p = 0; p < passes; ++p) {
+    const int src = align_source(p, b, V, view);
+    attend_f32<P>(k + src * ks.b + h * ks.h, v + src * vs.b + h * vs.h, ks.s, vs.s, S, D, sl2, r0, lane, Qs,
+                  ring, p == 0, acc, m, l);
+    const float wp = p > 0 ? w.ref : view < n_ref ? w.dup : w.self;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const float w0 = wp * (1.f / quad_sum(l[i][0])), w1 = wp * (1.f / quad_sum(l[i][1]));
+#pragma unroll
+      for (int nd = 0; nd < KD; ++nd) {
+        acc[i][nd][0] *= w0;
+        acc[i][nd][1] *= w0;
+        acc[i][nd][2] *= w1;
+        acc[i][nd][3] *= w1;
+      }
+    }
+    combine<P::THREADS>(acc, osum, p == 0, p + 1 == passes);
+    if (p + 1 < passes) __syncthreads();  // every warp is done with the ring before the next pass fills it
+  }
+
+  float* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int ra = row0 + r0 + 16 * i, rb = ra + 8;
+#pragma unroll
+    for (int nd = 0; nd < KD; ++nd) {
+      const int c = nd * 8 + tq * 2;
+      if (c >= D) continue;
+      if (ra < S) *reinterpret_cast<float2*>(ob + (long long)ra * os.s + c) = make_float2(acc[i][nd][0], acc[i][nd][1]);
+      if (rb < S) *reinterpret_cast<float2*>(ob + (long long)rb * os.s + c) = make_float2(acc[i][nd][2], acc[i][nd][3]);
+    }
+  }
+}
+
+// f(std::integral_constant<int, DT>{}) for the tile width DT that head width
+// D rounds up to: bf16 and fp32 have their own widths
+template <class F>
+cudaError_t bf16_width(int D, F&& f) {
+  if (D <= 16) return f(std::integral_constant<int, 16>{});
+  if (D <= 32) return f(std::integral_constant<int, 32>{});
+  if (D <= 40) return f(std::integral_constant<int, 40>{});
+  if (D <= 48) return f(std::integral_constant<int, 48>{});
+  if (D <= 64) return f(std::integral_constant<int, 64>{});
+  if (D <= 80) return f(std::integral_constant<int, 80>{});
+  if (D <= 96) return f(std::integral_constant<int, 96>{});
+  if (D <= 128) return f(std::integral_constant<int, 128>{});
+  return f(std::integral_constant<int, 160>{});
+}
+
+template <class F>
+cudaError_t f32_width(int D, F&& f) {
+  switch (D <= 48 ? D / 8 : D <= 64 ? 7 : D <= 80 ? 8 : D <= 96 ? 9 : D <= 128 ? 10 : 11) {
+    case 1: return f(std::integral_constant<int, 8>{});
+    case 2: return f(std::integral_constant<int, 16>{});
+    case 3: return f(std::integral_constant<int, 24>{});
+    case 4: return f(std::integral_constant<int, 32>{});
+    case 5: return f(std::integral_constant<int, 40>{});
+    case 6: return f(std::integral_constant<int, 48>{});
+    case 7: return f(std::integral_constant<int, 64>{});
+    case 8: return f(std::integral_constant<int, 80>{});
+    case 9: return f(std::integral_constant<int, 96>{});
+    case 10: return f(std::integral_constant<int, 128>{});
+    default: return f(std::integral_constant<int, 160>{});
+  }
+}
+
+// B3a's launch set-up: its dynamic shared memory (the fp32 sum, and for fp32
+// the whole layout) allowed past 48 KB, and the carveout set to shared
+// memory, so that CTAS of them fit an SM
+template <class K>
+cudaError_t allow_shared(K kernel, size_t bytes) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  return e;
 }
 
 }  // namespace
@@ -802,30 +1052,102 @@ extern "C" int gctorch_flash_attn_fwd(const void* q, const void* k, const void* 
   const float sl2 = scale * 1.4426950408889634f;  // softmax in base 2: exp(x) = 2^(x·log2 e)
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_out);
-  if (is_bf16) {
-    if (D <= 16) return launch_bf16<16>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
-    if (D <= 32) return launch_bf16<32>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
-    if (D <= 40) return launch_bf16<40>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
-    if (D <= 48) return launch_bf16<48>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
-    if (D <= 64) return launch_bf16<64>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
-    if (D <= 80) return launch_bf16<80>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
-    if (D <= 96) return launch_bf16<96>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
-    if (D <= 128) return launch_bf16<128>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
-    return launch_bf16<160>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st);
-  }
+  if (is_bf16)
+    return static_cast<int>(bf16_width(D, [&](auto w) {
+      using P = Tile<decltype(w)::value>;
+      gctorch_attn_fwd_b3_bf16<decltype(w)::value><<<dim3((S + P::BQ - 1) / P::BQ, B * H), P::WARPS * 32, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, S, T, D, qs, ks, vs, os,
+          sl2);
+      return cudaGetLastError();
+    }));
+  return static_cast<int>(f32_width(D, [&](auto w) {
+    constexpr int DT = decltype(w)::value;
+    using P = F32Tile<DT>;
+    const int bytes = static_cast<int>(P::BYTES);
+    const cudaError_t e =
+        cudaFuncSetAttribute(gctorch_attn_fwd_b3_f32<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    gctorch_attn_fwd_b3_f32<DT><<<dim3((S + P::ROWS - 1) / P::ROWS, B * H), P::THREADS, bytes, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), lse, H, S, T, D, qs, ks, vs, os, sl2);
+    return cudaGetLastError();
+  }));
+}
+
+// Kernel B3a: AttnAlign's self-attention of q, k, v (B, H, S, D) into o, the
+// batch laid out as B / V CFG groups of V views whose first n_ref are the
+// references; strides and types as gctorch_flash_attn_fwd's. The weights:
+// w_self for a view's own pass, w_dup for it where the view is a reference,
+// w_ref for each other reference's. Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for a shape it does not take).
+extern "C" int gctorch_flash_attn_align(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
+                                        int D, int V, int n_ref, int is_bf16, long long q_sb, long long q_sh,
+                                        long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+                                        long long v_sb, long long v_sh, long long v_ss, long long o_sb,
+                                        long long o_sh, long long o_ss, float scale, float w_self, float w_dup,
+                                        float w_ref, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || D <= 0 || D % 8 != 0 || D > MAX_D || B * H > 65535 || V <= 0 || B % V != 0 ||
+      n_ref < 1 || n_ref > V)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
+  const float sl2 = scale * 1.4426950408889634f;
+  const Weights w{w_self, w_dup, w_ref};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return static_cast<int>(bf16_width(D, [&](auto wd) {
+      constexpr int DT = decltype(wd)::value;
+      using P = AlignTile<DT>;
+      const cudaError_t e = allow_shared(gctorch_attn_fwd_b3a_bf16<DT>, P::SUM_BYTES);
+      if (e != cudaSuccess) return e;
+      gctorch_attn_fwd_b3a_bf16<DT><<<dim3((S + P::BQ - 1) / P::BQ, B * H), P::WARPS * 32, P::SUM_BYTES, st>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, S, D, V, n_ref, qs, ks, vs, os,
+          sl2, w);
+      return cudaGetLastError();
+    }));
+  return static_cast<int>(f32_width(D, [&](auto wd) {
+    constexpr int DT = decltype(wd)::value;
+    using P = F32AlignTile<DT>;
+    const cudaError_t e = allow_shared(gctorch_attn_fwd_b3a_f32<DT>, P::BYTES);
+    if (e != cudaSuccess) return e;
+    gctorch_attn_fwd_b3a_f32<DT><<<dim3((S + P::ROWS - 1) / P::ROWS, B * H), P::THREADS, P::BYTES, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), H, S, D, V, n_ref, qs, ks, vs, os, sl2, w);
+    return cudaGetLastError();
+  }));
+}
+
+// CTAs of B3 (align 0) or B3a (align 1) resident on an SM at head width D,
+// by cudaOccupancyMaxActiveBlocksPerMultiprocessor with each launch's shared
+// memory and attributes; -1 where the query fails
+extern "C" int gctorch_flash_attn_ctas(int D, int is_bf16, int align) {
+  int n = -1;
   cudaError_t e;
-  switch (D <= 48 ? D / 8 : D <= 64 ? 7 : D <= 80 ? 8 : D <= 96 ? 9 : D <= 128 ? 10 : 11) {
-    case 1: e = launch_f32<8>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-    case 2: e = launch_f32<16>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-    case 3: e = launch_f32<24>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-    case 4: e = launch_f32<32>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-    case 5: e = launch_f32<40>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-    case 6: e = launch_f32<48>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-    case 7: e = launch_f32<64>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-    case 8: e = launch_f32<80>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-    case 9: e = launch_f32<96>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-    case 10: e = launch_f32<128>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-    default: e = launch_f32<160>(q, k, v, o, lse, B, H, S, T, D, qs, ks, vs, os, sl2, st); break;
-  }
-  return static_cast<int>(e);
+  if (is_bf16)
+    e = bf16_width(D, [&](auto wd) {
+      constexpr int DT = decltype(wd)::value;
+      if (!align) return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gctorch_attn_fwd_b3_bf16<DT>, 128, 0);
+      const cudaError_t a = allow_shared(gctorch_attn_fwd_b3a_bf16<DT>, AlignTile<DT>::SUM_BYTES);
+      return a != cudaSuccess ? a
+                              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gctorch_attn_fwd_b3a_bf16<DT>, 128,
+                                                                              AlignTile<DT>::SUM_BYTES);
+    });
+  else
+    e = f32_width(D, [&](auto wd) {
+      constexpr int DT = decltype(wd)::value;
+      if (!align) {
+        const cudaError_t a = cudaFuncSetAttribute(gctorch_attn_fwd_b3_f32<DT>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(F32Tile<DT>::BYTES));
+        return a != cudaSuccess ? a
+                                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gctorch_attn_fwd_b3_f32<DT>, 128,
+                                                                                F32Tile<DT>::BYTES);
+      }
+      const cudaError_t a = allow_shared(gctorch_attn_fwd_b3a_f32<DT>, F32AlignTile<DT>::BYTES);
+      return a != cudaSuccess ? a
+                              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gctorch_attn_fwd_b3a_f32<DT>, 128,
+                                                                              F32AlignTile<DT>::BYTES);
+    });
+  return e == cudaSuccess ? n : -1;
 }

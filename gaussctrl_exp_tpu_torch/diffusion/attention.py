@@ -13,7 +13,10 @@ cross-attention (text) is untouched.
 whatever its shape: through ``ops/attention_cuda.FlashAttnFunction`` (B3
 forward, B4 and B5 backward) when autograd records the call, else through
 ``flash_attn``. Every call on a CPU tensor goes to the plain version
-``sdpa_plain``, which autograd differentiates.
+``sdpa_plain``, which autograd differentiates. AttnAlign's self-attention on
+CUDA tensors is one launch of kernel B3a (``flash_attn_align``); on the CPU
+it is the JAX processor's five ``_sdpa`` calls and combine
+(``cross_view_attention``).
 
 Modules take (B, C, H, W) / (B, L, C) tensors whose attribute names mirror the
 Flax ones (``to_q``, ``to_out_0``, ``ff.proj``, ``transformer_blocks_0``), so
@@ -32,6 +35,7 @@ from torch import nn
 
 from ..ops import attention_cuda
 from ..ops.attention_cuda import sdpa_plain
+from ..utils import trace
 from .layers import GroupNorm, LayerNorm, Linear
 
 Processor = Callable[..., torch.Tensor]
@@ -52,29 +56,41 @@ def default_processor(q, k, v, is_cross: bool) -> torch.Tensor:
     return _sdpa(q, k, v)
 
 
+def cross_view_attention(q, k, v, self_attn_coeff: float, num_ref_views: int = 4,
+                         unet_chunk_size: int = 2) -> torch.Tensor:
+    """AttnAlign's self-attention as the JAX processor composes it: five
+    ``_sdpa`` calls (self, then one per reference view) and their combine."""
+    B, H, S, D = q.shape
+    V = B // unet_chunk_size  # views per CFG group
+    out_self = _sdpa(q, k, v)
+
+    # K/V of reference view r, broadcast to every view of the group
+    kg = k.reshape(unet_chunk_size, V, H, S, D)
+    vg = v.reshape(unet_chunk_size, V, H, S, D)
+    ref_outs = []
+    for r in range(num_ref_views):
+        k_r = kg[:, r : r + 1].expand(kg.shape).reshape(B, H, S, D)
+        v_r = vg[:, r : r + 1].expand(vg.shape).reshape(B, H, S, D)
+        ref_outs.append(_sdpa(q, k_r, v_r))
+    out_ref = torch.stack(ref_outs).mean(0)
+    return self_attn_coeff * out_self + (1.0 - self_attn_coeff) * out_ref
+
+
 def make_cross_view_processor(
     self_attn_coeff: float, num_ref_views: int = 4, unet_chunk_size: int = 2
 ) -> Processor:
-    """Five ``_sdpa`` calls per self-attention (self + one per reference
-    view), as the JAX processor makes them; one per cross-attention."""
+    """AttnAlign. A self-attention on CUDA tensors is one launch of kernel
+    B3a, counted ``attn.align.fused``; on the CPU, ``cross_view_attention``,
+    counted ``attn.align.split``. A cross-attention is one ``_sdpa`` call."""
 
     def processor(q, k, v, is_cross: bool) -> torch.Tensor:
         if is_cross:
             return _sdpa(q, k, v)
-        B, H, S, D = q.shape
-        V = B // unet_chunk_size  # views per CFG group
-        out_self = _sdpa(q, k, v)
-
-        # K/V of reference view r, broadcast to every view of the group
-        kg = k.reshape(unet_chunk_size, V, H, S, D)
-        vg = v.reshape(unet_chunk_size, V, H, S, D)
-        ref_outs = []
-        for r in range(num_ref_views):
-            k_r = kg[:, r : r + 1].expand(kg.shape).reshape(B, H, S, D)
-            v_r = vg[:, r : r + 1].expand(vg.shape).reshape(B, H, S, D)
-            ref_outs.append(_sdpa(q, k_r, v_r))
-        out_ref = torch.stack(ref_outs).mean(0)
-        return self_attn_coeff * out_self + (1.0 - self_attn_coeff) * out_ref
+        if q.device.type == "cuda":
+            trace.count("attn.align.fused")
+            return attention_cuda.flash_attn_align(q, k, v, self_attn_coeff, num_ref_views, unet_chunk_size)
+        trace.count("attn.align.split")
+        return cross_view_attention(q, k, v, self_attn_coeff, num_ref_views, unet_chunk_size)
 
     return processor
 

@@ -1,5 +1,5 @@
-"""Kernels B3 (the flash-attention forward) and B4, B5 (its backward) for
-CUDA tensors.
+"""Kernels B3 (the flash-attention forward), B3a (AttnAlign's
+self-attention) and B4, B5 (B3's backward) for CUDA tensors.
 
 B3 (``csrc/flash_attn_fwd.cu``) replaces
 ``gaussctrl_exp_tpu/diffusion/attention.py:_flash_sdpa`` (the library TPU
@@ -10,14 +10,19 @@ and values, with an fp32 softmax. B4 (dK, dV) and B5 (dQ), in
 compute what autograd through ``sdpa_plain`` computes, from B3's per-row
 log-sum-exp. bf16 runs on the tensor cores (``mma.sync``), fp32 on the
 tensor cores as 3×TF32 (``csrc/tf32_mma.cuh``); all accumulate in fp32 and
-return the input's type. The sources say
-what bounds each kernel and how its design meets that.
+return the input's type. B3a (``flash_attn_align``, in
+``csrc/flash_attn_fwd.cu`` beside B3 and on B3's per-tile code) computes in
+one launch what ``align_attn_plain`` computes: AttnAlign's weighted sum of a
+view's self-attention and its attention to each reference view of its CFG
+group. The sources say what bounds each kernel and how its design meets
+that.
 
 ``diffusion/attention.py``'s ``_sdpa`` sends a CUDA call that autograd must
 differentiate to ``FlashAttnFunction`` (B3 forward, B4 and B5 backward),
 every other CUDA call to ``flash_attn`` and every CPU call to
-``sdpa_plain``. The wrappers launch their kernel or raise: they never fall
-back.
+``sdpa_plain``; its AttnAlign processor sends a CUDA self-attention to
+``flash_attn_align``. The wrappers launch their kernel or raise: they never
+fall back.
 """
 
 from __future__ import annotations
@@ -25,22 +30,27 @@ from __future__ import annotations
 import ctypes
 import warnings
 
+import numpy as np
 import torch
 
 from . import cuda_build
 
 MAX_HEAD_DIM = 160
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p]
+_ALIGN_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12 + [ctypes.c_float] * 4 + [
+    ctypes.c_void_p]
 _BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 21
                  + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int])
 
 launches = 0  # B3 launches since the caller last set it to 0
+align_launches = 0  # B3a launches, likewise
 dkv_launches = 0  # B4 launches, likewise
 dq_launches = 0  # B5 launches, likewise
 copies = 0  # inputs the wrappers made contiguous (D not contiguous, or misaligned)
 # the kernels' names as torch.profiler shows them, under a prefix that no
-# library kernel holds: B3, B4 and B5, B4 with B5, and all three
+# library kernel holds: B3 (with B3a), B3a, B4 and B5, B4 with B5, and all
 B3_KERNEL, B4_KERNEL, B5_KERNEL = "gctorch_attn_fwd_b3", "gctorch_attn_bwd_b4", "gctorch_attn_bwd_b5"
+B3A_KERNEL = "gctorch_attn_fwd_b3a"
 BWD_KERNELS, ATTN_KERNELS = "gctorch_attn_bwd", "gctorch_attn_"
 
 
@@ -51,6 +61,38 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     logits = torch.matmul(q, k.transpose(-1, -2)) * scale
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     return torch.matmul(probs, v)
+
+
+def align_weights(coeff: float, n_ref: int) -> tuple[float, float, float]:
+    """AttnAlign's fp32 weights, as B3a takes them: a view's own pass
+    (``coeff``), its own pass where the view is one of the references
+    (``coeff + (1 − coeff)/n_ref``: its pass over its own keys is the same
+    pass), and each other reference view's (``(1 − coeff)/n_ref``)."""
+    w_ref = (1.0 - coeff) / n_ref
+    return float(np.float32(coeff)), float(np.float32(coeff + w_ref)), float(np.float32(w_ref))
+
+
+def align_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, coeff: float, n_ref: int,
+                     groups: int) -> torch.Tensor:
+    """B3a's plain version: AttnAlign's self-attention of (B, H, S, D)
+    q, k, v laid out as ``groups`` CFG groups of V = B / groups views whose
+    first ``n_ref`` are the references. ``sdpa_plain`` of the self pass and
+    of one pass per reference view (its K and V broadcast over its group),
+    then one fp32 sum in B3a's order, rounded once to the input's type: the
+    self pass by its weight, then the references in order, a view's own
+    reference pass by 0 (B3a leaves it out: its weight is in the self
+    pass's)."""
+    B, H, S, D = q.shape
+    V = B // groups
+    w_self, w_dup, w_ref = align_weights(coeff, n_ref)
+    view = (torch.arange(B, device=q.device) % V)[:, None, None, None]
+    total = sdpa_plain(q, k, v).float() * torch.where(view < n_ref, w_dup, w_self)
+    kg, vg = k.reshape(groups, V, H, S, D), v.reshape(groups, V, H, S, D)
+    for r in range(n_ref):
+        k_r = kg[:, r : r + 1].expand(kg.shape).reshape(B, H, S, D)
+        v_r = vg[:, r : r + 1].expand(vg.shape).reshape(B, H, S, D)
+        total = total + sdpa_plain(q, k_r, v_r).float() * torch.where(view == r, 0.0, w_ref)
+    return total.to(q.dtype)
 
 
 def reads_in_place(shape, strides, data_ptr: int, dtype: torch.dtype) -> bool:
@@ -137,6 +179,57 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attn_fwd kernel launch failed with CUDA error {err}")
     launches += 1
     return (out, lse) if return_lse else out
+
+
+def _fwd_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("flash_attn_fwd", _ARGTYPES)
+    lib.gctorch_flash_attn_align.argtypes = _ALIGN_ARGTYPES
+    lib.gctorch_flash_attn_align.restype = ctypes.c_int
+    lib.gctorch_flash_attn_ctas.argtypes = [ctypes.c_int] * 3
+    return lib
+
+
+def flash_attn_align(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, coeff: float, n_ref: int,
+                     groups: int) -> torch.Tensor:
+    """Launch kernel B3a on CUDA tensors q, k, v (B, H, S, D), all bf16 or
+    all fp32, D a multiple of 8 up to 160, the batch laid out as ``groups``
+    CFG groups of V = B / groups views whose first ``n_ref`` are the
+    references: each view's coeff·attn(its own K, V) + (1 − coeff)/n_ref ·
+    Σ_r attn(reference r's K, V), what ``align_attn_plain`` computes. K and
+    V are read in place. Returns (B, H, S, D) in the input's type, laid out
+    as (B, S, H, D). Raises on anything else, and where autograd would
+    record the call: B3a has no backward."""
+    global align_launches
+    if q.dim() != 4 or k.dim() != 4 or k.shape[2] != q.shape[2]:
+        raise ValueError(f"flash_attn_align: q {tuple(q.shape)} and k {tuple(k.shape)} are not a "
+                         "self-attention (B, H, S, D) with S = T")
+    if groups < 1 or q.shape[0] % groups:
+        raise ValueError(f"flash_attn_align: batch {q.shape[0]} is not {groups} CFG groups of equal size")
+    V = q.shape[0] // groups
+    if not 1 <= n_ref <= V:
+        raise ValueError(f"flash_attn_align: {n_ref} reference views, but {V} views a group")
+    B, H, S, _, D = _check("flash_attn_align", q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise ValueError("flash_attn_align: kernel B3a has no backward; call it under torch.no_grad()")
+    q, k, v = _strided("q", q), _strided("k", k), _strided("v", v)
+    out = _heads_last(B, S, H, D, q)
+    lib = _fwd_lib()
+    with torch.cuda.device(q.device):
+        err = lib.gctorch_flash_attn_align(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, S, D, V, n_ref,
+            int(q.dtype == torch.bfloat16), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            D ** -0.5, *align_weights(coeff, n_ref), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attn_align kernel launch failed with CUDA error {err}")
+    align_launches += 1
+    return out
+
+
+def ctas_per_sm(D: int, bf16: bool, align: bool) -> int:
+    """CTAs of B3 (or of B3a, ``align``) resident on an SM of the current
+    card at head width D, by the CUDA occupancy calculator."""
+    return _fwd_lib().gctorch_flash_attn_ctas(D, int(bf16), int(align))
 
 
 def _bwd_lib() -> ctypes.CDLL:

@@ -83,6 +83,84 @@ def test_cross_view_processor_matches_jax(views, is_cross):
         assert rel_l2(plain, want) > 1e-2
 
 
+@pytest.mark.parametrize("views,n_ref", [(5, 4), (9, 4), (7, 1), (3, 3)])
+@pytest.mark.parametrize("coeff", [0.6, 0.0, 1.0])
+@pytest.mark.parametrize("groups", [1, 2])
+def test_align_attn_plain_matches_processor(views, n_ref, coeff, groups):
+    """B3a's plain version (one fp32 sum in the kernel's order, each view's
+    pass over its own reference keys folded into its self pass) against the
+    processor's five-call composition on the CPU, every view of every CFG
+    group."""
+    B, H, S, D = groups * views, 2, 24, 16
+    q, k, v = (to_t(a) for a in _arrays((B, H, S, D), (B, H, S, D), (B, H, S, D), seed=views + n_ref))
+    want = tatt.make_cross_view_processor(coeff, n_ref, groups)(q, k, v, False)
+    got = attention_cuda.align_attn_plain(q, k, v, coeff, n_ref, groups)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert rel_l2(got, want.numpy()) <= REL
+    if coeff == 1.0:  # the reference passes weigh 0: the self pass alone, bit for bit
+        assert torch.equal(got, attention_cuda.sdpa_plain(q, k, v))
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_align_duplicate_pass_is_the_self_pass(groups):
+    """A reference view's pass over its own keys and values (broadcast over
+    its group) is its self pass, bit for bit: B3a leaves it out and gives its
+    weight to the self pass."""
+    views, n_ref, H, S, D = 6, 4, 2, 40, 16
+    B = groups * views
+    q, k, v = (to_t(a) for a in _arrays((B, H, S, D), (B, H, S, D), (B, H, S, D), seed=3))
+    own = attention_cuda.sdpa_plain(q, k, v)
+    kg, vg = k.reshape(groups, views, H, S, D), v.reshape(groups, views, H, S, D)
+    for r in range(n_ref):
+        k_r = kg[:, r : r + 1].expand(kg.shape).reshape(B, H, S, D)
+        v_r = vg[:, r : r + 1].expand(vg.shape).reshape(B, H, S, D)
+        ref = attention_cuda.sdpa_plain(q, k_r, v_r)
+        idx = [g * views + r for g in range(groups)]
+        assert torch.equal(ref[idx], own[idx])
+        others = [b for b in range(B) if b not in idx]
+        assert not torch.equal(ref[others], own[others])
+
+
+@pytest.mark.parametrize("case", ["cpu", "groups", "n_ref", "cross"])
+def test_flash_attn_align_refuses(case):
+    """B3a takes CUDA tensors of a self-attention whose batch is whole CFG
+    groups with at most V references; anything else raises before a launch."""
+    shapes = dict(q=(10, 2, 16, 40), kv=(10, 2, 16, 40), n_ref=4, groups=2)
+    if case == "groups":
+        shapes["q"] = shapes["kv"] = (9, 2, 16, 40)
+    elif case == "n_ref":
+        shapes["n_ref"] = 6  # 5 views a group
+    elif case == "cross":
+        shapes["kv"] = (10, 2, 77, 40)
+    q, k, v = (to_t(a) for a in _arrays(shapes["q"], shapes["kv"], shapes["kv"]))
+    launches = attention_cuda.align_launches
+    with pytest.raises(ValueError, match="CUDA" if case == "cpu" else "flash_attn_align"):
+        attention_cuda.flash_attn_align(q, k, v, 0.6, shapes["n_ref"], shapes["groups"])
+    assert attention_cuda.align_launches == launches
+
+
+def test_cross_view_processor_counts_split_on_the_cpu():
+    """On CPU tensors AttnAlign's self-attention is the five-call
+    composition, counted ``attn.align.split``; a cross-attention counts
+    nothing."""
+    from gaussctrl_exp_tpu_torch.utils import trace
+
+    q, k, v = (to_t(a) for a in _arrays((10, 2, 24, 16), (10, 2, 24, 16), (10, 2, 24, 16), seed=8))
+    ctx = to_t(_arrays((10, 2, 77, 16), seed=9)[0])
+    proc = tatt.make_cross_view_processor(0.6, 4)
+    trace.reset(trace.CAPACITY)
+    trace.enable()
+    try:
+        proc(q, k, v, False)
+        proc(q, ctx, ctx, True)
+        proc(q, k, v, False)
+        counts = trace.counters()
+    finally:
+        trace.disable()
+        trace.reset(trace.CAPACITY)
+    assert counts == {"attn.align.split": 2}
+
+
 def _flax(module, *args, seed=0, **kw):
     params = module.init(jax.random.PRNGKey(seed), *args, **kw)["params"]
     return params, np.asarray(module.apply({"params": params}, *args, **kw))

@@ -488,6 +488,112 @@ def test_flash_attn_f32_misaligned_input_is_copied(cuda_device):
     torch.testing.assert_close(got, attention_cuda.flash_attn(q, k, v), rtol=0, atol=0)
 
 
+# ---------------------------------------------------------------- kernel B3a
+
+def _check_align(q, k, v, coeff, n_ref, groups):
+    """B3a against align_attn_plain in fp32 on the upcast inputs, at B3's
+    limits (bf16: max |d| ≤ 1e-2·max|plain|, relative L2 ≤ 5e-3; fp32:
+    relative L2 ≤ 1e-5), one launch counted, K and V read in place."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    before, copies = attention_cuda.align_launches, attention_cuda.copies
+    got = attention_cuda.flash_attn_align(q, k, v, coeff, n_ref, groups)
+    torch.cuda.synchronize()
+    assert attention_cuda.align_launches == before + 1 and attention_cuda.copies == copies
+    assert got.shape == q.shape and got.dtype == q.dtype
+    want = attention_cuda.align_attn_plain(q.float(), k.float(), v.float(), coeff, n_ref, groups)
+    d = got.float() - want
+    rel = float(d.norm() / want.norm())
+    if q.dtype == torch.bfloat16:
+        assert float(d.abs().max()) <= 1e-2 * float(want.abs().max()), float(d.abs().max())
+        assert rel <= 5e-3, rel
+    else:
+        assert rel <= 1e-5, rel
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [16, 40, 80, 160])
+@pytest.mark.parametrize("views,n_ref,groups,S", [(9, 4, 2, 256), (5, 4, 2, 200), (7, 1, 1, 130), (3, 3, 2, 65)])
+def test_flash_attn_align_matches_plain(cuda_device, dtype, D, views, n_ref, groups, S):
+    _check_align(*_qkv(cuda_device, dtype, groups * views, 2, S, S, D, seed=D + S + views), 0.6, n_ref, groups)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [16, 40, 80, 160])
+def test_flash_attn_align_coefficient_one_is_b3(cuda_device, dtype, D):
+    """Coefficient 1 weighs the reference passes 0: B3's output, bit for bit
+    where B3a's tiles are B3's (all but bf16 D = 80, whose ring stages hold 16
+    keys, not 32), else within B3's limits of it."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    q, k, v = _qkv(cuda_device, dtype, 10, 2, 200, 200, D, seed=D)
+    got = _check_align(q, k, v, 1.0, 4, 2)
+    b3 = attention_cuda.flash_attn(q, k, v)
+    if dtype == torch.bfloat16 and D == 80:
+        assert float((got.float() - b3.float()).abs().max()) <= 1e-2 * float(b3.float().abs().max())
+    else:
+        assert torch.equal(got, b3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attn_align_strided_heads_and_repeats(cuda_device, dtype):
+    """The head split's transposed views go in without a copy and give what
+    the contiguous tensors give; two runs give the same bits."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    B, H, S, D = 18, 4, 96, 40
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    mk = lambda: torch.randn((B, S, H * D), generator=gen).to(cuda_device, dtype).view(B, S, H, D).transpose(1, 2)
+    q, k, v = mk(), mk(), mk()
+    assert not q.is_contiguous()
+    got = _check_align(q, k, v, 0.6, 4, 2)
+    assert torch.equal(got, attention_cuda.flash_attn_align(q.contiguous(), k.contiguous(), v.contiguous(),
+                                                            0.6, 4, 2))
+    assert torch.equal(got, attention_cuda.flash_attn_align(q, k, v, 0.6, 4, 2))
+
+
+@pytest.mark.cuda
+def test_flash_attn_align_refuses_what_it_does_not_take(cuda_device):
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 10, 2, 32, 32, 40)
+    with pytest.raises(ValueError):  # no backward
+        with torch.enable_grad():
+            attention_cuda.flash_attn_align(q.requires_grad_(), k, v, 0.6, 4, 2)
+    q.requires_grad_(False)
+    with pytest.raises(ValueError):  # 10 is not 3 CFG groups
+        attention_cuda.flash_attn_align(q, k, v, 0.6, 4, 3)
+    with pytest.raises(ValueError):  # 6 references in groups of 5 views
+        attention_cuda.flash_attn_align(q, k, v, 0.6, 6, 2)
+    with pytest.raises(ValueError):  # a cross-attention
+        attention_cuda.flash_attn_align(q, k[:, :, :16], v[:, :, :16], 0.6, 4, 2)
+    with pytest.raises(TypeError):  # mixed types
+        attention_cuda.flash_attn_align(q, k.float(), v, 0.6, 4, 2)
+
+
+@pytest.mark.cuda
+def test_cross_view_processor_launches_b3a_on_the_card(cuda_device, tracing):
+    """AttnAlign's self-attention on CUDA tensors is one B3a launch, counted
+    ``attn.align.fused``; its cross-attention one B3 launch."""
+    from gaussctrl_exp_tpu_torch.diffusion.attention import make_cross_view_processor
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 18, 2, 64, 64, 40, seed=2)
+    ctx = _qkv(cuda_device, torch.bfloat16, 18, 2, 77, 77, 40, seed=3)[0]
+    proc = make_cross_view_processor(0.6, 4)
+    b3, b3a = attention_cuda.launches, attention_cuda.align_launches
+    with torch.no_grad():
+        got = proc(q, k, v, False)
+        proc(q, ctx, ctx, True)
+    assert (attention_cuda.launches - b3, attention_cuda.align_launches - b3a) == (1, 1)
+    assert tracing.counters() == {"attn.align.fused": 1}
+    assert torch.equal(got, attention_cuda.flash_attn_align(q, k, v, 0.6, 4, 2))
+
+
 # ------------------------------------------------------- kernels B4 and B5
 
 # B4/B5 against autograd through sdpa_plain in fp32 on the upcast inputs and

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from gaussctrl_exp_tpu_torch.cameras import look_at, make_camera
+from gaussctrl_exp_tpu_torch.diffusion.attention import BasicTransformerBlock
 from gaussctrl_exp_tpu_torch.diffusion.pipeline import EditConfig, GaussCtrlEditPipeline
 from gaussctrl_exp_tpu_torch.diffusion.sd_pipeline import init_random_models
 from gaussctrl_exp_tpu_torch.engine.trainer import TrainConfig, Trainer
@@ -274,8 +275,12 @@ def test_edit_loop_spans_and_counters():
     assert len(texts) == 3 and all(s.parent is None for s in texts)  # the reverse, edit and negative prompts
     assert {s.name for s in spans if s.sync} == {"invert.to_host", "invert.z0_to_host", "edit.to_host",
                                                  "render.bin.sync"}
+    # CPU calls: no CUDA graph, and AttnAlign's self-attentions (one a transformer block in each of the
+    # generation's 2 chunks × 2 steps) composed of five calls
+    blocks = sum(isinstance(m, BasicTransformerBlock) for net in (models.unet, models.controlnet)
+                 for m in net.modules())
     assert trace.counters() == {"invert.views": VIEWS, "edit.chunks": 2, "render.frames": VIEWS,
-                                "sd.eps.eager": 2 * VIEWS + 2 * 2}  # CPU calls: no CUDA graph
+                                "sd.eps.eager": 2 * VIEWS + 2 * 2, "attn.align.split": 2 * 2 * blocks}
     assert sorted(dm.written) == list(range(VIEWS))
 
 
