@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..cameras import Camera
+from ..utils import trace
 from .attention import _sdpa
 from .geometry import depth_to_world_points, project_points, scaled_camera
 
@@ -126,6 +127,7 @@ def make_multires_epipolar_processor(
     if torch.is_tensor(pair_mask):
         pair_mask = pair_mask.detach().cpu().numpy()
     pm = np.asarray(pair_mask) * (1.0 - np.eye(V))  # never "self" pairs
+    pairs, isolated = int((pm != 0).sum()), int((pm.sum(1) == 0).sum())  # per CFG group
 
     def processor(q, k, v, is_cross: bool) -> torch.Tensor:
         B, Hh, S, D = q.shape
@@ -133,20 +135,24 @@ def make_multires_epipolar_processor(
             return _sdpa(q, k, v)
         nbr_idx, nbr_w = tables[S]
         out_self = _sdpa(q, k, v)
-        outs = []
-        for bi in range(B):
-            g, a = divmod(bi, V)
-            total = float(pm[a].sum())
-            if total == 0.0:
-                outs.append(out_self[bi])  # isolated view: pure self-attention
-                continue
-            acc = torch.zeros((Hh, S, D), dtype=q.dtype, device=q.device)
-            for b in range(V):
-                if pm[a, b] != 0.0:
-                    o = epipolar_attention(q[bi], k[g * V + b], v[g * V + b], nbr_idx[a, b], nbr_w[a, b])
-                    acc = acc + o * float(pm[a, b])
-            outs.append(acc / max(total, 1.0))
-        return mix * out_self + (1.0 - mix) * torch.stack(outs)
+        with trace.span("attn.epipolar", unit=S, device=q.device):
+            outs = []
+            for bi in range(B):
+                g, a = divmod(bi, V)
+                total = float(pm[a].sum())
+                if total == 0.0:
+                    outs.append(out_self[bi])  # isolated view: pure self-attention
+                    continue
+                acc = torch.zeros((Hh, S, D), dtype=q.dtype, device=q.device)
+                for b in range(V):
+                    if pm[a, b] != 0.0:
+                        o = epipolar_attention(q[bi], k[g * V + b], v[g * V + b], nbr_idx[a, b], nbr_w[a, b])
+                        acc = acc + o * float(pm[a, b])
+                outs.append(acc / max(total, 1.0))
+            out = mix * out_self + (1.0 - mix) * torch.stack(outs)
+        trace.count("attn.epipolar.pairs", pairs * (B // V))
+        trace.count("attn.epipolar.isolated", isolated * (B // V))
+        return out
 
     return processor
 

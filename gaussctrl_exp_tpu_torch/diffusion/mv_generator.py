@@ -24,6 +24,14 @@ Public shapes are the JAX package's NHWC: latents (B, L, L, 4), depth
 latents (V, L, L, 1); the UNet runs NCHW inside. ``jax.random`` has no
 counterpart: ``train_step`` draws the timesteps and the noise from an
 explicit ``torch.Generator``, and ``train_step_at`` takes them as given.
+
+Spans (``utils/trace.py``): ``mvgen.sample`` (device) holds
+``mvgen.prepare``, which holds ``mvgen.depth_to_host`` (sync: the depths
+copied to the host) and ``mvgen.tables`` (device, and sync: the tables at
+each resolution, the overlap ratio, the pair mask read on the host and the
+depth latents), then per step ``mvgen.eps`` (device: the CFG-doubled UNet
+call) and ``mvgen.step`` (the guidance and the scheduler's update). Counters
+``mvgen.steps`` and ``mvgen.views``.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import torch
 
 from ..cameras import Camera
 from ..device import resolve_device
+from ..utils import trace
 from .correspondence import build_correspondence_tables, make_multires_epipolar_processor, overlap_ratio
 from .geometry import resize_bilinear
 from .schedulers import DDIMScheduler, SchedulerConfig
@@ -100,17 +109,21 @@ class DepthGenerator:
         tables (the finest decides the overlap) and the pair mask the
         processor consults."""
         cfg, dev = self.cfg, self.device
-        d2 = [_depth2d(d) for d in depths]
-        dt = [torch.as_tensor(d, device=dev) for d in d2]
-        tables, base_w = {}, None
-        for s in self.attention_resolutions():
-            idx, w = build_correspondence_tables(dt, list(cameras), s, cfg.depth_sigma)
-            tables[s * s] = (idx, w)
-            if base_w is None:
-                base_w = w
-        pair_mask = (overlap_ratio(base_w, cfg.overlap_thresh) >= cfg.min_overlap).float().cpu().numpy()
-        processor = make_multires_epipolar_processor(tables, mix=cfg.mix, pair_mask=pair_mask, unet_chunk_size=2)
-        depth_lat = torch.stack([inverse_depth_latent(d, cfg.latent_size) for d in d2]).to(dev)
+        with trace.span("mvgen.prepare", unit=len(depths)):
+            with trace.span("mvgen.depth_to_host", sync=True):
+                d2 = [_depth2d(d) for d in depths]
+            with trace.span("mvgen.tables", device=dev, sync=True):
+                dt = [torch.as_tensor(d, device=dev) for d in d2]
+                tables, base_w = {}, None
+                for s in self.attention_resolutions():
+                    idx, w = build_correspondence_tables(dt, list(cameras), s, cfg.depth_sigma)
+                    tables[s * s] = (idx, w)
+                    if base_w is None:
+                        base_w = w
+                pair_mask = (overlap_ratio(base_w, cfg.overlap_thresh) >= cfg.min_overlap).float().cpu().numpy()
+                processor = make_multires_epipolar_processor(tables, mix=cfg.mix, pair_mask=pair_mask,
+                                                             unet_chunk_size=2)
+                depth_lat = torch.stack([inverse_depth_latent(d, cfg.latent_size) for d in d2]).to(dev)
         return processor, depth_lat, pair_mask
 
     # --- model evaluation --------------------------------------------------
@@ -137,18 +150,23 @@ class DepthGenerator:
         layout; the carry is float32."""
         cfg, dev = self.cfg, self.device
         V, L = len(depths), cfg.latent_size
-        processor, depth_lat, _ = self.prepare(depths, cameras)
-        ts = self.scheduler.set_timesteps(cfg.num_steps)
-        if init_latents is not None:
-            lat = init_latents.to(dev, torch.float32)
-        else:
-            lat = torch.randn((V, L, L, 4), generator=generator, device=dev)
-        ctx2 = torch.cat([ctx_uncond, ctx_cond], dim=0)
-        dl2 = torch.cat([depth_lat, depth_lat], dim=0)
-        for t in ts:
-            tt = torch.full((2 * V,), int(t), dtype=torch.long, device=dev)
-            eps_u, eps_c = self._eps(torch.cat([lat, lat], dim=0), dl2, tt, ctx2, processor).chunk(2, dim=0)
-            lat = self.scheduler.step(eps_u + cfg.guidance_scale * (eps_c - eps_u), int(t), lat)
+        with trace.span("mvgen.sample", unit=V, device=dev):
+            processor, depth_lat, _ = self.prepare(depths, cameras)
+            ts = self.scheduler.set_timesteps(cfg.num_steps)
+            if init_latents is not None:
+                lat = init_latents.to(dev, torch.float32)
+            else:
+                lat = torch.randn((V, L, L, 4), generator=generator, device=dev)
+            ctx2 = torch.cat([ctx_uncond, ctx_cond], dim=0)
+            dl2 = torch.cat([depth_lat, depth_lat], dim=0)
+            for t in ts:
+                tt = torch.full((2 * V,), int(t), dtype=torch.long, device=dev)
+                with trace.span("mvgen.eps", unit=int(t), device=dev):
+                    eps_u, eps_c = self._eps(torch.cat([lat, lat], dim=0), dl2, tt, ctx2, processor).chunk(2, dim=0)
+                with trace.span("mvgen.step", unit=int(t)):
+                    lat = self.scheduler.step(eps_u + cfg.guidance_scale * (eps_c - eps_u), int(t), lat)
+                trace.count("mvgen.steps")
+        trace.count("mvgen.views", V)
         return lat
 
     # --- training ------------------------------------------------------------
