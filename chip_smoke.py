@@ -81,18 +81,22 @@ Phases (any failure exits non-zero):
  13. the depth generator at full SD1.x width (859,523,844 parameters, fp32,
      random weights) on 4 rendered views: one step's gradient through
      B3/B4/B5 against the same step through ``sdpa_plain``; 3 Adam steps of
-     ``train_step`` with B3, B4 and B5 launches read around them; 4-step
-     ``sample`` at CFG batch 8; the tiny generator's step card vs CPU.
+     ``train_step`` with B3, B4 and B5 launches read around them (and no
+     E1: autograd records the epipolar term); 4-step ``sample`` at CFG
+     batch 8, E1 once a mixing self-attention; the tiny generator's step
+     card vs CPU.
  14. the experimental paths at full width in bf16 on phase 10's caches:
-     ``edit_images`` with the correspondence and the triplane processors
-     (5 steps instead of 20), ``SDInpaintPipeline.inpaint_images`` on one
+     ``edit_images`` with the correspondence (E1 in bf16) and the triplane
+     processors (5 steps instead of 20), ``SDInpaintPipeline.inpaint_images`` on one
      view, ``render_noise_mask`` on one view's depth (B1 counted).
  15. timings: the generator's train step by stage, its busy share and B4 +
      B5's share of the backward (torch.profiler); B4 and B5, bf16 and fp32,
      at every phase-12 shape against their bounds, the exponentials' floor
      beside them, and the backward of ``scaled_dot_product_attention``, by
      device time with the SM clock read around each, with B4's query splits;
-     a sampling step and the correspondence processor's share of it.
+     a sampling step and the correspondence processor's share of it; E1 at
+     the four mixing shapes against the plain composition and its bytes
+     floor.
  16. kernel B1v (csrc/blend_variants.cu, the six blend-forward ablations)
      against its plain version per mode on the variant script's scene
      (35,000 gaussians, 512²), a sparse one with empty tiles, the 500×372
@@ -838,6 +842,81 @@ def align_row(dev) -> dict:
                 composition_ms=split_ms)
 
 
+# E1 at the depth generator's four mixing self-attentions (S, D): CFG batch 8
+# of 4 views, 8 heads, all 12 ordered pairs kept, float32 as the cell runs it
+E1_SHAPES = [(4096, 40), (1024, 80), (256, 160), (64, 160)]
+E1_B, E1_V, E1_H = 8, 4, 8
+
+
+def epipolar_inputs(S, D, seed, dev):
+    """q, k, v as the UNet hands them (its (B, S, H·D) projections split into
+    heads), the self-attention (B3), and tables shaped as a reprojection's:
+    pair (a, b)'s taps the 3×3 neighbourhood of the token shifted by (b − a)
+    eighths of the grid (clamped), weights uniform with a fifth of them 0."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda: torch.randn((E1_B, S, E1_H * D), generator=gen, device=dev).view(E1_B, S, E1_H, D).transpose(1, 2)
+    q, k, v = mk(), mk(), mk()
+    side = int(round(S ** 0.5))
+    y, x = torch.meshgrid(torch.arange(side, device=dev), torch.arange(side, device=dev), indexing="ij")
+    idx = torch.empty((E1_V, E1_V, S, 9), dtype=torch.long, device=dev)
+    for a in range(E1_V):
+        for b in range(E1_V):
+            sx, sy = x + (b - a) * side // 8, y + (a - b) * side // 16
+            idx[a, b] = torch.stack([((sy + t // 3 - 1).clamp(0, side - 1) * side
+                                      + (sx + t % 3 - 1).clamp(0, side - 1)).reshape(-1) for t in range(9)], -1)
+    w = torch.rand((E1_V, E1_V, S, 9), generator=gen, device=dev)
+    w[w < 0.2] = 0.0
+    return q, k, v, attention_cuda.flash_attn(q, k, v), idx, w
+
+
+def epipolar_rows(dev) -> dict:
+    """E1 at the generator's four mixing shapes against the plain composition
+    it replaced (``epipolar_mix_plain``, the processor's CPU and autograd
+    path): checked (relative L2 ≤ 1e-5 in fp32), then by device time (E1;
+    the composition's every device op, ``plain_device_ms``), by CUDA events
+    around back-to-back calls (host-bound for the composition: ``plain_ms``)
+    and against ``benchmark/counts/epipolar.py``'s bytes floor of the 24
+    attended pairs at HBM's rate; printed, with the SM clock."""
+    from benchmark.counts.epipolar import pair_bytes
+    from benchmark.counts.peaks import PEAK_BYTES_S
+    from gaussctrl_exp_tpu_torch.diffusion.correspondence import epipolar_mix_plain
+    from gaussctrl_exp_tpu_torch.ops import epipolar_cuda
+    from gaussctrl_exp_tpu_torch.utils.timing import device_ops_ms, gpu_clocks, kernel_time_ms
+
+    pm = np.ones((E1_V, E1_V)) - np.eye(E1_V)
+    pairs = int(pm.sum()) * E1_B // E1_V
+    plan = epipolar_cuda.partner_plan(pm, dev)
+    rows = {}
+    for i, (S, D) in enumerate(E1_SHAPES):
+        q, k, v, out_self, idx, w = epipolar_inputs(S, D, 700 + i, dev)
+        tab = epipolar_cuda.convert_tables(idx, w)
+        e1 = lambda: epipolar_cuda.epipolar_attn(q, k, v, out_self, *tab, *plan, 0.5)
+        plain = lambda: epipolar_mix_plain(q, k, v, out_self, idx, w, pm, 0.5)
+        with torch.no_grad():
+            got, want = e1(), plain()
+            rel = float((got - want).norm() / want.norm())
+            if rel > 1e-5:
+                raise SystemExit(f"FAIL: E1 at S = {S}, D = {D} is {rel:.2e} (relative L2) from the plain composition")
+            c0 = gpu_clocks()
+            ms = kernel_time_ms(e1, epipolar_cuda.KERNEL, ATTN_LAUNCHES)
+            c1 = gpu_clocks()
+            plain_dev = sum(device_ops_ms(plain, ATTN_LAUNCHES).values())
+            event_ms = time_ms(e1, iters=20, warmup=2)
+            plain_ms = time_ms(plain, iters=3, warmup=1)
+        floor_ms = pairs * pair_bytes(S, E1_H * D) / PEAK_BYTES_S * 1e3
+        rows[(S, D)] = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms, plain_device_ms=plain_dev, bound_ms=floor_ms,
+                            bound_by="bytes", library_ms=None, rel_l2=rel)
+        print(f"    E1 ({E1_B}, {E1_H}, {S}, {D}) fp32, {pairs} attended pairs: {ms:.4f} ms device time "
+              f"({event_ms:.4f} ms a call in CUDA events); the plain composition {plain_dev:.4f} ms device time in "
+              f"all its ops, {plain_ms:.4f} ms a call in CUDA events; bytes floor {floor_ms:.5f} ms ({floor_ms / ms:.3f} "
+              f"of E1); relative L2 to the plain composition {rel:.2e}; SM clock before / after E1: "
+              f"{clock_text(c0)} | {clock_text(c1)}", flush=True)
+        del q, k, v, out_self, idx, w, tab, got, want
+    return rows
+
+
 def edit_launches(V, cfg, per_eval) -> tuple[int, int]:
     """B3 and B3a launches of ``render_reverse`` and ``edit_images`` over V
     views: the inversion's self- and cross-attention (B3) in each of its V ×
@@ -1369,7 +1448,7 @@ def bwd_rows(dev) -> dict:
     return rows
 
 
-ATTENTION_SOURCES = ("flash_attn_fwd", "flash_attn_bwd")
+ATTENTION_SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "epipolar_attn")
 BLEND_SOURCES = ("blend_fwd", "blend_bwd")
 # the instantiations whose SASS loops --blend counts: B1 as the eval frame
 # runs it (C = 4), B2 as the train step does (C = 3)
@@ -1490,11 +1569,12 @@ def blend_rows(dev, cases) -> dict:
 
 
 def attention_only(dev) -> int:
-    """``--attention``: kernels B3, B3a, B4 and B5 built, B3 and B3a checked at
-    phase 9's shapes, then each alone by device time (the kernel rows of
-    phases 11 and 15: B3, B4 and B5 against SDPA, B3a against today's
-    composition), for a before/after comparison of the attention kernels
-    within one chip call. Prints no kernels line and no result."""
+    """``--attention``: kernels B3, B3a, B4, B5 and E1 built, B3 and B3a
+    checked at phase 9's shapes, then each alone by device time (the kernel
+    rows of phases 11 and 15: B3, B4 and B5 against SDPA, B3a and E1 against
+    the compositions they replaced), for a before/after comparison of the
+    attention kernels within one chip call. Prints no kernels line and no
+    result."""
     from gaussctrl_exp_tpu_torch.ops import cuda_build
     from gaussctrl_exp_tpu_torch.utils.timing import spare_launches
 
@@ -1509,6 +1589,8 @@ def attention_only(dev) -> int:
     align_row(dev)
     print("[15] B4 and B5 alone, by device time")
     bwd_rows(dev)
+    print("[15] E1 against the plain composition")
+    epipolar_rows(dev)
     print(f"spare launches a profiled cycle at the end {spare_launches()}")
     return 0
 
@@ -1798,6 +1880,7 @@ def phase13_mv(dev, state, edit) -> dict:
     against the same step through sdpa_plain, sampling, and the tiny step
     card vs CPU."""
     from gaussctrl_exp_tpu_torch.diffusion.mv_generator import MVGeneratorConfig, init_depth_generator
+    from gaussctrl_exp_tpu_torch.ops import epipolar_cuda
 
     pipe = edit["pipe"]
     t0 = time.perf_counter()
@@ -1856,6 +1939,7 @@ def phase13_mv(dev, state, edit) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    epipolar_cuda.launches = 0
     t0 = time.perf_counter()
     losses = [float(step(x0, dl, ctx, gen_draws)) for _ in range(MV_TRAIN_STEPS)]
     torch.cuda.synchronize()
@@ -1870,29 +1954,36 @@ def phase13_mv(dev, state, edit) -> dict:
     print(f"    {MV_TRAIN_STEPS} Adam({MV_LR}) steps of train_step ({MV_V} views, 64² latents): losses "
           f"{[round(x, 6) for x in losses]} in {train_wall:.3f} s host wall (first step included); launches "
           f"B3 {launches[0]}, B4 {launches[1]}, B5 {launches[2]} (expected {MV_TRAIN_STEPS * n_attn} each: "
-          f"{n_attn} attention calls per step); peak device memory {peak_gb:.2f} GB "
+          f"{n_attn} attention calls per step), E1 {epipolar_cuda.launches} (expected 0: autograd records the "
+          f"epipolar term, which takes the plain composition); peak device memory {peak_gb:.2f} GB "
           f"(torch.cuda.max_memory_allocated); largest |Δ| per block "
           + ", ".join(f"{k} {v:.1e}" for k, v in moved.items()))
-    if launches != (MV_TRAIN_STEPS * n_attn,) * 3 or not all(np.isfinite(losses)) or min(moved.values()) <= 0:
-        raise SystemExit("FAIL: the train steps skipped a kernel, gave a non-finite loss or left a block unmoved")
+    if launches != (MV_TRAIN_STEPS * n_attn,) * 3 or not all(np.isfinite(losses)) or min(moved.values()) <= 0 \
+            or epipolar_cuda.launches != 0:
+        raise SystemExit("FAIL: the train steps skipped a kernel, gave a non-finite loss, left a block unmoved or "
+                         "launched E1 under autograd")
 
     # sampling: 4 DDIM steps, CFG batch 8
     init = torch.randn((MV_V, S // 8, S // 8, 4), generator=torch.Generator(device=dev).manual_seed(13), device=dev)
     unc = pipe._encode([""] * MV_V)
     zero_counts()
+    epipolar_cuda.launches = 0
     t0 = time.perf_counter()
     lat = gen.sample(ctx, unc, depths, cams, init_latents=init)
     torch.cuda.synchronize()
     sample_wall = time.perf_counter() - t0
     sample_launches = counts()
+    e1_launches = epipolar_cuda.launches
     with torch.no_grad():
         imgs = pipe.pipe.latent_to_image(lat).float()
     print(f"    sample: {MV_SAMPLE_STEPS} steps at CFG batch {2 * MV_V} in {sample_wall:.3f} s host wall (prepare "
-          f"included); launches (B3, B4, B5) {sample_launches}; latents {tuple(lat.shape)} std "
+          f"included); launches (B3, B4, B5) {sample_launches}, E1 {e1_launches} (expected {MV_SAMPLE_STEPS} × "
+          f"{n_attn // 2} mixing self-attentions); latents {tuple(lat.shape)} std "
           f"{float(lat.std()):.4f}; decoded images in [{float(imgs.min()):.4f}, {float(imgs.max()):.4f}]")
     if lat.shape != (MV_V, S // 8, S // 8, 4) or not bool(torch.isfinite(lat).all()) \
-            or sample_launches != (MV_SAMPLE_STEPS * n_attn, 0, 0) or not bool(torch.isfinite(imgs).all()):
-        raise SystemExit("FAIL: sampling gave non-finite latents or skipped B3")
+            or sample_launches != (MV_SAMPLE_STEPS * n_attn, 0, 0) or not bool(torch.isfinite(imgs).all()) \
+            or e1_launches != MV_SAMPLE_STEPS * n_attn // 2:
+        raise SystemExit("FAIL: sampling gave non-finite latents or skipped B3 or E1")
 
     # the tiny fp32 train step on the card against the CPU
     tiny = init_depth_generator(0, latent=8, device="cpu", **TINY_GEN)
@@ -1906,7 +1997,7 @@ def phase13_mv(dev, state, edit) -> dict:
         raise SystemExit("FAIL: the tiny train step on the card disagrees with the CPU")
     return dict(gen=gen, opt=opt, proc=proc, dl=dl, ctx=ctx, unc=unc, x0=x0, t=t_fix, noise=noise_fix,
                 launches=launches, train_wall=train_wall, sample_wall=sample_wall, peak_gb=peak_gb, cams=cams,
-                depths=depths)
+                depths=depths, e1_launches=e1_launches)
 
 
 def phase14_experimental(dev, state, cams, targets, edit) -> None:
@@ -1917,7 +2008,7 @@ def phase14_experimental(dev, state, cams, targets, edit) -> None:
     from gaussctrl_exp_tpu_torch.diffusion.pipeline import EditConfig, GaussCtrlEditPipeline
     from gaussctrl_exp_tpu_torch.experimental.noise_mask import NoiseMaskConfig, noise_points, render_noise_mask
     from gaussctrl_exp_tpu_torch.models.splat_model import SplatModelConfig, render_model
-    from gaussctrl_exp_tpu_torch.ops import attention_cuda, blend_cuda
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda, blend_cuda, epipolar_cuda
 
     base = edit["pipe"]
     V = len(cams)
@@ -1929,7 +2020,7 @@ def phase14_experimental(dev, state, cams, targets, edit) -> None:
         for name in ("z0", "disparity", "depths", "unedited"):
             setattr(pipe, name, dict(getattr(base, name)))
         views = EditViews(cams, [t.clone() for t in targets])
-        attention_cuda.launches = 0
+        attention_cuda.launches = epipolar_cuda.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pipe.edit_images(views)
@@ -1937,12 +2028,14 @@ def phase14_experimental(dev, state, cams, targets, edit) -> None:
         wall = time.perf_counter() - t0
         imgs = torch.stack(views.images)
         print(f"    edit_images with attn_processor={proc!r}, {EXP_STEPS} steps (cut from 20): {wall:.3f} s host "
-              f"wall; B3 launches {attention_cuda.launches}; written back {sorted(views.writes)}; images in "
-              f"[{float(imgs.min()):.4f}, {float(imgs.max()):.4f}], mean |edited − render| "
-              f"{float((imgs - torch.stack(targets)).abs().mean()):.4f}")
+              f"wall; B3 launches {attention_cuda.launches}, E1 {epipolar_cuda.launches}; written back "
+              f"{sorted(views.writes)}; images in [{float(imgs.min()):.4f}, {float(imgs.max()):.4f}], mean "
+              f"|edited − render| {float((imgs - torch.stack(targets)).abs().mean()):.4f}")
         if sorted(views.writes) != list(range(V)) or not bool(torch.isfinite(imgs).all()) \
-                or float(imgs.min()) < 0 or float(imgs.max()) > 1 or attention_cuda.launches == 0:
-            raise SystemExit(f"FAIL: the {proc} edit did not write every view once in [0, 1] through B3")
+                or float(imgs.min()) < 0 or float(imgs.max()) > 1 or attention_cuda.launches == 0 \
+                or (epipolar_cuda.launches > 0) != (proc == "correspondence"):
+            raise SystemExit(f"FAIL: the {proc} edit did not write every view once in [0, 1] through B3 (and E1 "
+                             "for the correspondence processor)")
 
     ip = SDInpaintPipeline(base.pipe, InpaintConfig(num_steps=INPAINT_STEPS))
     img = targets[0][None].float()
@@ -2052,7 +2145,8 @@ def phase15_timings(dev, mv) -> dict:
     """The train step by stage, its busy share and B4 + B5's share of the
     backward; B4 and B5 at every phase-12 shape against their bounds, the
     plain version and SDPA's backward; a sampling step and the
-    correspondence processor's share of it."""
+    correspondence processor's share of it; E1 at the four mixing shapes
+    against the plain composition and its bytes floor."""
     from gaussctrl_exp_tpu_torch.diffusion.attention import default_processor
     from gaussctrl_exp_tpu_torch.ops import attention_cuda
     from gaussctrl_exp_tpu_torch.utils.timing import device_window
@@ -2094,6 +2188,8 @@ def phase15_timings(dev, mv) -> dict:
           f"{sample_win['part_ms'] / sample_win['device_ms']:.3f}; {busy_text(sample_win)}; "
           f"phase 13's sample {mv['sample_wall'] / MV_SAMPLE_STEPS * 1e3:.1f} ms per step host wall (prepare "
           f"included)")
+    print("    E1 against the plain composition at the generator's mixing shapes")
+    mains["epipolar"] = epipolar_rows(dev)
     return mains
 
 
@@ -4213,6 +4309,15 @@ def main(argv=None) -> int:
         "max_abs_err": flash_errs[("align", torch.bfloat16)],
         **flash["align"],
         "segment_cli_launches": seg19["b3a"],
+    }, {
+        "name": "epipolar_attn",
+        "route": "cuda",
+        "source": "gaussctrl_exp_tpu_torch/csrc/epipolar_attn.cu",
+        "replaces": "none: gaussctrl_exp_tpu/diffusion/correspondence.py make_multires_epipolar_processor's per-pair "
+                    "gathers, einsums and softmax (XLA); added so that each mixing self-attention's term is one launch",
+        "launches": mv["e1_launches"],
+        "max_abs_err": None,
+        **bwd["epipolar"][E1_SHAPES[0]],
     }, {
         "name": "group_norm_nhwc",
         "route": "cuda",

@@ -4,9 +4,19 @@ Port of ``gaussctrl_exp_tpu/diffusion/correspondence.py``. For each pixel of
 view a, its depth is unprojected to a world point and reprojected into view
 b, and the pixel attends only to the 3×3 neighbourhood around the hit, with a
 depth-consistency weight exp(−|z_reproj − depth_b|/σ) added to the logits as
-its log. The 9-tap gather and the small softmax are plain torch (gather +
-einsum), as the JAX package leaves them to XLA; the self-attention beside
-them is ``_sdpa`` (kernel B3 on the card, B4 and B5 under autograd).
+its log. The self-attention beside the term is ``_sdpa`` (kernel B3 on the
+card, B4 and B5 under autograd).
+
+Which path runs the term (``make_multires_epipolar_processor``) follows what
+the processor observes in its input. CUDA tensors in float32 or bf16 that
+autograd does not record (sampling, and the edit loop's "correspondence"
+processor) take kernel E1 (``ops/epipolar_cuda.py``): one launch a mixing
+self-attention, counted ``attn.epipolar.fused``. CPU tensors, and every call
+that autograd records (the generator's training: E1 has no backward), take
+the plain version ``epipolar_mix_plain``, the JAX package's composition of
+a 9-tap gather, two einsums and a softmax per ordered view pair, counted
+``attn.epipolar.split``. The processor converts its tables and pair mask to
+E1's form once, when it is built.
 """
 
 from __future__ import annotations
@@ -15,11 +25,10 @@ import numpy as np
 import torch
 
 from ..cameras import Camera
+from ..ops import epipolar_cuda
 from ..utils import trace
 from .attention import _sdpa
 from .geometry import depth_to_world_points, project_points, scaled_camera
-
-_OFFSETS = [(-1, -1), (0, -1), (1, -1), (-1, 0), (0, 0), (1, 0), (-1, 1), (0, 1), (1, 1)]
 
 
 def correspondence_weights(
@@ -42,16 +51,14 @@ def correspondence_weights(
     d_b = depth_b[stride // 2 :: stride, stride // 2 :: stride][:feat_hw, :feat_hw]
 
     xr, yr = torch.round(xy_b[..., 0]).long(), torch.round(xy_b[..., 1]).long()
-    idxs, ws = [], []
-    for ox, oy in _OFFSETS:
-        xb, yb = xr + ox, yr + oy
-        inside = (xb >= 0) & (xb < feat_hw) & (yb >= 0) & (yb < feat_hw) & (z_b > 0)
-        xb, yb = xb.clamp(0, feat_hw - 1), yb.clamp(0, feat_hw - 1)
-        # depth consistency against view b's own depth at the tap
-        w = torch.exp(-(z_b - d_b[yb, xb]).abs() / sigma) * inside
-        idxs.append((yb * feat_hw + xb).reshape(-1))
-        ws.append(w.reshape(-1))
-    return torch.stack(idxs, dim=-1), torch.stack(ws, dim=-1)
+    # tap t at (t % 3 − 1, t // 3 − 1): the 3×3 neighbourhood row by row, the JAX package's _OFFSETS
+    tap = torch.arange(9, device=xr.device)
+    xb, yb = xr[..., None] + (tap % 3 - 1), yr[..., None] + (tap // 3 - 1)
+    inside = (xb >= 0) & (xb < feat_hw) & (yb >= 0) & (yb < feat_hw) & (z_b > 0)[..., None]
+    xb, yb = xb.clamp(0, feat_hw - 1), yb.clamp(0, feat_hw - 1)
+    # depth consistency against view b's own depth at the tap
+    w = torch.exp(-(z_b[..., None] - d_b[yb, xb]).abs() / sigma) * inside
+    return (yb * feat_hw + xb).reshape(-1, 9), w.reshape(-1, 9)
 
 
 def epipolar_attention(
@@ -128,33 +135,51 @@ def make_multires_epipolar_processor(
         pair_mask = pair_mask.detach().cpu().numpy()
     pm = np.asarray(pair_mask) * (1.0 - np.eye(V))  # never "self" pairs
     pairs, isolated = int((pm != 0).sum()), int((pm.sum(1) == 0).sum())  # per CFG group
+    fused = {S: epipolar_cuda.convert_tables(i, w) for S, (i, w) in tables.items()}
+    plan = epipolar_cuda.partner_plan(pm, some[0].device)
 
     def processor(q, k, v, is_cross: bool) -> torch.Tensor:
-        B, Hh, S, D = q.shape
+        B, _, S, _ = q.shape
         if is_cross or S not in tables or B % V != 0:
             return _sdpa(q, k, v)
-        nbr_idx, nbr_w = tables[S]
         out_self = _sdpa(q, k, v)
         with trace.span("attn.epipolar", unit=S, device=q.device):
-            outs = []
-            for bi in range(B):
-                g, a = divmod(bi, V)
-                total = float(pm[a].sum())
-                if total == 0.0:
-                    outs.append(out_self[bi])  # isolated view: pure self-attention
-                    continue
-                acc = torch.zeros((Hh, S, D), dtype=q.dtype, device=q.device)
-                for b in range(V):
-                    if pm[a, b] != 0.0:
-                        o = epipolar_attention(q[bi], k[g * V + b], v[g * V + b], nbr_idx[a, b], nbr_w[a, b])
-                        acc = acc + o * float(pm[a, b])
-                outs.append(acc / max(total, 1.0))
-            out = mix * out_self + (1.0 - mix) * torch.stack(outs)
+            if epipolar_cuda.takes(q, k, v):
+                trace.count("attn.epipolar.fused")
+                out = epipolar_cuda.epipolar_attn(q, k, v, out_self, *fused[S], *plan, mix)
+            else:
+                trace.count("attn.epipolar.split")
+                out = epipolar_mix_plain(q, k, v, out_self, *tables[S], pm, mix)
         trace.count("attn.epipolar.pairs", pairs * (B // V))
         trace.count("attn.epipolar.isolated", isolated * (B // V))
         return out
 
     return processor
+
+
+def epipolar_mix_plain(q, k, v, out_self, nbr_idx, nbr_w, pm: np.ndarray, mix: float) -> torch.Tensor:
+    """The epipolar term mixed into the self-attention ``out_self`` of q, k, v
+    (B, H, S, D), B = CFG groups × V views, with the (V, V, S, 9) tables and
+    the (V, V) pair mask ``pm`` (its diagonal 0): for each row (g, a),
+    ``mix · out_self + (1 − mix) · Σ_b pm[a, b] · epipolar_attention(a → g·V +
+    b) / max(Σ_b pm[a, b], 1)``, a row with no partner keeping its
+    self-attention. Kernel E1's plain version, one pair at a time."""
+    B, Hh, S, D = q.shape
+    V = pm.shape[0]
+    outs = []
+    for bi in range(B):
+        g, a = divmod(bi, V)
+        total = float(pm[a].sum())
+        if total == 0.0:
+            outs.append(out_self[bi])  # isolated view: pure self-attention
+            continue
+        acc = torch.zeros((Hh, S, D), dtype=q.dtype, device=q.device)
+        for b in range(V):
+            if pm[a, b] != 0.0:
+                o = epipolar_attention(q[bi], k[g * V + b], v[g * V + b], nbr_idx[a, b], nbr_w[a, b])
+                acc = acc + o * float(pm[a, b])
+        outs.append(acc / max(total, 1.0))
+    return mix * out_self + (1.0 - mix) * torch.stack(outs)
 
 
 def build_correspondence_tables(depths, cameras, feat_hw: int, sigma: float = 0.1):

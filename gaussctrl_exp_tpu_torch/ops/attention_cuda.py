@@ -107,14 +107,14 @@ def reads_in_place(shape, strides, data_ptr: int, dtype: torch.dtype) -> bool:
             and all(st % per_16 == 0 for n, st in zip(shape[:-1], strides[:-1]) if n > 1))
 
 
-def _strided(name: str, t: torch.Tensor) -> torch.Tensor:
+def _strided(name: str, t: torch.Tensor, fn: str = "flash_attn") -> torch.Tensor:
     """``t`` as the kernel reads it: ``t`` itself where ``reads_in_place``,
     else a contiguous copy in a fresh (aligned) allocation, counted in
     ``copies``."""
     global copies
     if reads_in_place(t.shape, t.stride(), t.data_ptr(), t.dtype):
         return t
-    warnings.warn(f"flash_attn: {name} with strides {t.stride()} at {t.data_ptr() % 16} bytes past a 16-byte "
+    warnings.warn(f"{fn}: {name} with strides {t.stride()} at {t.data_ptr() % 16} bytes past a 16-byte "
                   "boundary is copied to a contiguous tensor", stacklevel=3)
     copies += 1
     return t.clone(memory_format=torch.contiguous_format)

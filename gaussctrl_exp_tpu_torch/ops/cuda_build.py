@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (B1 to B5, B1v and N1).
+"""Build and load the port's CUDA kernels (B1 to B5, B1v, N1 and E1).
 
 Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
 plain-C shared library, keyed by a hash of the source, the headers it
@@ -26,6 +26,7 @@ SOURCES = {
     "flash_attn_bwd": _PKG / "csrc" / "flash_attn_bwd.cu",
     "blend_variants": _PKG / "csrc" / "blend_variants.cu",
     "group_norm_nhwc": _PKG / "csrc" / "group_norm_nhwc.cu",
+    "epipolar_attn": _PKG / "csrc" / "epipolar_attn.cu",
 }
 BUILD_DIR = _PKG / "_build"
 # B1, B2 and B1v write the roundings that must match the plain version

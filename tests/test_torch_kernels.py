@@ -1,5 +1,6 @@
 """Kernels B1 and B2 (the CUDA tile blend and its backward), B3 (the
-flash-attention forward), B4, B5 (its backward), B1v (the blend-forward
+flash-attention forward), B3a (AttnAlign's self-attention), E1 (the depth
+generator's epipolar term), B4, B5 (B3's backward), B1v (the blend-forward
 ablations) and N1 (the NHWC GroupNorm + SiLU) against their plain PyTorch
 versions; and the CUDA graph of the edit path's channels-last ControlNet +
 UNet evaluation against its eager calls.
@@ -592,6 +593,163 @@ def test_cross_view_processor_launches_b3a_on_the_card(cuda_device, tracing):
     assert (attention_cuda.launches - b3, attention_cuda.align_launches - b3a) == (1, 1)
     assert tracing.counters() == {"attn.align.fused": 1}
     assert torch.equal(got, attention_cuda.flash_attn_align(q, k, v, 0.6, 4, 2))
+
+
+# ---------------------------------------------------------------- kernel E1
+
+E1_V = 4  # views a CFG group
+# the depth generator's four mixing self-attentions (S, D) at 8 heads, CFG batch 8
+E1_SHAPES = [(4096, 40), (1024, 80), (256, 160), (64, 160)]
+# non-unit weights, view 3 isolated, view 2 with one partner
+E1_PARTIAL = np.array([[1, 0.5, 0, 2], [1, 1, 0.25, 0], [0, 3, 1, 0], [0, 0, 0, 1]], np.float32)
+
+
+def _e1_inputs(device, dtype, S, D, B=2 * E1_V, H=8, seed=0):
+    """q, k, v as the UNet hands them (its (B, S, H·D) projections split into
+    heads: strided views), and random (V, V, S, 9) tables with dead taps."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    mk = lambda: torch.randn((B, S, H * D), generator=gen).to(device, dtype).view(B, S, H, D).transpose(1, 2)
+    q, k, v = mk(), mk(), mk()
+    idx = torch.randint(0, S, (E1_V, E1_V, S, 9), generator=gen)
+    w = torch.rand((E1_V, E1_V, S, 9), generator=gen)
+    w[w < 0.2] = 0.0
+    return q, k, v, idx.to(device), w.to(device)
+
+
+def _e1(q, k, v, out_self, idx, w, pm, mix):
+    from gaussctrl_exp_tpu_torch.ops import epipolar_cuda
+
+    return epipolar_cuda.epipolar_attn(q, k, v, out_self, *epipolar_cuda.convert_tables(idx, w),
+                                       *epipolar_cuda.partner_plan(pm, q.device), mix)
+
+
+def _check_e1(q, k, v, idx, w, pair_mask=None, mix=0.5):
+    """E1 on B3's self-attention against the plain composition in fp32 on the
+    upcast inputs and the same self-attention, at B3's limits (bf16: max |d|
+    ≤ 1e-2·max|plain|, relative L2 ≤ 5e-3; fp32: relative L2 ≤ 1e-5), one
+    launch counted, nothing copied. Returns E1's output, the plain one and the
+    pair mask."""
+    from gaussctrl_exp_tpu_torch.diffusion.correspondence import epipolar_mix_plain
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda, epipolar_cuda
+
+    pm = (np.ones((E1_V, E1_V)) if pair_mask is None else pair_mask) * (1.0 - np.eye(E1_V))
+    out_self = attention_cuda.flash_attn(q, k, v)
+    before, copies = epipolar_cuda.launches, attention_cuda.copies
+    got = _e1(q, k, v, out_self, idx, w, pm, mix)
+    torch.cuda.synchronize()
+    assert epipolar_cuda.launches == before + 1 and attention_cuda.copies == copies
+    assert got.shape == q.shape and got.dtype == q.dtype
+    want = epipolar_mix_plain(q.float(), k.float(), v.float(), out_self.float(), idx, w, pm, mix)
+    d = got.float() - want
+    rel = float(d.norm() / want.norm())
+    if q.dtype == torch.bfloat16:
+        assert float(d.abs().max()) <= 1e-2 * float(want.abs().max()), float(d.abs().max())
+        assert rel <= 5e-3, rel
+    else:
+        assert rel <= 1e-5, rel
+    return got, want, pm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,D", E1_SHAPES)
+def test_epipolar_attn_matches_plain(cuda_device, dtype, S, D):
+    _check_e1(*_e1_inputs(cuda_device, dtype, S, D, seed=S + D))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mix", [0.5, 0.3])
+def test_epipolar_attn_partial_pair_mask_and_isolated_view(cuda_device, dtype, mix):
+    """Non-unit pair weights over one and two partners; the isolated view's
+    rows are the plain version's bits (its three roundings of the mix of the
+    self-attention with itself)."""
+    got, want, pm = _check_e1(*_e1_inputs(cuda_device, dtype, 1024, 80, seed=11), E1_PARTIAL, mix)
+    alone = [bi for bi in range(2 * E1_V) if not pm[bi % E1_V].any()]
+    assert alone == [3, 7]
+    assert torch.equal(got[alone], want[alone].to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_epipolar_attn_strided_heads_and_repeats(cuda_device, dtype):
+    """The UNet's head-split views go in without a copy and give what
+    contiguous tensors give; two runs give the same bits."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    q, k, v, idx, w = _e1_inputs(cuda_device, dtype, 256, 160, seed=5)
+    assert not q.is_contiguous()
+    got, _, pm = _check_e1(q, k, v, idx, w, E1_PARTIAL)
+    out_self = attention_cuda.flash_attn(q, k, v)
+    assert torch.equal(got, _e1(q.contiguous(), k.contiguous(), v.contiguous(), out_self.contiguous(), idx, w, pm,
+                                0.5))
+    assert torch.equal(got, _e1(q, k, v, out_self, idx, w, pm, 0.5))
+
+
+@pytest.mark.cuda
+def test_epipolar_attn_misaligned_input_is_copied(cuda_device):
+    """A value tensor 4 bytes past a 16-byte boundary is copied to an aligned
+    tensor and counted, not read in place (E1 loads 16 bytes at a time)."""
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda
+
+    q, k, v, idx, w = _e1_inputs(cuda_device, torch.float32, 256, 40, seed=9)
+    flat = torch.zeros(v.numel() + 1, dtype=v.dtype, device=cuda_device)
+    v_off = flat[1:].view(v.shape)
+    v_off.copy_(v)
+    assert v_off.data_ptr() % 16 == 4
+    pm = np.ones((E1_V, E1_V)) - np.eye(E1_V)
+    out_self = attention_cuda.flash_attn(q, k, v)
+    copies = attention_cuda.copies
+    with pytest.warns(UserWarning, match="copied"):
+        got = _e1(q, k, v_off, out_self, idx, w, pm, 0.5)
+    assert attention_cuda.copies == copies + 1
+    assert torch.equal(got, _e1(q, k, v, out_self, idx, w, pm, 0.5))
+
+
+@pytest.mark.cuda
+def test_epipolar_attn_refuses_what_it_does_not_take(cuda_device):
+    from gaussctrl_exp_tpu_torch.ops import attention_cuda, epipolar_cuda
+
+    q, k, v, idx, w = _e1_inputs(cuda_device, torch.float32, 64, 40)
+    pm = np.ones((E1_V, E1_V)) - np.eye(E1_V)
+    out_self = attention_cuda.flash_attn(q, k, v)
+    with pytest.raises(ValueError):  # no backward
+        with torch.enable_grad():
+            _e1(q.detach().requires_grad_(), k, v, out_self, idx, w, pm, 0.5)
+    with pytest.raises(ValueError):  # 8 rows are not CFG groups of 3 views
+        _e1(q, k, v, out_self, idx[:3, :3], w[:3, :3], pm[:3, :3], 0.5)
+    with pytest.raises(ValueError):  # int64 indices: the tables were not converted
+        epipolar_cuda.epipolar_attn(q, k, v, out_self, idx, torch.log(w.clamp(min=1e-12)),
+                                    *epipolar_cuda.partner_plan(pm, q.device), 0.5)
+    with pytest.raises(ValueError):  # mixed types
+        _e1(q, k.to(torch.bfloat16), v, out_self, idx, w, pm, 0.5)
+    with pytest.raises(ValueError):  # a head width that is not a multiple of 8
+        q12, k12, v12, idx12, w12 = _e1_inputs(cuda_device, torch.float32, 64, 12)
+        _e1(q12, k12, v12, q12, idx12, w12, pm, 0.5)
+
+
+@pytest.mark.cuda
+def test_epipolar_processor_takes_e1_on_the_card(cuda_device, tracing):
+    """The generator's processor on CUDA tensors takes E1, one launch counted
+    ``attn.epipolar.fused``; a call that autograd records takes the plain
+    composition, counted ``attn.epipolar.split``, and agrees with E1."""
+    from gaussctrl_exp_tpu_torch.diffusion.correspondence import make_multires_epipolar_processor
+    from gaussctrl_exp_tpu_torch.ops import epipolar_cuda
+
+    S, D = 1024, 80
+    q, k, v, idx, w = _e1_inputs(cuda_device, torch.float32, S, D, seed=3)
+    proc = make_multires_epipolar_processor({S: (idx, w)}, mix=0.5, pair_mask=E1_PARTIAL)
+    before = epipolar_cuda.launches
+    with torch.no_grad():
+        fused = proc(q, k, v, False)
+    assert epipolar_cuda.launches == before + 1
+    assert tracing.counters()["attn.epipolar.fused"] == 1 and "attn.epipolar.split" not in tracing.counters()
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        split = proc(*leaves, False)
+    assert epipolar_cuda.launches == before + 1 and split.requires_grad
+    assert tracing.counters()["attn.epipolar.split"] == 1
+    assert float((split.detach() - fused).norm() / split.detach().norm()) <= 1e-5
 
 
 # ------------------------------------------------------- kernels B4 and B5

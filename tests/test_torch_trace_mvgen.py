@@ -3,8 +3,9 @@
 holds ``mvgen.prepare`` (the host copy of the depths, the tables) and a
 ``mvgen.eps`` and ``mvgen.step`` per step; each mixing self-attention's
 cross-view part is one ``attn.epipolar`` span inside the step's ε call; the
-counters count the steps, the views, the ordered pairs attended and the
-rows the pair mask left alone; nothing is recorded before ``enable()`` and
+counters count the steps, the views, the ordered pairs attended, the
+rows the pair mask left alone and the mixing self-attentions that took the
+plain composition (all of them on the CPU); nothing is recorded before ``enable()`` and
 no device span records an event under a profiler alone; and the edit loop's
 "correspondence" processor gives the same spans."""
 
@@ -91,8 +92,9 @@ def test_sample_spans_nest_and_counters_add_up(monkeypatch, min_overlap):
     pairs, alone = int((pm != 0).sum()), int((pm.sum(1) == 0).sum())
     assert (pairs, alone) == ((V * (V - 1), 0) if min_overlap < 1 else (0, V))
     per_call = 2 * layers * STEPS  # CFG groups × mixing layers × steps
+    # on the CPU every mixing self-attention takes the plain composition
     assert trace.counters() == {"mvgen.steps": STEPS, "mvgen.views": V, "attn.epipolar.pairs": pairs * per_call,
-                                "attn.epipolar.isolated": alone * per_call}
+                                "attn.epipolar.isolated": alone * per_call, "attn.epipolar.split": layers * STEPS}
 
 
 def test_nothing_recorded_before_enable_and_no_device_event_under_a_profiler():
