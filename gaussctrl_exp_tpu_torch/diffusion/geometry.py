@@ -5,7 +5,8 @@ Port of ``gaussctrl_exp_tpu/diffusion/geometry.py``:
     camera to world points (pixel centres at +0.5);
   * ``project_points`` maps world points into another view's pixel
     coordinates and depths;
-  * ``bilinear_sample`` samples an (H, W, C) grid with zero padding;
+  * ``bilinear_sample`` samples an (H, W, C) grid with zero padding, at the
+    taps and weights of ``bilinear_taps``;
   * ``resize_bilinear`` resizes a map as ``jax.image.resize(...,
     "bilinear")`` does, which antialiases when it downsamples (the depth
     latent of ``mv_generator.py`` and the inpaint mask).
@@ -87,22 +88,28 @@ def project_points(pts_world: torch.Tensor, camera: Camera) -> tuple[torch.Tenso
     return torch.stack([u - 0.5, v - 0.5], dim=-1), z
 
 
-def bilinear_sample(grid: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    """grid (H, W, C), xy (..., 2) in pixel coords → (..., C) bilinear samples
-    (zero padding outside)."""
-    H, W, _ = grid.shape
+def bilinear_taps(xy: torch.Tensor, H: int, W: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """xy (..., 2) in pixel coords on an H × W grid → the 4 bilinear taps of
+    each point, (4, ...) row-major cell indices (clamped into the grid) and
+    (4, ...) weights, 0 for a tap outside the grid (zero padding)."""
     x, y = xy[..., 0], xy[..., 1]
     x0f, y0f = torch.floor(x), torch.floor(y)
     fx, fy = x - x0f, y - y0f
     x0, y0 = x0f.long(), y0f.long()
-
-    def tap(xi, yi, w):
+    idx, w = [], []
+    for dx, dy, wt in ((0, 0, (1 - fx) * (1 - fy)), (1, 0, fx * (1 - fy)), (0, 1, (1 - fx) * fy), (1, 1, fx * fy)):
+        xi, yi = x0 + dx, y0 + dy
         inside = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
-        return grid[yi.clamp(0, H - 1), xi.clamp(0, W - 1)] * (w * inside)[..., None]
+        idx.append(yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1))
+        w.append(wt * inside)
+    return torch.stack(idx), torch.stack(w)
 
-    return (
-        tap(x0, y0, (1 - fx) * (1 - fy))
-        + tap(x0 + 1, y0, fx * (1 - fy))
-        + tap(x0, y0 + 1, (1 - fx) * fy)
-        + tap(x0 + 1, y0 + 1, fx * fy)
-    )
+
+def bilinear_sample(grid: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """grid (H, W, C), xy (..., 2) in pixel coords → (..., C) bilinear samples
+    (zero padding outside)."""
+    H, W, C = grid.shape
+    idx, w = bilinear_taps(xy, H, W)
+    flat = grid.reshape(H * W, C)
+    return flat[idx[0]] * w[0][..., None] + flat[idx[1]] * w[1][..., None] + flat[idx[2]] * w[2][..., None] \
+        + flat[idx[3]] * w[3][..., None]

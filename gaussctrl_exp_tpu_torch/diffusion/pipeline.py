@@ -225,22 +225,24 @@ class GaussCtrlEditPipeline:
         """Geometry of one chunk for the experimental processors, from the
         depths ``render_reverse`` cached, strided to the feature grid:
         correspondence tables (V, V, S, 9) for "correspondence", world points
-        (V, S, 3) for "triplane"; None for "attn_align"."""
+        (V, S, 3) for "triplane"; None for "attn_align". The host span
+        ``edit.geometry`` holds the build."""
         cfgp = self.cfg
         if cfgp.attn_processor == "attn_align":
             return None
-        fh = max(cfgp.latent_size // max(cfgp.geom_res_divisor, 1), 1)
-        depths = [self._tensor(self.depths[i]) for i in views]
-        cams = [datamanager.camera(i) for i in views]
-        if cfgp.attn_processor == "correspondence":
-            return build_correspondence_tables(depths, cams, fh, cfgp.corr_sigma)
-        # triplane: back-project the strided depths to (V, S, 3) world points
-        pts = []
-        for d, c in zip(depths, cams):
-            stride = max(d.shape[0] // fh, 1)
-            ds = d[stride // 2 :: stride, stride // 2 :: stride][:fh, :fh]
-            pts.append(depth_to_world_points(ds, scaled_camera(c, stride, fh)).reshape(-1, 3))
-        return torch.stack(pts)
+        with trace.span("edit.geometry", unit=len(views)):
+            fh = max(cfgp.latent_size // max(cfgp.geom_res_divisor, 1), 1)
+            depths = [self._tensor(self.depths[i]) for i in views]
+            cams = [datamanager.camera(i) for i in views]
+            if cfgp.attn_processor == "correspondence":
+                return build_correspondence_tables(depths, cams, fh, cfgp.corr_sigma)
+            # triplane: back-project the strided depths to (V, S, 3) world points
+            pts = []
+            for d, c in zip(depths, cams):
+                stride = max(d.shape[0] // fh, 1)
+                ds = d[stride // 2 :: stride, stride // 2 :: stride][:fh, :fh]
+                pts.append(depth_to_world_points(ds, scaled_camera(c, stride, fh)).reshape(-1, 3))
+            return torch.stack(pts)
 
     def _make_processor(self, geom=None):
         cfgp = self.cfg
